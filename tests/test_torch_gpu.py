@@ -1,0 +1,147 @@
+"""The PyTorch port on the card: each hand-written CUDA kernel against its
+plain PyTorch version (which `tests/test_torch_kernels.py` holds to the
+JAX reference), and the decode step and tiered KV cache on CUDA against
+the same code on the CPU.  Imports neither jax nor `repro`, so it runs
+on a GPU machine without them:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+Every test is marked `gpu` and skips where there is no CUDA device."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import smoke_config
+from repro_torch.kernels import ops, ref
+from repro_torch.models import transformer
+from repro_torch.tiering import KVTierConfig, TieredKVCache
+
+pytestmark = pytest.mark.gpu
+
+TOL = {"float32": dict(rtol=2e-5, atol=2e-5),       # tests/test_kernels.py
+       "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+
+
+@pytest.fixture
+def cuda():
+    """The first CUDA device; skips the test where there is none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the hand-written kernels run "
+                    "only on the card")
+    return torch.device("cuda")
+
+
+def ralt_inputs(N):
+    rng = np.random.default_rng(N)
+    return (torch.from_numpy(rng.integers(0, 50, N).astype(np.int32)),
+            torch.from_numpy((rng.random(N) * 5).astype(np.float32)),
+            torch.from_numpy(rng.integers(0, 2, N).astype(np.int8)))
+
+
+@pytest.mark.parametrize("N", [1, 100, 128, 1000, 4096, 5000, 1 << 20])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_ralt_kernel_matches_plain(cuda, N, offset):
+    """Bit for bit, with 16-byte-aligned inputs and with inputs one
+    element off alignment (the scalar path)."""
+    ticks, scores, hits = (x[offset:] for x in ralt_inputs(N + offset))
+    want = ops.ralt_update(ticks, scores, hits, 57, 1.0)
+    before = ops.LAUNCHES["ralt_update"]
+    got = ops.ralt_update(ticks.to(cuda), scores.to(cuda), hits.to(cuda),
+                          torch.tensor(57, dtype=torch.int32, device=cuda),
+                          torch.tensor(1.0, device=cuda))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ralt_update"] == before + 1
+    for x, y in zip(got, want):
+        assert torch.equal(x.cpu(), y)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,KVH,D,valid", [
+    (2, 256, 8, 2, 64, 256), (2, 256, 8, 2, 64, 130), (1, 512, 4, 1, 128, 17),
+    (4, 128, 4, 4, 128, 128), (1, 1024, 8, 4, 256, 700),
+    (4, 168, 32, 8, 128, 1), (4, 168, 32, 8, 128, 129),
+    (2, 4096, 32, 32, 80, 3001), (1, 300, 16, 1, 256, 300)])
+def test_decode_kernel_matches_plain(cuda, B, S, H, KVH, D, valid, dtype):
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+        device=cuda, dtype=getattr(torch, dtype))
+        for shape in ((B, H, D), (B, S, KVH, D), (B, S, KVH, D)))
+    want = ref.decode_attention_ref(q, k, v, valid).float().cpu().numpy()
+    before = ops.LAUNCHES["decode_attention"]
+    got = ops.decode_attention(q, k, v, valid)
+    hm = ops.decode_attention_head_major(
+        q, k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous(),
+        valid)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["decode_attention"] == before + 2
+    for out in (got, hm):
+        assert out.dtype == q.dtype
+        np.testing.assert_allclose(out.float().cpu().numpy(), want,
+                                   **TOL[dtype])
+
+
+def test_decode_kernel_rejects_what_it_does_not_take(cuda):
+    q = torch.zeros(1, 4, 64, device=cuda)
+    k = torch.zeros(1, 32, 2, 64, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.decode_attention(q, k.transpose(1, 2).contiguous().transpose(
+            1, 2), k, 8)
+    with pytest.raises(ValueError, match="float32"):
+        ops.decode_attention(q, k.half(), k.half(), 8)
+    with pytest.raises(ValueError, match="D <= 256"):
+        big = torch.zeros(1, 32, 2, 320, device=cuda)
+        ops.decode_attention(torch.zeros(1, 4, 320, device=cuda), big, big, 8)
+
+
+def test_decode_step_on_card_matches_cpu(cuda):
+    """12 decode steps of the float32 smoke config through the CUDA
+    kernel and through the plain path (TF32 off: full float32 matmuls)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_config("llama3-8b")
+    cpu = torch.device("cpu")
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                     cpu)
+    on_card = {k: ([{n: w.to(cuda) for n, w in layer.items()} for layer in v]
+                   if k == "layers" else v.to(cuda))
+               for k, v in params.items()}
+    caches = (transformer.init_cache(cfg, 3, 16, cpu),
+              transformer.init_cache(cfg, 3, 16, cuda))
+    rng = np.random.default_rng(5)
+    for pos in range(12):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, 3))
+        want = transformer.decode_step(params, cfg, caches[0], toks, pos)
+        got = transformer.decode_step(on_card, cfg, caches[1], toks.to(cuda),
+                                      pos)
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=1e-4, atol=1e-4)
+
+
+def test_tiered_kv_on_card_matches_cpu(cuda):
+    """The same hotspot replay on both devices, with the same threshold
+    draws: identical counters, one RALT launch per read on the card."""
+    def sampler(now, n, n_units):
+        return np.random.default_rng(now).integers(0, n_units, n)
+
+    cfg = KVTierConfig(n_pages=256, fast_slots=32, page_tokens=16,
+                       kv_heads=4, head_dim=32, staging_slots=16,
+                       sweep_every=64)
+    kvs = [TieredKVCache(cfg, hbm_bw=1e12, pcie_bw=1e10, device=d,
+                         sampler=sampler) for d in ("cpu", cuda)]
+    shape = (1, 16, 4, 32)
+    for p in range(256):
+        page = torch.full(shape, float(p % 7))
+        for kv in kvs:
+            kv.write_page(p, page, -page)
+    rng = np.random.default_rng(0)
+    stream = [int(rng.integers(0, 12)) if rng.random() < 0.95
+              else int(rng.integers(0, 256)) for _ in range(1500)]
+    before = ops.LAUNCHES["ralt_update"]
+    for p in stream:
+        got = [kv.read_pages([p])[0].cpu() for kv in kvs]
+        assert torch.equal(got[0], got[1])
+        assert float(got[1][0].flatten()[0]) == p % 7
+    assert ops.LAUNCHES["ralt_update"] == before + len(stream)
+    for name in ("fast_hits", "slow_hits", "promoted", "demoted",
+                 "retained", "aborted", "sweeps", "flushes"):
+        assert getattr(kvs[1].clock, name) == getattr(kvs[0].clock, name)
+    assert kvs[1].clock.promoted > 0
