@@ -4,26 +4,37 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from `src/repro_torch/csrc` and runs
-four phases, each printing one JSON line:
+six phases, each printing one JSON line:
 
   device   the card's name and power limit, and the kernels' build time;
   kernels  each kernel against its plain PyTorch version on the card, at
-           the shapes the serving path gives it and at larger ones, with
-           its time, the plain version's time, one PyTorch call's time
-           where one computes the same function, and its bound;
+           the shapes the serving and training paths give it and at
+           others, with its time, the plain version's time, one PyTorch
+           call's time where one computes the same function, and its bound;
   serve    llama3-8b at full width (32 layers, random bf16 weights from a
            seed) answering 8 requests through `ServeEngine`, after a check
            of the CUDA decode path's logits against the CPU path's;
   tiered   `TieredKVCache` at llama3-8b's KV widths replaying a hotspot
-           stream of single-page reads through the RALT tracker.
+           stream of single-page reads through the RALT tracker;
+  prefill  llama3-8b at full width: a 128-token prefill step against
+           teacher-forced decode steps (last logits and every layer's
+           k/v; the seeded bf16 weights computed in float32, and in bf16
+           for the record), then one timed 4096-token prefill;
+  train    stablelm-3b at full width (bf16 weights, f32 AdamW moments):
+           one step's loss and gradient norm with the flash kernel against
+           the same step with the plain attention core, then 4 train
+           steps of 2 x 4096 tokens (2 microbatches) from `LMPipeline`,
+           with the reference's default options (100 warmup steps).
 
-Kernel launches are counted from zero over each of the serve and tiered
-runs.  Then come the kernel summary line, the `nvidia-smi` line and the
-result line.  Exits nonzero without CUDA, outside a checkout of the
-repository, and on any failure.  Imports neither jax nor `repro`.
+Kernel launches are counted from zero in each of the serve, tiered,
+prefill and train runs.  Then come the kernel summary line, the
+`nvidia-smi` line and the result line.  Exits nonzero without CUDA,
+outside a checkout of the repository, and on any failure.  Imports
+neither jax nor `repro`.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -46,6 +57,10 @@ PROMPT, NEW, BATCH, REQUESTS = 128, 32, 4, 8
 MAX_LEN = PROMPT + NEW + 8
 # tiered run: llama3-8b's KV widths, one layer per page
 N_PAGES, FAST_SLOTS, READS = 65_536, 8_192, 20_000
+# prefill run: a 128-token check against decode, one 4096-token prefill
+PREFILL_CHECK, PREFILL_LEN = 128, 4096
+# train run: stablelm-3b, 2 sequences of 4096 tokens in 2 microbatches
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS = 4096, 2, 2, 4
 
 
 def emit(phase: str, **fields) -> None:
@@ -152,7 +167,65 @@ def decode_case(ops, ref, dev, g, flush, B, H, KVH, D, S, valid,
                 bound_by=b_by)
 
 
+def visible_pairs(Sq: int, Skv: int, window) -> int:
+    """(query, key) pairs that pass the causal and window masks."""
+    rows = np.arange(Sq)
+    lo = 0 if window is None else np.maximum(rows - window + 1, 0)
+    return int((np.minimum(rows + 1, Skv) - lo).clip(min=0).sum())
+
+
+def excess(got, want, rtol, atol) -> float:
+    """max |got - want| / (atol + rtol |want|): at most 1 inside the
+    allclose tolerance of tests/test_kernels.py."""
+    got, want = got.float(), want.float()
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
+def flash_case(ops, fa, dev, g, flush, B, S, H, KVH, D, window,
+               dtype) -> dict:
+    q = torch.randn(B, S, H, D, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, S, KVH, D, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, S, KVH, D, generator=g, device=dev).to(dtype)
+    got, lse = ops.flash_attention_fwd(q, k, v, window=window)
+    want, want_lse = fa.flash_attention_plain(q, k, v, window=window)
+    tol = TOL[dtype]
+    over = excess(got, want, tol, tol)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if window is None:
+        def lib():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+    else:
+        pos = torch.arange(S, device=dev)
+        keep = (pos[None, :] <= pos[:, None]) \
+            & (pos[:, None] - pos[None, :] < window)
+
+        def lib():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep,
+                                                  enable_gqa=True)
+    lib_err = float((lib().transpose(1, 2).float() - want.float()).abs().max())
+    ms = device_ms(lambda: ops.flash_attention_fwd(q, k, v, window=window),
+                   flush)
+    plain_ms = device_ms(lambda: fa.flash_attention_plain(q, k, v,
+                                                          window=window),
+                         flush)
+    library_ms = device_ms(lib, flush)
+    pairs = visible_pairs(S, S, window)
+    item = q.element_size()
+    n_bytes = item * (2 * B * S * H * D + 2 * B * S * KVH * D) + 4 * B * H * S
+    b_ms, b_by = bound(n_bytes, B * H * pairs * (4 * D + 5), dtype)
+    return dict(shape=dict(B=B, S=S, H=H, KVH=KVH, D=D, window=window),
+                dtype=str(dtype).removeprefix("torch."), ok=over <= 1.0,
+                max_abs_err=float((got.float() - want.float()).abs().max()),
+                err_over_tol=over, tol=tol,
+                lse_max_abs_err=float((lse - want_lse).abs().max()),
+                library_max_abs_err=lib_err, kernel_ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+                visible_pairs=pairs)
+
+
 def kernels_phase(dev, flush, power: str) -> dict:
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ralt_score, ref
 
     g = torch.Generator(device=dev).manual_seed(0)
@@ -172,19 +245,33 @@ def kernels_phase(dev, flush, power: str) -> dict:
                   (8, 32, 8, 128, 32_768, 30_001, bf16),
                   (4, 32, 32, 80, 4096, 3001, bf16),
                   (4, 14, 2, 64, 4096, 3001, bf16))]
+    flash = [flash_case(ops, fa, dev, g, flush, *shape)
+             for shape in (
+                 # the training path's shapes: stablelm-3b (D = 80, MHA)
+                 # and llama3-8b's prefill (D = 128, G = 4); a ragged S;
+                 # a window with D = 256; float32 at internvl2's widths
+                 (1, TRAIN_SEQ, 32, 32, 80, None, bf16),
+                 (1, PREFILL_LEN, 32, 8, 128, None, bf16),
+                 (1, 4001, 32, 8, 128, None, bf16),
+                 (1, 4096, 8, 4, 256, 96, bf16),
+                 (1, 2048, 14, 2, 64, None, f32))]
     torch.cuda.synchronize()
     emit("kernels", ralt_update=dict(
         tpu_counterpart="src/repro/kernels/ralt_score.py:78", cases=ralt),
         decode_attention=dict(
             tpu_counterpart="src/repro/kernels/decode_attention.py:106",
             cases=decode),
+        flash_attention=dict(
+            tpu_counterpart="src/repro/kernels/flash_attention.py:111",
+            cases=flash),
         peak_bytes_per_s=PEAK_BYTES, power_limit=power)
-    bad = [c for c in ralt + decode if not c["ok"]]
+    bad = [c for c in ralt + decode + flash if not c["ok"]]
     if bad:
         raise SystemExit(f"kernel disagrees with its plain version: {bad}")
     # the main path's shapes: the tracker's page table, the first
-    # generated token's decode step
-    return {"ralt_update": ralt[0], "decode_attention": decode[1]}
+    # generated token's decode step, stablelm-3b's training attention
+    return {"ralt_update": ralt[0], "decode_attention": decode[1],
+            "flash_attention": flash[0]}
 
 
 # ----------------------------------------------------------------------
@@ -382,6 +469,189 @@ def tiered_phase(dev, power: str) -> dict:
 
 
 # ----------------------------------------------------------------------
+# prefill
+# ----------------------------------------------------------------------
+def prefill_vs_decode(cfg, params, prompt, dev) -> dict:
+    """The prefill step's last logits and k/v against what teacher-forced
+    decode steps leave (`tests/test_arch_smoke.py:62-78`), as err/tol
+    (at most 1 inside the allclose tolerance 2e-2) per layer and
+    overall."""
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer
+
+    last, cache = make_prefill_step(cfg)(params, {"tokens": prompt})
+    decode_cache = transformer.init_cache(cfg, 1, prompt.shape[1], dev)
+    with torch.no_grad():
+        for pos in range(prompt.shape[1]):
+            logits = transformer.decode_step(params, cfg, decode_cache,
+                                             prompt[:, pos], pos)
+    tol = TOL[torch.bfloat16]
+    by_layer = [max(excess(c[name], d[name].transpose(1, 2), tol, tol)
+                    for name in ("k", "v"))
+                for c, d in zip(cache, decode_cache)]
+    logits_over = excess(last, logits, tol, tol)
+    return dict(err_over_tol=max(by_layer + [logits_over]),
+                logits_err_over_tol=logits_over,
+                logits_max_abs_err=float((last.float()
+                                          - logits.float()).abs().max()),
+                kv_err_over_tol_by_layer=by_layer,
+                finite=bool(torch.isfinite(last).all()))
+
+
+def prefill_phase(dev, power: str) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer
+    from repro_torch.tree import tree_map
+
+    cfg = get_config("llama3-8b")
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    params = transformer.init_params(cfg, g, dev)
+    rng = np.random.default_rng(1)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                           (1, PREFILL_CHECK))).to(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    # The property is checked with the seeded bf16 weights computed in
+    # float32 (exact copies): in bf16 the two paths round at different
+    # places and drift apart with depth, which the bf16 run shows per
+    # layer beside it.
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = tree_map(lambda t: t.float(), params)
+    check32 = prefill_vs_decode(cfg32, params32, prompt, dev)
+    del params32
+    torch.cuda.empty_cache()
+    check16 = prefill_vs_decode(cfg, params, prompt, dev)
+    prefill = make_prefill_step(cfg)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                           (1, PREFILL_LEN))).to(dev)
+    prefill(params, {"tokens": tokens})             # warm-up, same shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, _ = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    finite = check32["finite"] and check16["finite"] \
+        and bool(torch.isfinite(out).all())
+    launches = dict(ops.LAUNCHES)
+    res = dict(model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+               dtype=cfg.dtype, params=cfg.param_count(),
+               check_tokens=PREFILL_CHECK, tol=TOL[torch.bfloat16],
+               prefill_vs_decode_f32=check32, prefill_vs_decode_bf16=check16,
+               prefill_tokens=PREFILL_LEN, prefill_s=wall,
+               tokens_per_s=PREFILL_LEN / wall,
+               max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+               flash_launches=launches["flash_attention"],
+               decode_launches=launches["decode_attention"],
+               power_limit=power)
+    emit("prefill", **res)
+    checks = {
+        "prefill matches teacher-forced decode (float32)":
+            check32["err_over_tol"] <= 1.0,
+        "finite logits": finite,
+        # two checks, the warm-up and the timed prefill
+        "flash kernel once per layer and prefill":
+            launches["flash_attention"] == 4 * cfg.n_layers,
+        "decode kernel once per layer and step":
+            launches["decode_attention"] == 2 * cfg.n_layers * PREFILL_CHECK,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"prefill phase failed: {failed}")
+    return launches
+
+
+# ----------------------------------------------------------------------
+# train
+# ----------------------------------------------------------------------
+def train_phase(dev, power: str) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_pipeline import DataConfig, LMPipeline
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw_init, global_norm
+
+    cfg = get_config("stablelm-3b")
+    # the reference's defaults (100 warmup steps): at full width, Adam's
+    # first sign-like step at the peak lr moves every output of a
+    # 2560-wide layer by about 2560 * 3e-4, and the loss diverges
+    topts = steps.TrainOptions(microbatch=TRAIN_MICRO)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = transformer.init_params(cfg, g, dev)
+    opt = adamw_init(params, topts.opt)
+    data = LMPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                 global_batch=TRAIN_BATCH, seed=0))
+
+    def batch_at(step):
+        return {k: torch.from_numpy(v).to(dev)
+                for k, v in data.batch_at(step).items()}
+
+    def loss_and_norm():
+        loss, grads = steps.value_and_grad(params, cfg, batch_at(0),
+                                           TRAIN_MICRO)
+        return float(loss), float(global_norm(grads))
+
+    # the same step with the attention core run by the plain version
+    kernel = loss_and_norm()
+    fwd = ops.flash_attention_fwd
+    ops.flash_attention_fwd = fa.flash_attention_plain
+    try:
+        plain = loss_and_norm()
+    finally:
+        ops.flash_attention_fwd = fwd
+    rel = [abs(a - b) / abs(b) for a, b in zip(kernel, plain)]
+
+    step_fn = steps.make_train_step(cfg, topts)
+    losses, norms, step_s = [], [], []
+    ops.reset_launches()
+    for step in range(TRAIN_STEPS):
+        batch = batch_at(step)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, step, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    launches = dict(ops.LAUNCHES)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    res = dict(model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+               dtype=cfg.dtype, moment_dtype=topts.opt.moment_dtype,
+               params=cfg.param_count(), seq=TRAIN_SEQ,
+               global_batch=TRAIN_BATCH, microbatch=TRAIN_MICRO,
+               check_loss_kernel=kernel[0], check_loss_plain=plain[0],
+               check_grad_norm_kernel=kernel[1],
+               check_grad_norm_plain=plain[1],
+               check_rel_err=dict(loss=rel[0], grad_norm=rel[1]),
+               losses=losses, grad_norms=norms, step_s=step_s,
+               tokens_per_s=[tokens / s for s in step_s],
+               max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+               flash_launches=launches["flash_attention"],
+               power_limit=power)
+    emit("train", **res)
+    # forward and remat recompute, per layer, microbatch and step
+    want = cfg.n_layers * 2 * TRAIN_MICRO * TRAIN_STEPS
+    checks = {
+        "kernel step matches the plain attention core (2e-2 relative)":
+            max(rel) <= 2e-2,
+        "finite losses": all(np.isfinite(losses)),
+        "loss falls from step 1 to step 4": losses[-1] < losses[0],
+        "flash kernel once per layer, pass, microbatch and step":
+            launches["flash_attention"] == want,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"train phase failed: {failed}")
+    return launches
+
+
+# ----------------------------------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -405,14 +675,22 @@ def main() -> int:
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     main_shapes = kernels_phase(dev, flush, power)
     del flush
+    # each phase's model is freed when its function returns; each
+    # kernel's launches are those of the phase that is its main path
     launches = {"decode_attention": serve_phase(dev, power)[
         "decode_attention"], "ralt_update": tiered_phase(dev, power)[
         "ralt_update"]}
+    torch.cuda.empty_cache()
+    prefill_phase(dev, power)
+    torch.cuda.empty_cache()
+    launches["flash_attention"] = train_phase(dev, power)["flash_attention"]
     sources = {
         "ralt_update": ("src/repro_torch/csrc/ralt_score.cu",
                         "src/repro/kernels/ralt_score.py:78"),
         "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
-                             "src/repro/kernels/decode_attention.py:106")}
+                             "src/repro/kernels/decode_attention.py:106"),
+        "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:111")}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[name],

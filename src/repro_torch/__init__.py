@@ -1,9 +1,11 @@
 """PyTorch / CUDA port of the accelerator half of the HotRAP reproduction.
 
 `repro_torch` mirrors the module layout of `repro` (the JAX package,
-which stays the reference) for the serving slice: the RALT hotness
+which stays the reference) for two slices: serving (the RALT hotness
 tracker, the tiered paged KV cache, the attention-only decoder models
-and the lockstep serving engine.  The two Pallas kernels on that path
+and the lockstep serving engine) and training and prefill (forward and
+loss, AdamW, the data pipeline, checkpoints, the train and prefill steps
+and the training launcher).  The three Pallas kernels on those paths
 are rewritten by hand in CUDA C++ for Hopper (`csrc/`), built with
 `nvcc` at first use and bound with `ctypes` (`kernels/_build.py`).
 

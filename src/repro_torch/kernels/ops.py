@@ -11,4 +11,5 @@ from __future__ import annotations
 from ._build import LAUNCHES, reset_launches  # noqa: F401
 from .decode_attention import (decode_attention,  # noqa: F401
                                decode_attention_head_major)
+from .flash_attention import flash_attention, flash_attention_fwd  # noqa: F401
 from .ralt_score import ralt_update  # noqa: F401

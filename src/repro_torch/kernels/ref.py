@@ -1,10 +1,11 @@
-"""Plain PyTorch oracles of the serving-slice kernels (counterparts of
-`repro/kernels/ref.py:37,52`).
+"""Plain PyTorch oracles of the ported kernels (counterparts of
+`repro/kernels/ref.py:15,37,52`).
 
 Deliberately naive — the semantics contract, not the fast path.  The
 decode oracle is also the CPU path of `ops.decode_attention` and the
-plain version that `chip_smoke.py` holds the CUDA kernel against.  The
-flash-attention and SSD oracles come with their kernels.
+plain version that `chip_smoke.py` holds the CUDA kernel against; the
+flash oracle materialises the whole score matrix.  The SSD oracle comes
+with its kernel.
 """
 from __future__ import annotations
 
@@ -12,6 +13,26 @@ import torch
 
 F32 = torch.float32
 NEG_INF = -1e30
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=None):
+    """q: (B, Sq, H, D); k/v: (B, Skv, KVH, D) -> (B, Sq, H, D).
+    GQA: query head h reads KV head h // (H // KVH)."""
+    B, Sq, H, D = q.shape
+    _, Skv, KVH, _ = k.shape
+    qg = q.reshape(B, Sq, KVH, H // KVH, D).to(F32)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(F32)) * (D ** -0.5)
+    pq = torch.arange(Sq, device=q.device)[:, None]
+    pk = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones(Sq, Skv, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= pk <= pq
+    if window is not None:
+        mask &= (pq - pk) < window
+    s = torch.where(mask, s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", w, v.to(F32))
+    return o.reshape(B, Sq, H, D).to(q.dtype)
 
 
 def decode_attention_ref(q, k_cache, v_cache, valid_len):

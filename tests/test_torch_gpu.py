@@ -145,3 +145,137 @@ def test_tiered_kv_on_card_matches_cpu(cuda):
                  "retained", "aborted", "sweeps", "flushes"):
         assert getattr(kvs[1].clock, name) == getattr(kvs[0].clock, name)
     assert kvs[1].clock.promoted > 0
+
+
+# ----------------------------------------------------------------------
+# flash attention
+# ----------------------------------------------------------------------
+def flash_inputs(cuda, B, Sq, Skv, H, KVH, D, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+        device=cuda, dtype=getattr(torch, dtype))
+        for shape in ((B, Sq, H, D), (B, Skv, KVH, D), (B, Skv, KVH, D))]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Skv,H,KVH,D,window,kv_len", [
+    (1, 128, 128, 4, 4, 64, None, None), (2, 256, 256, 8, 2, 64, None, None),
+    (1, 256, 256, 8, 1, 128, None, None), (2, 256, 256, 4, 4, 128, 96, None),
+    (1, 512, 512, 2, 2, 256, None, None), (1, 128, 128, 4, 2, 80, None, None),
+    (1, 200, 200, 32, 32, 80, None, None),        # stablelm, ragged S
+    (1, 333, 333, 32, 8, 128, None, None),        # llama3, ragged S
+    (2, 130, 190, 8, 1, 16, None, 150),           # Sq != Skv, kv_len < Skv
+    (1, 100, 100, 16, 2, 32, 7, None),            # G = 8, narrow window
+    (1, 70, 45, 4, 4, 256, 8, None),              # rows that see no key
+])
+def test_flash_kernel_matches_plain(cuda, B, Sq, Skv, H, KVH, D, window,
+                                    kv_len, dtype):
+    q, k, v = flash_inputs(cuda, B, Sq, Skv, H, KVH, D, dtype)
+    want, want_lse = ops.flash_attention_fwd(
+        q.cpu(), k.cpu(), v.cpu(), window=window, kv_len=kv_len)
+    before = ops.LAUNCHES["flash_attention"]
+    out, lse = ops.flash_attention_fwd(q, k, v, window=window, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    assert out.dtype == q.dtype and lse.dtype == torch.float32
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               want.float().numpy(), **TOL[dtype])
+    # the kernel keeps p in float32 where the plain version rounds it to
+    # the input type before P.V; lse sees only the float32 scores
+    np.testing.assert_allclose(lse.cpu().numpy(), want_lse.numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("q_offset", [0, 37])
+def test_flash_kernel_q_offset(cuda, q_offset):
+    """A query block that continues a prefill: q row 0 sits at absolute
+    position `q_offset`."""
+    q, k, v = flash_inputs(cuda, 1, 64, 101, 8, 2, 64, "float32", seed=1)
+    want, want_lse = ops.flash_attention_fwd(q.cpu(), k.cpu(), v.cpu(),
+                                             q_offset=q_offset)
+    out, lse = ops.flash_attention_fwd(q, k, v, q_offset=q_offset)
+    np.testing.assert_allclose(out.cpu().numpy(), want.numpy(),
+                               **TOL["float32"])
+    np.testing.assert_allclose(lse.cpu().numpy(), want_lse.numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_flash_kernel_rejects_what_it_does_not_take(cuda):
+    q, k, v = flash_inputs(cuda, 1, 32, 32, 4, 2, 64, "float32")
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                            k, v)
+    with pytest.raises(ValueError, match="float32"):
+        ops.flash_attention(q, k.half(), v.half())
+    with pytest.raises(ValueError, match="not supported"):
+        ops.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="head_dim"):
+        qq, kk, vv = flash_inputs(cuda, 1, 32, 32, 4, 2, 48, "float32")
+        ops.flash_attention(qq, kk, vv)
+    with pytest.raises(ValueError, match="kv_len"):
+        ops.flash_attention(q, k, v, kv_len=33)
+    with pytest.raises(ValueError, match="head grouping"):
+        ops.flash_attention(q[:, :, :3].contiguous(), k, v)
+
+
+def test_flash_autograd_on_card_matches_cpu(cuda):
+    """One forward and backward of `common.flash_attention` (kernel
+    forward, tiled backward) on the card against the CPU path."""
+    from repro_torch.models import common
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = (x.cpu() for x in flash_inputs(cuda, 2, 150, 150, 8, 2, 80,
+                                               "float32", seed=2))
+    ct = torch.randn(q.shape, generator=torch.Generator().manual_seed(0))
+    grads = []
+    for dev in ("cpu", cuda):
+        xs = [x.detach().to(dev).requires_grad_() for x in (q, k, v)]
+        o = common.flash_attention(*xs, window=64, q_chunk=64, kv_chunk=64)
+        (o * ct.to(dev)).sum().backward()
+        grads.append([o.detach().cpu()] + [x.grad.cpu() for x in xs])
+    for got, want in zip(grads[1], grads[0]):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """Loss and every gradient of the float32 llama3 smoke model through
+    the CUDA flash kernel against the CPU path; then one AdamW step on
+    each device from the same gradients (the first step is sign-like, so
+    a gradient that rounds to another sign would flip a parameter)."""
+    from repro_torch.launch import steps
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.tree import named_leaves, tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_config("llama3-8b")
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                     torch.device("cpu"))
+    rng = np.random.default_rng(3)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 65)))
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+
+    def on(dev, tree):          # a copy per device: AdamW works in place
+        return tree_map(lambda x: x.detach().to(dev, copy=True), tree)
+
+    runs = []
+    for dev in ("cpu", cuda):
+        before = ops.LAUNCHES["flash_attention"]
+        loss, grads = steps.value_and_grad(
+            on(dev, params), cfg, {k: x.to(dev) for k, x in batch.items()},
+            2)
+        runs.append((loss, grads, ops.LAUNCHES["flash_attention"] - before))
+    # CUDA: 2 layers x (forward + remat recompute) x 2 microbatches
+    assert (runs[0][2], runs[1][2]) == (0, 8)
+    np.testing.assert_allclose(float(runs[1][0]), float(runs[0][0]),
+                               rtol=1e-5)
+    updated = []
+    for dev in ("cpu", cuda):
+        p = on(dev, params)
+        adamw_update(p, on(dev, runs[0][1]), adamw_init(p, AdamWConfig()),
+                     AdamWConfig(), 1.0)
+        updated.append(p)
+    for a_tree, b_tree in ((runs[0][1], runs[1][1]), tuple(updated)):
+        for (name, a), (_, b) in zip(named_leaves(a_tree),
+                                     named_leaves(b_tree)):
+            np.testing.assert_allclose(b.detach().cpu().numpy(),
+                                       a.detach().numpy(), rtol=1e-4,
+                                       atol=1e-5, err_msg=name)

@@ -1,9 +1,14 @@
 """Kernel parity of the PyTorch port: its plain versions of `ralt_update`
 and `decode_attention` (what a CPU tensor runs) against the reference's
 Pallas kernels in interpret mode, at every shape of `tests/test_kernels.py`
-and with that file's tolerances.  Inputs come from numpy seeds and reach
+and with that file's tolerances, and the tiles of the CUDA kernels against
+the card's shared-memory limits.  Inputs come from numpy seeds and reach
 both packages as the same numbers.  The hand-written CUDA kernels are
-held against these plain versions in `tests/test_torch_gpu.py`."""
+held against these plain versions in `tests/test_torch_gpu.py`; the
+flash-attention plain version is held to the reference in
+`tests/test_torch_training.py`."""
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -11,7 +16,9 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.kernels import _build
 from repro_torch.kernels import decode_attention as tdecode
+from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import ops, ref
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
@@ -101,6 +108,30 @@ def test_decode_tile_fits_static_shared_memory(G, D):
     tile = tdecode._tile(G, D)
     assert tile >= 8 and tile & (tile - 1) == 0
     assert 4 * (G * D + tile * D + G * tile + 3 * G) <= tdecode._SMEM_LIMIT
+
+
+@pytest.mark.parametrize("D", tflash.HEAD_DIMS)
+def test_flash_tile_fits_shared_memory(D):
+    """The flash block's q, K, V and probability tiles (float32) fit the
+    227 KB a block may opt in to; above the 48 KB static limit the
+    kernel opts in (cudaFuncSetAttribute)."""
+    assert tflash.smem_bytes(D) <= tflash.SMEM_OPTIN
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    if tflash.smem_bytes(D) > 48 * 1024:
+        assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in src
+
+
+def test_flash_wrapper_agrees_with_its_source():
+    """No compiler here: the wrapper's head dims and tile sizes are read
+    back from the CUDA source, so the two cannot drift apart."""
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    cases = tuple(sorted(int(d) for d in re.findall(r"case (\d+):", src)))
+    assert cases == tflash.HEAD_DIMS
+    for name in ("BQ", "BK"):
+        got = re.search(rf"constexpr int {name} = (\d+);", src).group(1)
+        assert int(got) == 64 == tflash._BQ == tflash._BK
+    assert "flash_attention" in _build.KERNELS
+    assert "flash_attention" in _build.LAUNCHES
 
 
 # ----------------------------------------------------------------------

@@ -17,17 +17,23 @@ import torch
 
 from repro.configs import get_config as jget_config
 from repro.configs import smoke_config as jsmoke_config
+from repro.data.lm_pipeline import DataConfig as JDataConfig
 from repro.kernels import ref as jref
+from repro.launch.steps import TrainOptions as JTrainOptions
 from repro.models import common as jcommon
 from repro.models import config as jconfig
 from repro.models import transformer as jtransformer
+from repro.optim import AdamWConfig as JAdamWConfig
 from repro.serving.engine import Request as JRequest
 from repro.serving.engine import ServeEngine as JServeEngine
 from repro.tiering.hotness import TrackerConfig as JTrackerConfig
 from repro.tiering.kvcache import KVTierConfig as JKVTierConfig
 from repro_torch.configs import PORTED, get_config, smoke_config
 from repro_torch.convert import params_from_reference
+from repro_torch.data.lm_pipeline import DataConfig
+from repro_torch.launch.steps import TrainOptions
 from repro_torch.models import attention, common, config, transformer
+from repro_torch.optim import AdamWConfig
 from repro_torch.serving.engine import Request, ServeEngine
 from repro_torch.tiering.hotness import HotTracker, TrackerConfig
 from repro_torch.tiering.kvcache import KVTierConfig, TieredKVCache
@@ -43,7 +49,14 @@ def reference_params(cfg, seed):
 
 
 def field_spec(cls):
-    return [(f.name, f.default, f.default_factory) for f in
+    """(name, default, default_factory) per field; a dataclass default
+    (TrainOptions.opt) compares by its fields, as the two packages'
+    classes differ."""
+    def default(f):
+        if dataclasses.is_dataclass(f.default):
+            return type(f.default).__name__, dataclasses.asdict(f.default)
+        return f.default
+    return [(f.name, default(f), f.default_factory) for f in
             dataclasses.fields(cls)]
 
 
@@ -52,7 +65,9 @@ def field_spec(cls):
 # ----------------------------------------------------------------------
 @pytest.mark.parametrize("port,reference", [
     (config.Block, jconfig.Block), (config.ModelConfig, jconfig.ModelConfig),
-    (TrackerConfig, JTrackerConfig), (KVTierConfig, JKVTierConfig)])
+    (TrackerConfig, JTrackerConfig), (KVTierConfig, JKVTierConfig),
+    (AdamWConfig, JAdamWConfig), (TrainOptions, JTrainOptions),
+    (DataConfig, JDataConfig)])
 def test_dataclasses_match_reference_field_for_field(port, reference):
     assert field_spec(port) == field_spec(reference)
 
@@ -269,6 +284,12 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
+for name in ("repro_torch.launch.train", "repro_torch.launch.steps",
+             "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
+             "repro_torch.optim", "repro_torch.optim.adamw",
+             "repro_torch.data", "repro_torch.data.lm_pipeline",
+             "repro_torch.kernels.flash_attention"):
+    assert name in sys.modules, name
 print(len(names), "modules")
 """
 
@@ -291,6 +312,10 @@ def test_port_imports_neither_jax_nor_reference():
                           hbm_bw=1.0, pcie_bw=1.0),
     lambda: __import__("repro_torch.launch.serve", fromlist=["main"]).main(
         ["--smoke", "--requests", "1"]),
+    lambda: __import__("repro_torch.launch.train", fromlist=["train"]).train(
+        smoke_config("llama3-8b"), steps=1, global_batch=2, seq_len=8),
+    lambda: __import__("repro_torch.launch.train", fromlist=["main"]).main(
+        ["--smoke", "--steps", "1"]),
 ])
 def test_entry_points_need_cuda_unless_cpu_is_asked(make):
     if torch.cuda.is_available():
