@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from `src/repro_torch/csrc` and runs
-six phases, each printing one JSON line:
+seven phases, each printing one JSON line:
 
   device   the card's name and power limit, and the kernels' build time;
   kernels  each kernel against its plain PyTorch version on the card, at
@@ -24,13 +24,21 @@ six phases, each printing one JSON line:
            one step's loss and gradient norm with the flash kernel against
            the same step with the plain attention core, then 4 train
            steps of 2 x 4096 tokens (2 microbatches) from `LMPipeline`,
-           with the reference's default options (100 warmup steps).
+           with the reference's default options (100 warmup steps);
+  mamba2   mamba2-1.3b at full width and depth (48 layers, random bf16
+           weights from a seed): a 2 x 512-token prefill against 512
+           teacher-forced decode steps (last logits, every layer's ssm and
+           conv state, and one more token decoded from each cache; float32
+           compute), one timed 4096-token prefill, 32 greedy decode steps
+           from its state, and 4 train steps as in `train`, after one
+           step's loss and gradient norm with the scan kernel against the
+           plain chunk scan.
 
 Kernel launches are counted from zero in each of the serve, tiered,
-prefill and train runs.  Then come the kernel summary line, the
-`nvidia-smi` line and the result line.  Exits nonzero without CUDA,
-outside a checkout of the repository, and on any failure.  Imports
-neither jax nor `repro`.
+prefill and train runs and in each part of the mamba2 run.  Then come
+the kernel summary line, the `nvidia-smi` line and the result line.
+Exits nonzero without CUDA, outside a checkout of the repository, and
+on any failure.  Imports neither jax nor `repro`.
 """
 from __future__ import annotations
 
@@ -61,6 +69,12 @@ N_PAGES, FAST_SLOTS, READS = 65_536, 8_192, 20_000
 PREFILL_CHECK, PREFILL_LEN = 128, 4096
 # train run: stablelm-3b, 2 sequences of 4096 tokens in 2 microbatches
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS = 4096, 2, 2, 4
+# mamba2 run: a 2 x 512-token hand-off check (2 chunks of 256), a
+# 4096-token prefill, 32 decode steps, then training as above
+HANDOFF_BATCH, HANDOFF_LEN, DECODE_STEPS = 2, 512, 32
+# tests/test_kernels.py's ssd_scan tolerances: y by dtype, h_final
+SSD_TOL = {torch.float32: 5e-4, torch.bfloat16: 5e-2}
+SSD_H_TOL = 5e-3
 
 
 def emit(phase: str, **fields) -> None:
@@ -224,9 +238,42 @@ def flash_case(ops, fa, dev, g, flush, B, S, H, KVH, D, window,
                 visible_pairs=pairs)
 
 
+def ssd_case(ops, ssd, dev, g, flush, B, nC, Q, nh, hp, ns, dtype) -> dict:
+    """The mixer's form (`ssd_scan_fwd`, y in float32) against the plain
+    chunk scan; inputs drawn as tests/test_kernels.py draws them."""
+    def normal(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    x, Bm, Cm = ((normal(*s) * 0.5).to(dtype) for s in (
+        (B, nC, Q, nh, hp), (B, nC, Q, ns), (B, nC, Q, ns)))
+    dt = F.softplus(normal(B, nC, Q, nh))
+    A = -torch.exp(normal(nh) * 0.2)
+    y, h = ops.ssd_scan_fwd(x, Bm, Cm, dt, A)
+    want_y, want_h = ssd.ssd_scan_plain(x, Bm, Cm, dt, A)
+    tol = SSD_TOL[dtype]
+    over = max(excess(y, want_y, tol, tol),
+               excess(h, want_h, SSD_H_TOL, SSD_H_TOL))
+    ms = device_ms(lambda: ops.ssd_scan_fwd(x, Bm, Cm, dt, A), flush)
+    plain_ms = device_ms(lambda: ssd.ssd_scan_plain(x, Bm, Cm, dt, A), flush)
+    L, item = nC * Q, x.element_size()
+    n_bytes = (item * B * L * (nh * hp + 2 * ns) + 4 * B * L * nh + 4 * nh
+               + 4 * B * L * nh * hp + 4 * B * nh * ns * hp)
+    # C B^T once per chunk; per head and chunk W x, C h and the update
+    n_ops = 2 * B * nC * (Q * Q * ns + nh * (Q * Q * hp + 2 * Q * ns * hp))
+    b_ms, b_by = bound(n_bytes, n_ops, dtype)
+    return dict(shape=dict(B=B, nC=nC, Q=Q, nh=nh, hp=hp, ns=ns),
+                dtype=str(dtype).removeprefix("torch."), ok=over <= 1.0,
+                max_abs_err=float((y - want_y).abs().max()),
+                h_max_abs_err=float((h - want_h).abs().max()),
+                err_over_tol=over, tol=tol, h_tol=SSD_H_TOL, kernel_ms=ms,
+                plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                bound_by=b_by)
+
+
 def kernels_phase(dev, flush, power: str) -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ralt_score, ref
+    from repro_torch.kernels import ssd_scan as ssd
 
     g = torch.Generator(device=dev).manual_seed(0)
     ralt = [ralt_case(ops, ralt_score, dev, g, flush, n)
@@ -255,6 +302,14 @@ def kernels_phase(dev, flush, power: str) -> dict:
                  (1, 4001, 32, 8, 128, None, bf16),
                  (1, 4096, 8, 4, 256, 96, bf16),
                  (1, 2048, 14, 2, 64, None, f32))]
+    ssd_cases = [ssd_case(ops, ssd, dev, g, flush, *shape)
+                 for shape in (
+                     # mamba2-1.3b's prefill and training shape (4096
+                     # tokens, bf16); the same in float32; the hand-off
+                     # check's 2 x 512 tokens in float32
+                     (1, 16, 256, 64, 64, 128, bf16),
+                     (1, 16, 256, 64, 64, 128, f32),
+                     (HANDOFF_BATCH, 2, 256, 64, 64, 128, f32))]
     torch.cuda.synchronize()
     emit("kernels", ralt_update=dict(
         tpu_counterpart="src/repro/kernels/ralt_score.py:78", cases=ralt),
@@ -264,14 +319,17 @@ def kernels_phase(dev, flush, power: str) -> dict:
         flash_attention=dict(
             tpu_counterpart="src/repro/kernels/flash_attention.py:111",
             cases=flash),
+        ssd_scan=dict(tpu_counterpart="src/repro/kernels/ssd_scan.py:89",
+                      cases=ssd_cases),
         peak_bytes_per_s=PEAK_BYTES, power_limit=power)
-    bad = [c for c in ralt + decode + flash if not c["ok"]]
+    bad = [c for c in ralt + decode + flash + ssd_cases if not c["ok"]]
     if bad:
         raise SystemExit(f"kernel disagrees with its plain version: {bad}")
     # the main path's shapes: the tracker's page table, the first
-    # generated token's decode step, stablelm-3b's training attention
+    # generated token's decode step, stablelm-3b's training attention,
+    # mamba2-1.3b's prefill and training scan
     return {"ralt_update": ralt[0], "decode_attention": decode[1],
-            "flash_attention": flash[0]}
+            "flash_attention": flash[0], "ssd_scan": ssd_cases[0]}
 
 
 # ----------------------------------------------------------------------
@@ -566,19 +624,21 @@ def prefill_phase(dev, power: str) -> dict:
 # ----------------------------------------------------------------------
 # train
 # ----------------------------------------------------------------------
-def train_phase(dev, power: str) -> dict:
-    from repro_torch.configs import get_config
+def train_run(cfg, dev, op: str, plain) -> tuple[dict, dict]:
+    """Full-width training of `cfg` (bf16 weights, f32 AdamW moments, the
+    reference's default options: at full width, Adam's first sign-like
+    step at the peak lr moves every output of a wide layer by about
+    width * 3e-4, and the loss diverges).  One step's loss and gradient
+    norm with the kernel behind `ops.<op>` against the same step with
+    `plain` in its place; then TRAIN_STEPS train steps of TRAIN_BATCH x
+    TRAIN_SEQ tokens in TRAIN_MICRO microbatches from `LMPipeline`, with
+    the launches counted from zero.  -> (results, launches)."""
     from repro_torch.data.lm_pipeline import DataConfig, LMPipeline
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.launch import steps
     from repro_torch.models import transformer
     from repro_torch.optim import adamw_init, global_norm
 
-    cfg = get_config("stablelm-3b")
-    # the reference's defaults (100 warmup steps): at full width, Adam's
-    # first sign-like step at the peak lr moves every output of a
-    # 2560-wide layer by about 2560 * 3e-4, and the loss diverges
     topts = steps.TrainOptions(microbatch=TRAIN_MICRO)
     g = torch.Generator(device=dev)
     g.manual_seed(0)
@@ -597,15 +657,14 @@ def train_phase(dev, power: str) -> dict:
                                            TRAIN_MICRO)
         return float(loss), float(global_norm(grads))
 
-    # the same step with the attention core run by the plain version
     kernel = loss_and_norm()
-    fwd = ops.flash_attention_fwd
-    ops.flash_attention_fwd = fa.flash_attention_plain
+    fwd = getattr(ops, op)
+    setattr(ops, op, plain)
     try:
-        plain = loss_and_norm()
+        plain_run = loss_and_norm()
     finally:
-        ops.flash_attention_fwd = fwd
-    rel = [abs(a - b) / abs(b) for a, b in zip(kernel, plain)]
+        setattr(ops, op, fwd)
+    rel = [abs(a - b) / abs(b) for a, b in zip(kernel, plain_run)]
 
     step_fn = steps.make_train_step(cfg, topts)
     losses, norms, step_s = [], [], []
@@ -621,20 +680,30 @@ def train_phase(dev, power: str) -> dict:
         step_s.append(time.perf_counter() - t0)
     launches = dict(ops.LAUNCHES)
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    res = dict(model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
-               dtype=cfg.dtype, moment_dtype=topts.opt.moment_dtype,
-               params=cfg.param_count(), seq=TRAIN_SEQ,
-               global_batch=TRAIN_BATCH, microbatch=TRAIN_MICRO,
-               check_loss_kernel=kernel[0], check_loss_plain=plain[0],
-               check_grad_norm_kernel=kernel[1],
-               check_grad_norm_plain=plain[1],
-               check_rel_err=dict(loss=rel[0], grad_norm=rel[1]),
-               losses=losses, grad_norms=norms, step_s=step_s,
-               tokens_per_s=[tokens / s for s in step_s],
-               max_memory_allocated=torch.cuda.max_memory_allocated(dev),
-               flash_launches=launches["flash_attention"],
-               power_limit=power)
-    emit("train", **res)
+    return dict(model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+                dtype=cfg.dtype, moment_dtype=topts.opt.moment_dtype,
+                params=cfg.param_count(), seq=TRAIN_SEQ,
+                global_batch=TRAIN_BATCH, microbatch=TRAIN_MICRO,
+                check_loss_kernel=kernel[0], check_loss_plain=plain_run[0],
+                check_grad_norm_kernel=kernel[1],
+                check_grad_norm_plain=plain_run[1],
+                check_rel_err=dict(loss=rel[0], grad_norm=rel[1]),
+                losses=losses, grad_norms=norms, step_s=step_s,
+                tokens_per_s=[tokens / s for s in step_s],
+                max_memory_allocated=torch.cuda.max_memory_allocated(dev)
+                ), launches
+
+
+def train_phase(dev, power: str) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+
+    cfg = get_config("stablelm-3b")
+    res, launches = train_run(cfg, dev, "flash_attention_fwd",
+                              fa.flash_attention_plain)
+    emit("train", **res, flash_launches=launches["flash_attention"],
+         power_limit=power)
+    losses, rel = res["losses"], res["check_rel_err"].values()
     # forward and remat recompute, per layer, microbatch and step
     want = cfg.n_layers * 2 * TRAIN_MICRO * TRAIN_STEPS
     checks = {
@@ -648,6 +717,131 @@ def train_phase(dev, power: str) -> dict:
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise SystemExit(f"train phase failed: {failed}")
+    return launches
+
+
+# ----------------------------------------------------------------------
+# mamba2
+# ----------------------------------------------------------------------
+def mamba2_handoff(cfg, params, prompt, dev) -> dict:
+    """The prefill step over prompt[:, :-1] against teacher-forced decode
+    steps over the same tokens: last logits and every layer's ssm and
+    conv state, then the logits of the last token decoded from each
+    cache; as err/tol (at most 1 inside allclose 2e-2)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer
+
+    B, T = prompt.shape[0], prompt.shape[1] - 1
+    ops.reset_launches()
+    last, cache = make_prefill_step(cfg)(params, {"tokens": prompt[:, :T]})
+    launches = ops.LAUNCHES["ssd_scan"]
+    dcache = transformer.init_cache(cfg, B, T + 1, dev)
+    tol = TOL[torch.bfloat16]
+    with torch.no_grad():
+        for pos in range(T):
+            logits = transformer.decode_step(params, cfg, dcache,
+                                             prompt[:, pos], pos)
+        by_layer = [max(excess(c[n], d[n], tol, tol) for n in ("ssm", "conv"))
+                    for c, d in zip(cache, dcache)]
+        logits_over = excess(last, logits, tol, tol)
+        nxt = [transformer.decode_step(params, cfg, c, prompt[:, T], T)
+               for c in (cache, dcache)]
+    next_over = excess(nxt[0], nxt[1], tol, tol)
+    return dict(err_over_tol=max(by_layer + [logits_over, next_over]),
+                logits_err_over_tol=logits_over,
+                next_logits_err_over_tol=next_over,
+                next_logits_max_abs_err=float((nxt[0] - nxt[1]).abs().max()),
+                state_err_over_tol_by_layer=by_layer, ssd_launches=launches,
+                finite=bool(torch.isfinite(last).all()
+                            and torch.isfinite(nxt[0]).all()))
+
+
+def mamba2_phase(dev, power: str) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer
+    from repro_torch.tree import tree_map
+
+    cfg = get_config("mamba2-1.3b")
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = transformer.init_params(cfg, g, dev)
+    rng = np.random.default_rng(2)
+    # (a) the cache hand-off, with the seeded bf16 weights computed in
+    # float32 (exact copies), as the prefill phase checks attention
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (HANDOFF_BATCH, HANDOFF_LEN + 1))).to(dev)
+    params32 = tree_map(lambda t: t.float(), params)
+    handoff = mamba2_handoff(dataclasses.replace(cfg, dtype="float32"),
+                             params32, prompt, dev)
+    del params32
+    torch.cuda.empty_cache()
+    # (b) one timed 4096-token prefill after a warm-up of the same shape
+    prefill = make_prefill_step(cfg)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                           (1, PREFILL_LEN))).to(dev)
+    prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    last, cache = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = ops.LAUNCHES["ssd_scan"]
+    prefill_mem = torch.cuda.max_memory_allocated(dev)
+    # (c) greedy decode from the prefilled state
+    tok = last.argmax(dim=-1)
+    finite = bool(torch.isfinite(last).all())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for i in range(DECODE_STEPS):
+            logits = transformer.decode_step(params, cfg, cache, tok,
+                                             PREFILL_LEN + i)
+            tok = logits.argmax(dim=-1)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / DECODE_STEPS
+    finite = finite and bool(torch.isfinite(logits).all())
+    del params, cache, last, logits
+    torch.cuda.empty_cache()
+    # (d) training, the scan kernel against the plain chunk scan
+    train, launches = train_run(cfg, dev, "ssd_scan_fwd", ssd.ssd_scan_plain)
+    res = dict(model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+               dtype=cfg.dtype, params=cfg.param_count(),
+               handoff=dict(batch=HANDOFF_BATCH, tokens=HANDOFF_LEN,
+                            compute="float32", tol=TOL[torch.bfloat16],
+                            **handoff),
+               prefill=dict(tokens=PREFILL_LEN, prefill_s=prefill_s,
+                            tokens_per_s=PREFILL_LEN / prefill_s,
+                            max_memory_allocated=prefill_mem,
+                            ssd_launches=prefill_launches),
+               decode=dict(batch=1, steps=DECODE_STEPS,
+                           ms_per_step=decode_ms),
+               train=dict(**train, ssd_launches=launches["ssd_scan"]),
+               power_limit=power)
+    emit("mamba2", **res)
+    L = cfg.n_layers
+    losses = train["losses"]
+    checks = {
+        "prefill hands decode its cache (float32, 2e-2)":
+            handoff["err_over_tol"] <= 1.0,
+        "finite logits": finite and handoff["finite"],
+        "scan kernel once per layer and prefill":
+            handoff["ssd_launches"] == prefill_launches == L,
+        "kernel step matches the plain chunk scan (2e-2 relative)":
+            max(train["check_rel_err"].values()) <= 2e-2,
+        "finite losses": all(np.isfinite(losses)),
+        "scan kernel once per layer, pass, microbatch and step":
+            launches["ssd_scan"] == L * 2 * TRAIN_MICRO * TRAIN_STEPS,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"mamba2 phase failed: {failed}")
     return launches
 
 
@@ -684,13 +878,17 @@ def main() -> int:
     prefill_phase(dev, power)
     torch.cuda.empty_cache()
     launches["flash_attention"] = train_phase(dev, power)["flash_attention"]
+    torch.cuda.empty_cache()
+    launches["ssd_scan"] = mamba2_phase(dev, power)["ssd_scan"]
     sources = {
         "ralt_update": ("src/repro_torch/csrc/ralt_score.cu",
                         "src/repro/kernels/ralt_score.py:78"),
         "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                              "src/repro/kernels/decode_attention.py:106"),
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
-                            "src/repro/kernels/flash_attention.py:111")}
+                            "src/repro/kernels/flash_attention.py:111"),
+        "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
+                     "src/repro/kernels/ssd_scan.py:89")}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[name],

@@ -1,13 +1,15 @@
 """PyTorch / CUDA port of the accelerator half of the HotRAP reproduction.
 
 `repro_torch` mirrors the module layout of `repro` (the JAX package,
-which stays the reference) for two slices: serving (the RALT hotness
+which stays the reference) for three slices: serving (the RALT hotness
 tracker, the tiered paged KV cache, the attention-only decoder models
-and the lockstep serving engine) and training and prefill (forward and
+and the lockstep serving engine), training and prefill (forward and
 loss, AdamW, the data pipeline, checkpoints, the train and prefill steps
-and the training launcher).  The three Pallas kernels on those paths
-are rewritten by hand in CUDA C++ for Hopper (`csrc/`), built with
-`nvcc` at first use and bound with `ctypes` (`kernels/_build.py`).
+and the training launcher), and the attention-free Mamba2 family (its
+mixer and decode step on all of those paths).  The four Pallas kernels
+of the reference are rewritten by hand in CUDA C++ for Hopper (`csrc/`),
+built with `nvcc` at first use and bound with `ctypes`
+(`kernels/_build.py`).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without CUDA they raise instead of carrying on on the CPU.  Each kernel

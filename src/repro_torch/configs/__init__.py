@@ -1,10 +1,10 @@
 """Architecture registry of the port.
 
 One module per architecture, each exporting ``CONFIG: ModelConfig`` and
-``smoke()`` exactly as the reference's `repro.configs.<id>`.  Only the
-pure-attention architectures (no window, no int8 KV, no experts) are
-ported so far; the rest of the reference's ids raise ``KeyError`` with
-"not ported yet".
+``smoke()`` exactly as the reference's `repro.configs.<id>`.  Ported so
+far: the pure-attention architectures (no window, no int8 KV, no
+experts) and the attention-free Mamba2; the rest of the reference's ids
+raise ``KeyError`` with "not ported yet".
 """
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ ARCH_IDS = (
     "qwen3-moe-235b-a22b",
     "mixtral-8x22b",
 )
-PORTED = ("llama3-8b", "internvl2-1b", "stablelm-3b")
+PORTED = ("llama3-8b", "internvl2-1b", "stablelm-3b", "mamba2-1.3b")
 
 
 def _module(arch_id: str):

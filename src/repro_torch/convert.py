@@ -8,15 +8,16 @@ stage's layers along a leading repeat axis (`stages[i]["b<j>"][w]`); the
 port keeps one dict per layer in execution order.  The `_to_reference`
 functions give the reference's layout back (torch CPU tensors, dtypes
 kept), which is also the layout the port's checkpoints are written in,
-so a checkpoint written by either package restores in the other.  This
-module never imports jax or `repro`.
+so a checkpoint written by either package restores in the other.  Each
+block kind has its own leaves (`attention.WEIGHTS`, `mamba2.WEIGHTS`).
+This module never imports jax or `repro`.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .models.attention import WEIGHTS
+from .models import attention, mamba2
 from .models.transformer import layer_blocks
 
 
@@ -27,6 +28,10 @@ def _tensor(arr, dtype, device):
     # (exact for every floating leaf the reference makes)
     return torch.from_numpy(np.array(arr, np.float32)).to(
         dtype=dtype, device=device)
+
+
+def _weights(block):
+    return mamba2.WEIGHTS if block.kind == "mamba2" else attention.WEIGHTS
 
 
 def _layer_index(cfg):
@@ -43,8 +48,9 @@ def _layer_index(cfg):
 def params_from_reference(np_tree, cfg, device, dtype=None) -> dict:
     """`np_tree`: the reference's `init_params` tree with numpy (or
     torch) leaves (stages stacked along the repeat axis).  Returns the
-    port's params (see `models.transformer`) in `dtype` (default
-    `cfg.dtype`).  Raises if any leaf is left unused."""
+    port's params (see `models.transformer`) in `dtype`; by default in
+    `cfg.dtype`, except the mamba2 leaves that the reference keeps in
+    float32 (`mamba2.F32_WEIGHTS`).  Raises if any leaf is left unused."""
     dt = getattr(torch, dtype or cfg.dtype)
     layer_blocks(cfg)                       # raises for unported kinds
     left = {}
@@ -58,10 +64,16 @@ def params_from_reference(np_tree, cfg, device, dtype=None) -> dict:
             for wname, w in block.items():
                 left[("stages", si, bname, wname)] = w
 
-    def take(path):
+    def take(path, dtype=dt):
         if path not in left:
             raise KeyError(f"reference tree lacks {path}")
-        return _tensor(left.pop(path), dt, device)
+        return _tensor(left.pop(path), dtype, device)
+
+    def leaf_dtype(block, w):
+        if dtype is None and block.kind == "mamba2" \
+                and w in mamba2.F32_WEIGHTS:
+            return torch.float32
+        return dt
 
     params = {"embed": take(("embed",)),
               "final_norm": take(("final_norm",))}
@@ -69,9 +81,10 @@ def params_from_reference(np_tree, cfg, device, dtype=None) -> dict:
         params["lm_head"] = take(("lm_head",))
     stacked = {}
     for si, (_, blocks) in enumerate(cfg.stages):
-        for bi in range(len(blocks)):
-            stacked[si, bi] = {w: take(("stages", si, f"b{bi}", w))
-                               for w in WEIGHTS}
+        for bi, block in enumerate(blocks):
+            stacked[si, bi] = {w: take(("stages", si, f"b{bi}", w),
+                                       leaf_dtype(block, w))
+                               for w in _weights(block)}
     # each layer its own tensor (not a view of the stack), so it can be
     # updated in place and freed on its own
     params["layers"] = [{w: t[r].clone() for w, t in stacked[si, bi].items()}
@@ -100,8 +113,8 @@ def params_to_reference(params, cfg) -> dict:
             f"b{bi}": {w: torch.stack([host(layers[n][w])
                                        for s, b, _, n in index
                                        if (s, b) == (si, bi)])
-                       for w in WEIGHTS}
-            for bi in range(len(blocks))})
+                       for w in _weights(block)}
+            for bi, block in enumerate(blocks)})
     return tree
 
 

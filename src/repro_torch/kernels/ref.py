@@ -1,11 +1,11 @@
 """Plain PyTorch oracles of the ported kernels (counterparts of
-`repro/kernels/ref.py:15,37,52`).
+`repro/kernels/ref.py:15,37,52,66`).
 
 Deliberately naive — the semantics contract, not the fast path.  The
 decode oracle is also the CPU path of `ops.decode_attention` and the
 plain version that `chip_smoke.py` holds the CUDA kernel against; the
-flash oracle materialises the whole score matrix.  The SSD oracle comes
-with its kernel.
+flash oracle materialises the whole score matrix; the SSD oracle scans
+the chunks with the whole (Q, Q, nh) decay tensor of a chunk.
 """
 from __future__ import annotations
 
@@ -58,3 +58,31 @@ def ralt_update_ref(ticks, scores, hits, now, alpha):
     new_scores = scores.to(F32) * decay + hits.to(F32)
     new_ticks = torch.empty_like(ticks).fill_(now)
     return new_ticks, new_scores
+
+
+def ssd_chunk_ref(x, Bm, Cm, dt, A, h0):
+    """Mamba2 SSD over chunks (oracle for the ssd_scan kernel).
+
+    x: (B, nC, Q, nh, hp); Bm/Cm: (B, nC, Q, ns); dt: (B, nC, Q, nh);
+    A: (nh,) negative decay rates; h0: (B, nh, ns, hp).
+    Returns (y: (B, nC, Q, nh, hp) float32, h_final float32).
+    """
+    Q = x.shape[2]
+    causal = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=x.device))
+    A = A.to(F32)
+    h = h0.to(F32)
+    ys = []
+    for c in range(x.shape[1]):
+        xq, Bq, Cq, dtq = (t[:, c].to(F32) for t in (x, Bm, Cm, dt))
+        La = torch.cumsum(dtq * A, dim=1)                    # (B, Q, nh)
+        seg = La[:, :, None, :] - La[:, None, :, :]          # (B, Q, Q, nh)
+        M = torch.where(causal[None, :, :, None], torch.exp(seg), 0.0)
+        CB = torch.einsum("bqn,bsn->bqs", Cq, Bq)
+        W = CB[..., None] * M * dtq[:, None, :, :]
+        y_intra = torch.einsum("bqsh,bshp->bqhp", W, xq)
+        y_inter = torch.einsum("bqn,bqh,bhnp->bqhp", Cq, torch.exp(La), h)
+        w = torch.exp(La[:, -1:, :] - La) * dtq              # (B, Q, nh)
+        h = (h * torch.exp(La[:, -1, :])[:, :, None, None]
+             + torch.einsum("bqn,bqh,bqhp->bhnp", Bq, w, xq))
+        ys.append(y_intra + y_inter)
+    return torch.stack(ys, dim=1), h

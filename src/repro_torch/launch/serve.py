@@ -3,6 +3,7 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
         --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b
 
 Runs the batched engine with random weights drawn from `--seed`: the
 full config on ``cuda`` by default, the reduced smoke config with

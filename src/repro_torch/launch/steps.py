@@ -84,7 +84,9 @@ def make_train_step(cfg, topts: TrainOptions):
 
 def make_prefill_step(cfg):
     """-> prefill_step(params, batch) -> (last logits (B, V), cache): the
-    cache is one {"k", "v"} (B, S, KV, hd) per layer."""
+    cache has one entry per layer, by block kind: {"k", "v"} (B, S, KV,
+    hd) for attention; for mamba2 {"ssm", "conv"}, the state decode
+    continues from (`transformer.init_cache`'s layout)."""
     def prefill_step(params, batch):
         with torch.no_grad():
             logits, cache = forward(params, cfg, batch["tokens"],

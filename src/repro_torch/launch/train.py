@@ -2,6 +2,8 @@
 fault tolerance (counterpart of `repro/launch/train.py`).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \
+        --seq-len 4096 --global-batch 2 --microbatch 2
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \
         --smoke --device cpu --steps 20 --ckpt-dir /tmp/ckpt [--resume]
 

@@ -1,1 +1,1 @@
-"""Decode-path models of the port (attention-only architectures)."""
+"""Models of the port: attention and Mamba2 blocks, their assembly."""

@@ -12,9 +12,9 @@ Block kinds:
     shared_attn — attention + MLP with weights *shared* across all
                   occurrences (zamba2)
 
-Only `attn` blocks without a window are ported so far; the fields of
-the other kinds are kept so that the dataclasses stay equal to the
-reference's field for field.
+Ported so far: `attn` blocks without a window, and `mamba2` blocks;
+the fields of the other kinds are kept so that the dataclasses stay
+equal to the reference's field for field.
 """
 from __future__ import annotations
 

@@ -1,12 +1,14 @@
 """Model assembly (port of `repro/models/transformer.py`): parameters,
-the train/prefill forward and loss, the head-major decode cache and one
-decode step, for architectures built of `attn` blocks without a window.
+the train/prefill forward and loss, the decode cache and one decode step,
+for architectures built of `attn` blocks without a window and of
+`mamba2` blocks.
 
 Parameters are a plain dict: ``embed`` (V, d), ``final_norm`` (d,),
 ``lm_head`` (d, V) unless embeddings are tied, and ``layers``, one dict
-per layer in execution order (the reference stacks each stage's layers
-along a leading repeat axis instead; `convert.params_from_reference`
-maps one onto the other).  Vocab sizes are padded to a multiple of 256.
+per layer in execution order, holding that block kind's weights (the
+reference stacks each stage's layers along a leading repeat axis instead;
+`convert.params_from_reference` maps one onto the other).  Vocab sizes
+are padded to a multiple of 256.
 """
 from __future__ import annotations
 
@@ -16,6 +18,9 @@ from torch.utils.checkpoint import checkpoint
 from .attention import attn_block, attn_decode, init_attn_block
 from .common import F32, chunked_cross_entropy, rms_norm
 from .config import ModelConfig
+from .mamba2 import init_mamba2, mamba2_mixer, mamba2_step
+
+KINDS = ("attn", "mamba2")      # block kinds the port runs
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -30,7 +35,7 @@ def layer_blocks(cfg: ModelConfig) -> list:
     blocks = [b for repeat, bs in cfg.stages for _ in range(repeat)
               for b in bs]
     for b in blocks:
-        if b.kind != "attn":
+        if b.kind not in KINDS:
             raise NotImplementedError(f"{b.kind} blocks are not ported yet")
         if b.window is not None:
             raise NotImplementedError(
@@ -52,32 +57,45 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device):
               "final_norm": torch.zeros(d, dtype=dt, device=device)}
     if not cfg.tie_embeddings:
         params["lm_head"] = normal(d, V)
-    params["layers"] = [init_attn_block(cfg, cfg.d_ff, generator, device)
-                        for _ in layer_blocks(cfg)]
+    params["layers"] = [
+        init_mamba2(cfg, generator, device) if b.kind == "mamba2"
+        else init_attn_block(cfg, cfg.d_ff, generator, device)
+        for b in layer_blocks(cfg)]
     return params
+
+
+def _apply_block(kind, p, x, cfg):
+    """One layer's forward -> (y, its cache): {"k", "v"} (B, S, KV, hd)
+    for attention, {"ssm", "conv"} for mamba2."""
+    if kind == "mamba2":
+        y, (ssm, conv) = mamba2_mixer(p, x, cfg)
+        return y, {"ssm": ssm, "conv": conv}
+    y, (k, v) = attn_block(p, x, cfg)
+    return y, {"k": k, "v": v}
 
 
 def forward_hidden(params, cfg: ModelConfig, tokens, *, frontend_emb=None,
                    return_cache: bool = False):
     """tokens: (B, S) int -> final normed hidden (B, S, d) [, cache].
-    The cache is one {"k", "v"} per layer, each (B, S, KV, hd).  With
-    ``cfg.remat == "block"`` and autograd on, each layer is checkpointed
-    (its activations are recomputed in the backward)."""
-    layer_blocks(cfg)                       # raises for unported kinds
+    The cache has one entry per layer: {"k", "v"} (B, S, KV, hd) for
+    attention, {"ssm" (B, nh, ns, hp) float32, "conv" (B, K-1, conv_dim)}
+    for mamba2.  With ``cfg.remat == "block"`` and autograd on, each layer
+    is checkpointed (its activations are recomputed in the backward)."""
+    blocks = layer_blocks(cfg)              # raises for unported kinds
     x = params["embed"][tokens.long()]
     if frontend_emb is not None:   # vision/audio stub: replace a prefix
         n = frontend_emb.shape[1]
         x = torch.cat([frontend_emb.to(x.dtype), x[:, n:]], dim=1)
     remat = cfg.remat == "block" and torch.is_grad_enabled()
     caches = []
-    for p in params["layers"]:
+    for b, p in zip(blocks, params["layers"]):
         if remat:
-            x, (k, v) = checkpoint(attn_block, p, x, cfg,
-                                   use_reentrant=False)
+            x, c = checkpoint(_apply_block, b.kind, p, x, cfg,
+                              use_reentrant=False)
         else:
-            x, (k, v) = attn_block(p, x, cfg)
+            x, c = _apply_block(b.kind, p, x, cfg)
         if return_cache:
-            caches.append({"k": k, "v": v})
+            caches.append(c)
     x = rms_norm(x, params["final_norm"])
     return (x, caches) if return_cache else x
 
@@ -105,21 +123,35 @@ def loss_fn(params, cfg: ModelConfig, tokens, labels, frontend_emb=None,
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int, device) -> list:
-    """Zeroed decode cache: per layer {"k", "v"} of shape
-    (batch, n_kv_heads, s_max, head_dim) (head-major)."""
+    """Zeroed decode cache, one entry per layer: attention {"k", "v"} of
+    shape (batch, n_kv_heads, s_max, head_dim) (head-major); mamba2
+    {"ssm" (batch, nh, ns, hp) float32, "conv" (batch, K-1, d_inner +
+    2 ns)} (no s_max: the state is O(1) per sequence)."""
     dt = getattr(torch, cfg.dtype)
-    shape = (batch, cfg.n_kv_heads, s_max, cfg.head_dim)
-    return [{"k": torch.zeros(shape, dtype=dt, device=device),
-             "v": torch.zeros(shape, dtype=dt, device=device)}
-            for _ in layer_blocks(cfg)]
+    nh, hp, ns = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    kv = (batch, cfg.n_kv_heads, s_max, cfg.head_dim)
+
+    def zeros(shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return [{"ssm": zeros((batch, nh, ns, hp), F32),
+             "conv": zeros((batch, cfg.ssm_conv - 1, cfg.d_inner + 2 * ns))}
+            if b.kind == "mamba2" else {"k": zeros(kv), "v": zeros(kv)}
+            for b in layer_blocks(cfg)]
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens, pos: int):
     """One decode step.  tokens: (B,) int; pos: the position being
-    written (the current length).  Writes the new token's K/V into
-    `cache` in place and returns logits (B, V_padded)."""
+    written (the current length).  Updates `cache` in place (the new
+    token's K/V, or the mamba2 layer's ssm and conv state) and returns
+    logits (B, V_padded)."""
     x = params["embed"][tokens]                          # (B, d)
-    for p, c in zip(params["layers"], cache):
-        x = attn_decode(p, x, c["k"], c["v"], pos, cfg)
+    for b, p, c in zip(layer_blocks(cfg), params["layers"], cache):
+        if b.kind == "mamba2":
+            x, (ssm, conv) = mamba2_step(p, x, (c["ssm"], c["conv"]), cfg)
+            c["ssm"].copy_(ssm)
+            c["conv"].copy_(conv)
+        else:
+            x = attn_decode(p, x, c["k"], c["v"], pos, cfg)
     x = rms_norm(x, params["final_norm"])
     return x @ _head(params, cfg)

@@ -68,9 +68,13 @@ class ServeEngine:
         return assigned
 
     def _reset_cache(self):
+        """Every wave starts from a zeroed cache, as the reference's
+        engine, which builds a fresh one per wave: K/V, and the mamba2
+        layers' ssm and conv state, which decode would otherwise carry
+        over from the last wave."""
         for c in self.cache:
-            c["k"].zero_()
-            c["v"].zero_()
+            for t in c.values():
+                t.zero_()
 
     def run(self, max_steps: int = 10_000):
         """Lockstep loop: all live slots share the position counter

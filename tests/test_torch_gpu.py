@@ -1,8 +1,10 @@
 """The PyTorch port on the card: each hand-written CUDA kernel against its
-plain PyTorch version (which `tests/test_torch_kernels.py` holds to the
-JAX reference), and the decode step and tiered KV cache on CUDA against
-the same code on the CPU.  Imports neither jax nor `repro`, so it runs
-on a GPU machine without them:
+plain PyTorch version (which `tests/test_torch_kernels.py`,
+`tests/test_torch_training.py` and `tests/test_torch_ssd.py` hold to the
+JAX reference), and the decode step, tiered KV cache, training step and
+mamba2 mixer, prefill and decode on CUDA against the same code on the
+CPU.  Imports neither jax nor `repro`, so it runs on a GPU machine
+without them:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
@@ -13,6 +15,7 @@ import torch
 
 from repro_torch.configs import smoke_config
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.models import transformer
 from repro_torch.tiering import KVTierConfig, TieredKVCache
 
@@ -279,3 +282,134 @@ def test_train_step_on_card_matches_cpu(cuda):
             np.testing.assert_allclose(b.detach().cpu().numpy(),
                                        a.detach().numpy(), rtol=1e-4,
                                        atol=1e-5, err_msg=name)
+
+
+# ----------------------------------------------------------------------
+# ssd scan
+# ----------------------------------------------------------------------
+def ssd_inputs(cuda, B, nC, Q, nh, hp, ns, dtype, seed=0):
+    """x, B, C in `dtype`, dt and A in float32, as tests/test_kernels.py
+    draws them (A = -exp(N(0, 0.2)), dt = softplus(N(0, 1)))."""
+    rng = np.random.default_rng(seed)
+
+    def normal(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32))
+
+    x, Bm, Cm = (normal(*s) * 0.5 for s in ((B, nC, Q, nh, hp),
+                                            (B, nC, Q, ns), (B, nC, Q, ns)))
+    dt = torch.nn.functional.softplus(normal(B, nC, Q, nh))
+    A = -torch.exp(normal(nh) * 0.2)
+    dt_ = getattr(torch, dtype)
+    return ([t.to(device=cuda, dtype=dt_) for t in (x, Bm, Cm)]
+            + [dt.to(cuda), A.to(cuda)])
+
+
+SSD_TOL = {"float32": dict(rtol=5e-4, atol=5e-4),   # tests/test_kernels.py
+           "bfloat16": dict(rtol=5e-2, atol=5e-2)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,nC,Q,nh,hp,ns", [
+    (1, 4, 32, 2, 64, 16), (2, 2, 64, 4, 64, 128), (1, 8, 16, 1, 128, 64),
+    (1, 3, 100, 2, 32, 48),                 # 3 chunks, ragged 64-row tile
+    (2, 5, 256, 4, 64, 128),                # 5 chunks at the full chunk
+    (1, 16, 256, 64, 64, 128),              # mamba2-1.3b's prefill shape
+])
+def test_ssd_kernel_matches_plain(cuda, B, nC, Q, nh, hp, ns, dtype):
+    """Both forms of the op against the plain chunk scan on the same
+    inputs; h_final within 5e-3 as in tests/test_kernels.py."""
+    x, Bm, Cm, dt, A = ssd_inputs(cuda, B, nC, Q, nh, hp, ns, dtype)
+    want_y, want_h = ssd.ssd_scan_plain(x, Bm, Cm, dt, A)
+    before = ops.LAUNCHES["ssd_scan"]
+    y32, h32 = ops.ssd_scan_fwd(x, Bm, Cm, dt, A)
+    y, h = ops.ssd_scan(x, Bm, Cm, dt, A)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssd_scan"] == before + 2
+    assert y32.dtype == h.dtype == h32.dtype == torch.float32
+    assert y.dtype == x.dtype and y.shape == x.shape
+    assert h.shape == (B, nh, ns, hp)
+    for got in (y32, y):
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want_y.cpu().numpy(), **SSD_TOL[dtype])
+    for got in (h32, h):
+        np.testing.assert_allclose(got.cpu().numpy(), want_h.cpu().numpy(),
+                                   rtol=5e-3, atol=5e-3)
+
+
+def test_ssd_kernel_rejects_what_it_does_not_take(cuda):
+    x, Bm, Cm, dt, A = ssd_inputs(cuda, 1, 2, 32, 2, 64, 16, "float32")
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.ssd_scan(x.transpose(3, 4).contiguous().transpose(3, 4), Bm, Cm,
+                     dt, A)
+    with pytest.raises(ValueError, match="B is torch.bfloat16"):
+        ops.ssd_scan(x, Bm.bfloat16(), Cm, dt, A)
+    with pytest.raises(ValueError, match="dt is torch.bfloat16"):
+        ops.ssd_scan(x, Bm, Cm, dt.bfloat16(), A)
+    with pytest.raises(ValueError, match="not supported"):
+        ops.ssd_scan(x.half(), Bm.half(), Cm.half(), dt, A)
+    with pytest.raises(ValueError, match="A is torch.float32 on cpu"):
+        ops.ssd_scan(x, Bm, Cm, dt, A.cpu())
+    with pytest.raises(ValueError, match="multiple of 32"):
+        ops.ssd_scan(x[..., :48].contiguous(), Bm, Cm, dt, A)
+    with pytest.raises(ValueError, match="disagree"):
+        ops.ssd_scan(x, Bm, Cm, dt[..., :1].contiguous(), A)
+
+
+def test_mamba2_mixer_on_card_matches_cpu(cuda):
+    """The mamba2 smoke mixer (float32, 2 chunks) forward and backward on
+    the card (scan kernel forward, plain-scan backward) against the CPU
+    path: output, both states and every gradient."""
+    from repro_torch.models import mamba2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_config("mamba2-1.3b")
+    p = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                torch.device("cpu"))["layers"][0]
+    rng = np.random.default_rng(1)
+    xin = torch.from_numpy(rng.standard_normal((2, 64, cfg.d_model),
+                                               np.float32))
+    ct = torch.from_numpy(rng.standard_normal((2, 64, cfg.d_model),
+                                              np.float32))
+    runs = []
+    for dev in ("cpu", cuda):
+        before = ops.LAUNCHES["ssd_scan"]
+        pp = {k: w.detach().to(dev).requires_grad_() for k, w in p.items()}
+        x = xin.detach().to(dev).requires_grad_()
+        out, (ssm, conv) = mamba2.mamba2_mixer(pp, x, cfg)
+        ((out * ct.to(dev)).sum() + ssm.sum()).backward()
+        runs.append(([out, ssm, conv, x.grad] + [pp[k].grad for k in
+                                                 sorted(pp)],
+                     ops.LAUNCHES["ssd_scan"] - before))
+    assert (runs[0][1], runs[1][1]) == (0, 1)
+    for got, want in zip(runs[1][0], runs[0][0]):
+        np.testing.assert_allclose(got.detach().cpu().numpy(),
+                                   want.detach().numpy(), rtol=1e-4,
+                                   atol=1e-4)
+
+
+def test_mamba2_prefill_and_decode_on_card_match_cpu(cuda):
+    """The mamba2 smoke model: a 64-token prefill, then 12 decode steps
+    from its cache, on both devices."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_config("mamba2-1.3b")
+    cpu = torch.device("cpu")
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                     cpu)
+    on_card = {k: ([{n: w.to(cuda) for n, w in layer.items()} for layer in v]
+                   if k == "layers" else v.to(cuda))
+               for k, v in params.items()}
+    rng = np.random.default_rng(5)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (3, 64)))
+    with torch.no_grad():
+        want, cache = transformer.forward(params, cfg, prompt,
+                                          return_cache=True)
+        got, ccache = transformer.forward(on_card, cfg, prompt.to(cuda),
+                                          return_cache=True)
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=1e-4, atol=1e-4)
+        for pos in range(64, 76):
+            toks = torch.from_numpy(rng.integers(0, cfg.vocab, 3))
+            want = transformer.decode_step(params, cfg, cache, toks, pos)
+            got = transformer.decode_step(on_card, cfg, ccache,
+                                          toks.to(cuda), pos)
+            np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                       rtol=1e-4, atol=1e-4)

@@ -281,7 +281,11 @@ def test_cross_entropy_matches_reference():
 
 @pytest.mark.parametrize("arch", PORTED)
 def test_prefill_step_matches_reference(arch):
-    """Last logits and every layer's k/v of the prefill step."""
+    """Last logits and every layer's cache of the prefill step: k/v, and
+    the mamba2 ssm state, against the reference's prefill; the mamba2
+    conv state against the reference's teacher-forced decode, whose raw
+    window the port hands off (its prefill hands off the post-conv
+    stream, `tests/test_torch_mamba2.py`)."""
     cfg, jcfg = smoke_pair(arch)
     tree = reference_params(jcfg, 2)
     batch = lm_batch(cfg, 2, 64, seed=3)
@@ -294,18 +298,29 @@ def test_prefill_step_matches_reference(arch):
     np.testing.assert_allclose(last.numpy(), np.asarray(jlast), rtol=1e-4,
                                atol=1e-4)
     assert len(cache) == cfg.n_layers
+    mamba = cfg.stages[0][1][0].kind == "mamba2"
+    if mamba:
+        dcache = jtransformer.init_cache(jcfg, 2, 64)
+        step = jax.jit(lambda c, x, p: jtransformer.decode_step(tree, jcfg,
+                                                                c, x, p))
+        for i in range(64):
+            _, dcache = step(dcache, batch["tokens"][:, i], jnp.int32(i))
     for i, layer in enumerate(cache):
-        for name in ("k", "v"):
-            np.testing.assert_allclose(
-                layer[name].numpy(),
-                np.asarray(jcache[0]["b0"][name][i]), rtol=1e-4, atol=1e-4)
+        want = {"ssm": jcache[0]["b0"]["ssm"][i],
+                "conv": dcache[0]["b0"]["conv"][i]} if mamba \
+            else {n: jcache[0]["b0"][n][i] for n in ("k", "v")}
+        assert layer.keys() == want.keys()
+        for name, w in want.items():
+            np.testing.assert_allclose(layer[name].numpy(), np.asarray(w),
+                                       rtol=1e-4, atol=1e-4, err_msg=name)
 
 
 @pytest.mark.parametrize("arch", PORTED)
 def test_prefill_matches_teacher_forced_decode(arch):
     """`tests/test_arch_smoke.py::test_decode_matches_prefill` on the
-    port: the prefill step's logits and k/v equal what the decode step
-    leaves after teacher-forcing the same tokens."""
+    port: the prefill step's logits and cache (k/v, or the mamba2 ssm and
+    conv state) equal what the decode step leaves after teacher-forcing
+    the same tokens."""
     cfg = smoke_config(arch)
     params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
                                      CPU)
@@ -320,9 +335,13 @@ def test_prefill_matches_teacher_forced_decode(arch):
     np.testing.assert_allclose(got.detach().numpy(), logits.detach().numpy(),
                                rtol=2e-2, atol=2e-2)
     for layer, dc in zip(cache, dcache):
-        np.testing.assert_allclose(dc["k"][:, :, :T].transpose(1, 2).numpy(),
-                                   layer["k"].detach().numpy(), rtol=2e-2,
-                                   atol=2e-2)
+        if "ssm" in layer:
+            pairs = [(dc[n], layer[n]) for n in ("ssm", "conv")]
+        else:
+            pairs = [(dc["k"][:, :, :T].transpose(1, 2), layer["k"])]
+        for d, p in pairs:
+            np.testing.assert_allclose(d.detach().numpy(), p.detach().numpy(),
+                                       rtol=2e-2, atol=2e-2)
 
 
 # ----------------------------------------------------------------------
