@@ -4,13 +4,16 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from `src/repro_torch/csrc` and runs
-seven phases, each printing one JSON line:
+eight phases, each printing one JSON line:
 
   device   the card's name and power limit, and the kernels' build time;
+  ptxas    registers and spill bytes of the flash and decode kernels;
   kernels  each kernel against its plain PyTorch version on the card, at
            the shapes the serving and training paths give it and at
            others, with its time, the plain version's time, one PyTorch
-           call's time where one computes the same function, and its bound;
+           call's time where one computes the same function, its bound,
+           the share of the bound it reaches and its time over the
+           PyTorch call's;
   serve    llama3-8b at full width (32 layers, random bf16 weights from a
            seed) answering 8 requests through `ServeEngine`, after a check
            of the CUDA decode path's logits against the CPU path's;
@@ -59,6 +62,7 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py
+LSE_TOL = 1e-5      # the flash forward's f32 row lse against the plain one
 REPS = 25
 # serving run: 8 requests of 128 prompt and 32 new tokens, batch 4
 PROMPT, NEW, BATCH, REQUESTS = 128, 32, 4, 8
@@ -113,6 +117,13 @@ def bound(n_bytes: float, n_ops: float, dtype) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def shares(ms: float, bound_ms: float, library_ms) -> dict:
+    """share_of_bound = bound / kernel time; vs_library = kernel time /
+    the one PyTorch call's (None where there is none)."""
+    return dict(share_of_bound=bound_ms / ms,
+                vs_library=None if library_ms is None else ms / library_ms)
+
+
 # ----------------------------------------------------------------------
 # kernels
 # ----------------------------------------------------------------------
@@ -153,13 +164,12 @@ def decode_case(ops, ref, dev, g, flush, B, H, KVH, D, S, valid,
     k = torch.randn(B, KVH, S, D, generator=g, device=dev).to(dtype)
     v = torch.randn(B, KVH, S, D, generator=g, device=dev).to(dtype)
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)
-    got = ops.decode_attention_head_major(q, k, v, valid)
+    outs = [ops.decode_attention_head_major(q, k, v, valid)]
     want = ref.decode_attention_ref(q, kt, vt, valid)
-    err = float((got.float() - want.float()).abs().max())
     if S <= 4096:      # the reference layout's entry point, same kernel
-        other = ops.decode_attention(q, kt.contiguous(), vt.contiguous(),
-                                     valid)
-        err = max(err, float((other.float() - want.float()).abs().max()))
+        outs.append(ops.decode_attention(q, kt.contiguous(), vt.contiguous(),
+                                         valid))
+    agree = decode_agrees(outs, want, TOL[dtype])
     q4, kv, vv = q[:, :, None], k[:, :, :valid], v[:, :, :valid]
     lib = F.scaled_dot_product_attention(q4, kv, vv, enable_gqa=True)
     lib_err = float((lib[:, :, 0].float() - want.float()).abs().max())
@@ -174,11 +184,10 @@ def decode_case(ops, ref, dev, g, flush, B, H, KVH, D, S, valid,
     b_ms, b_by = bound(n_bytes, 4 * B * H * valid * D + 5 * B * H * valid,
                        dtype)
     return dict(shape=dict(B=B, H=H, KVH=KVH, D=D, S=S, valid_len=valid),
-                dtype=str(dtype).removeprefix("torch."),
-                ok=err <= TOL[dtype], max_abs_err=err, tol=TOL[dtype],
-                library_max_abs_err=lib_err, kernel_ms=ms,
+                dtype=str(dtype).removeprefix("torch."), **agree,
+                tol=TOL[dtype], library_max_abs_err=lib_err, kernel_ms=ms,
                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
-                bound_by=b_by)
+                bound_by=b_by, **shares(ms, b_ms, library_ms))
 
 
 def visible_pairs(Sq: int, Skv: int, window) -> int:
@@ -195,6 +204,34 @@ def excess(got, want, rtol, atol) -> float:
     return float(((got - want).abs() / (atol + rtol * want.abs())).max())
 
 
+def scaled_excess(got, want, tol) -> float:
+    """excess() at rtol `tol` and an atol of `tol` or a tenth of the RMS
+    of `want`, whichever is less.  A bf16 attention output over a few
+    thousand keys is a few hundredths in size, so an atol of 2e-2 alone
+    would pass a kernel that drops a key tile or a split of the cache."""
+    rms = float(want.float().pow(2).mean().sqrt())
+    return excess(got, want, tol, min(tol, 0.1 * rms))
+
+
+def flash_agrees(got, lse, want, want_lse, tol) -> dict:
+    """The flash kernel's output and row lse against the plain version's:
+    the output within scaled_excess, the lse within LSE_TOL."""
+    over = scaled_excess(got, want, tol)
+    lse_err = float((lse - want_lse).abs().max())
+    return dict(ok=over <= 1.0 and lse_err <= LSE_TOL,
+                max_abs_err=float((got.float() - want.float()).abs().max()),
+                err_over_tol=over, lse_max_abs_err=lse_err)
+
+
+def decode_agrees(outs, want, tol) -> dict:
+    """Each of the decode kernel's outputs against the plain version's:
+    within `tol` absolute and within scaled_excess."""
+    err = max(float((o.float() - want.float()).abs().max()) for o in outs)
+    over = max(scaled_excess(o, want, tol) for o in outs)
+    return dict(ok=err <= tol and over <= 1.0, max_abs_err=err,
+                err_over_tol=over)
+
+
 def flash_case(ops, fa, dev, g, flush, B, S, H, KVH, D, window,
                dtype) -> dict:
     q = torch.randn(B, S, H, D, generator=g, device=dev).to(dtype)
@@ -203,7 +240,7 @@ def flash_case(ops, fa, dev, g, flush, B, S, H, KVH, D, window,
     got, lse = ops.flash_attention_fwd(q, k, v, window=window)
     want, want_lse = fa.flash_attention_plain(q, k, v, window=window)
     tol = TOL[dtype]
-    over = excess(got, want, tol, tol)
+    agree = flash_agrees(got, lse, want, want_lse, tol)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     if window is None:
         def lib():
@@ -229,13 +266,10 @@ def flash_case(ops, fa, dev, g, flush, B, S, H, KVH, D, window,
     n_bytes = item * (2 * B * S * H * D + 2 * B * S * KVH * D) + 4 * B * H * S
     b_ms, b_by = bound(n_bytes, B * H * pairs * (4 * D + 5), dtype)
     return dict(shape=dict(B=B, S=S, H=H, KVH=KVH, D=D, window=window),
-                dtype=str(dtype).removeprefix("torch."), ok=over <= 1.0,
-                max_abs_err=float((got.float() - want.float()).abs().max()),
-                err_over_tol=over, tol=tol,
-                lse_max_abs_err=float((lse - want_lse).abs().max()),
-                library_max_abs_err=lib_err, kernel_ms=ms, plain_ms=plain_ms,
+                dtype=str(dtype).removeprefix("torch."), **agree, tol=tol,
+                lse_tol=LSE_TOL, library_max_abs_err=lib_err, kernel_ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
-                visible_pairs=pairs)
+                **shares(ms, b_ms, library_ms), visible_pairs=pairs)
 
 
 def ssd_case(ops, ssd, dev, g, flush, B, nC, Q, nh, hp, ns, dtype) -> dict:
@@ -866,6 +900,9 @@ def main() -> int:
     emit("device", name=torch.cuda.get_device_name(dev), nvidia_smi=power,
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, build_s=time.perf_counter() - t0)
+    # registers and spills of the two kernels redesigned for Hopper
+    emit("ptxas", **{name: _build.ptxas_report(name)
+                     for name in ("flash_attention", "decode_attention")})
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     main_shapes = kernels_phase(dev, flush, power)
     del flush
@@ -897,7 +934,10 @@ def main() -> int:
          "plain_ms": main_shapes[name]["plain_ms"],
          "bound_ms": main_shapes[name]["bound_ms"],
          "bound_by": main_shapes[name]["bound_by"],
-         "library_ms": main_shapes[name]["library_ms"]}
+         "library_ms": main_shapes[name]["library_ms"],
+         **shares(main_shapes[name]["kernel_ms"],
+                  main_shapes[name]["bound_ms"],
+                  main_shapes[name]["library_ms"])}
         for name, (src, tpu) in sources.items()]}), flush=True)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,9 @@ source is rebuilt and a stale library is never loaded.  No PyTorch
 headers are included, which keeps a build at a few seconds.
 
 `LAUNCHES` counts kernel launches per public op; a wrapper adds one
-where it launches its kernel and nowhere else.
+where it launches its kernel and nowhere else.  ptxas reports each
+kernel's registers and spills (`-Xptxas=-v`); the report is kept beside
+the library and read back by `ptxas_report`.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -23,7 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 KERNELS = ("ralt_score", "decode_attention", "flash_attention", "ssd_scan")
 
 LAUNCHES = {"ralt_update": 0, "decode_attention": 0, "flash_attention": 0,
@@ -75,10 +78,33 @@ def build(names=KERNELS) -> list[Path]:
                 errors.append(f"nvcc failed for {name}.cu "
                               f"(rc {proc.returncode}):\n{err}")
             else:
+                out.with_suffix(".ptxas.txt").write_text(err)
                 os.replace(tmp, out)
         if errors:
             raise RuntimeError("\n".join(errors))
     return [_lib_path(n) for n in names]
+
+
+def ptxas_report(name: str) -> dict:
+    """{kernel (mangled name): {"registers": n, "stack_frame": bytes,
+    "spill_stores": bytes, "spill_loads": bytes}} from ptxas's report on
+    `csrc/<name>.cu`."""
+    (path,) = build((name,))
+    text = path.with_suffix(".ptxas.txt").read_text()
+    report, kernel = {}, None
+    for line in text.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            kernel = m.group(1)
+            report[kernel] = {}
+        elif kernel and (m := re.search(
+                r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                r"(\d+) bytes spill loads", line)):
+            report[kernel].update(stack_frame=int(m.group(1)),
+                                  spill_stores=int(m.group(2)),
+                                  spill_loads=int(m.group(3)))
+        elif kernel and (m := re.search(r"Used (\d+) registers", line)):
+            report[kernel]["registers"] = int(m.group(1))
+    return report
 
 
 @functools.cache

@@ -6,9 +6,11 @@ Replaces the Pallas TPU kernel
 line 106).  The TPU kernel walks the sequence as the innermost,
 sequential grid axis of a (B, KVH, n_s) grid; on a card with 132 SMs a
 (B, KVH) grid alone leaves most of them idle, so `csrc/decode_attention.cu`
-splits the valid part of the cache across blocks and merges the
+splits the valid part of the cache across blocks, streams K and V rows in
+16-byte loads, and has the last block of each (batch, kv head) merge the
 per-split partials (o, l, m) with the log-sum-exp algebra of
-`models/common.py:merge_partials` in a second small kernel.
+`models/common.py:merge_partials`, in the same launch; with one split the
+block writes the output itself.
 
 Two entry points share the kernel:
   * `decode_attention`              caches (B, S, KVH, D) — the reference's
@@ -30,50 +32,96 @@ from .ref import decode_attention_ref
 
 F32 = torch.float32
 _DTYPES = {F32: 0, torch.bfloat16: 1}
-_NT = 256               # threads per block (csrc NT)
+_NW = 4                 # warps per block (csrc NT / 32)
 _MAX_G = 16             # query heads per KV head (csrc MAXG)
-_MAX_D = 256            # head_dim (csrc: G * D <= NT * MAXJ)
+_MAX_D = 256            # head_dim (csrc MAXD)
+_DPL = 8                # dims a lane holds (csrc DPL)
 _SMEM_LIMIT = 48 * 1024  # static limit without an opt-in attribute
-_BLOCKS_PER_SM = 4
+_MAX_SPLITS = 256       # csrc MAX_SPLITS
+# (device, stream) -> int32 arrival counters of the fused merge.  The
+# last block of each (batch, kv head) resets its counter, so one zeroed
+# buffer serves every launch on that stream without a memset launch;
+# launches on one stream run one after another, while two streams' may
+# overlap and so never share a buffer.
+_COUNTERS: dict = {}
 
 
 def _lib():
     lib = _build.load("decode_attention")
     if lib.decode_attention.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.decode_attention.argtypes = [P, P, P, P, P, P,
-                                         I, I, I, I, I, I, I, I, I,
-                                         L, L, L, L, L, L,
-                                         ctypes.c_float, P]
+        lib.decode_attention.argtypes = [P] * 7 + [I] * 11 + [L] * 6 + [
+            ctypes.c_float, P]
         lib.decode_attention.restype = ctypes.c_int
+        lib.decode_blocks_per_sm.argtypes = [I, I]
+        lib.decode_blocks_per_sm.restype = I
     return lib
 
 
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+def head_slice(G: int) -> int:
+    """Query heads a thread holds (csrc template HG): G rounded up to 1,
+    2, 4 or 8; G > 8 takes two slices of 8."""
+    return next(hg for hg in (1, 2, 4, 8) if hg >= min(G, 8))
 
 
-def _tile(G: int, D: int) -> int:
-    """Tokens per shared-memory tile: the largest of 64, 32, ... whose
-    q, V tile and score buffers fit the static shared-memory limit."""
-    tile = 64
-    while tile > 8 and 4 * (G * D + tile * D + G * tile + 3 * G) \
-            > _SMEM_LIMIT:
-        tile //= 2
-    return tile
+def lanes(D: int) -> int:
+    """Lanes that share a K/V row, 8 dims each: D / 8 rounded up to a
+    power of two."""
+    n = 1
+    while n * _DPL < D:
+        n *= 2
+    return n
+
+
+def tile(G: int, D: int, dtype) -> int:
+    """Tokens a block reads per step of its loop: warps of a head slice
+    x tokens per warp load x tokens a lane loads at once (csrc
+    `tokens_per_load`)."""
+    hg = head_slice(G)
+    wps = _NW // -(-G // hg)
+    if dtype == torch.bfloat16:
+        per_load = 2 if hg >= 8 else 4
+    else:
+        per_load = 1 if hg >= 4 else 2
+    return wps * (32 // lanes(D)) * per_load
+
+
+def smem_bytes(G: int) -> int:
+    """Static shared memory of one block (csrc red_o, red_m, red_l,
+    is_last)."""
+    hg = head_slice(G)
+    return 4 * (_NW * hg * _MAX_D + 2 * _NW * hg) + 4
 
 
 def plan_splits(B: int, KVH: int, valid_len: int, tile: int,
-                n_sm: int) -> tuple[int, int]:
-    """(split_len, n_splits): enough (b, kv_head, split) blocks for about
-    `_BLOCKS_PER_SM` per SM, each split a whole number of tiles, and no
-    split at or past `valid_len`."""
+                slots: int) -> tuple[int, int]:
+    """(split_len, n_splits): at most one wave of `slots` resident
+    (b, kv_head, split) blocks, at most `_MAX_SPLITS` splits, each a whole
+    number of tiles, and no split at or past `valid_len`."""
     n_tiles = -(-valid_len // tile)
-    want = max(1, (_BLOCKS_PER_SM * n_sm) // (B * KVH))
-    n = min(want, n_tiles)
+    n = max(1, min(slots // (B * KVH), _MAX_SPLITS, n_tiles))
     split_len = -(-n_tiles // n) * tile
     return split_len, -(-valid_len // split_len)
+
+
+@functools.cache
+def _slots(index: int, dtype, hg: int) -> int:
+    """Blocks the card holds at once: SMs x resident blocks of the
+    (dtype, hg) kernel."""
+    n = _lib().decode_blocks_per_sm(_DTYPES[dtype], hg)
+    if n < 1:
+        raise RuntimeError(f"decode_attention: occupancy query failed ({n})")
+    return n * torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _counters(dev, stream: int, n: int) -> torch.Tensor:
+    """The zeroed counters of launches on `stream` (a cudaStream_t), made
+    on that stream."""
+    have = _COUNTERS.get((dev, stream))
+    if have is None or have.numel() < n:
+        have = _COUNTERS[dev, stream] = torch.zeros(
+            max(n, 1024), dtype=torch.int32, device=dev)
+    return have
 
 
 def _cuda(q, k, v, valid_len, KVH, strides):
@@ -83,18 +131,23 @@ def _cuda(q, k, v, valid_len, KVH, strides):
     dev = q.device
     G = H // KVH
     lib = _lib()
-    tile = _tile(G, D)
-    split_len, n_splits = plan_splits(B, KVH, valid_len, tile,
-                                      _sm_count(dev.index or 0))
+    hg = head_slice(G)
+    split_len, n_splits = plan_splits(
+        B, KVH, valid_len, tile(G, D, q.dtype),
+        _slots(dev.index or 0, q.dtype, hg))
+    vec = int(D % _DPL == 0 and all(s % _DPL == 0 for s in strides)
+              and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
+    stream = torch.cuda.current_stream(dev).cuda_stream
     out = torch.empty_like(q)
-    o_part = torch.empty(B * KVH * n_splits * G * D, dtype=F32, device=dev)
-    ml_part = torch.empty(B * KVH * n_splits * G * 2, dtype=F32, device=dev)
+    n_part = B * KVH * n_splits if n_splits > 1 else 0
+    o_part = torch.empty(n_part * G * D, dtype=F32, device=dev)
+    ml_part = torch.empty(n_part * G * 2, dtype=F32, device=dev)
     rc = lib.decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        o_part.data_ptr(), ml_part.data_ptr(), _DTYPES[q.dtype],
-        B, H, KVH, D, valid_len, split_len, n_splits, tile,
-        *strides, *strides, D ** -0.5,
-        torch.cuda.current_stream(dev).cuda_stream)
+        o_part.data_ptr(), ml_part.data_ptr(),
+        _counters(dev, stream, B * KVH).data_ptr(), _DTYPES[q.dtype],
+        B, H, KVH, D, hg, lanes(D), valid_len, split_len,
+        n_splits, vec, *strides, *strides, D ** -0.5, stream)
     _build.check(lib, rc, "decode_attention")
     _build.LAUNCHES["decode_attention"] += 1
     return out

@@ -8,10 +8,13 @@ place (G = H / KVH).  Besides the output, both versions return the
 float32 row log-sum-exp ``lse`` (B, H, Sq), the residual the backward in
 `models/common.py` recomputes tiles from.
 
-  * `csrc/flash_attention.cu`: one block per (64-row q tile, head,
-    batch), looping over 64-key tiles between the window's and the
-    causal/kv_len limits, online softmax in float32 (see the source's
-    header for the design and what bounds it);
+  * `csrc/flash_attention.cu`: in bf16, one block per (128-row q tile,
+    head, batch) with both products on `wgmma` and K/V tiles of 128 keys
+    brought by TMA into a 2-stage ring (64 rows and 64 keys at D = 256);
+    in float32, the CUDA-core kernel of 64-row tiles and 64-key tiles.
+    Both loop over the key tiles between the window's and the
+    causal/kv_len limits with the online softmax in float32 (see the
+    source's header for the design and what bounds it);
   * `flash_attention_plain`: the port of the reference's chunked scan
     `repro/models/common.py:_flash_fwd_scan`, on the unexpanded KV, with
     tiles wholly outside the masks skipped.  A CPU tensor runs it; a CUDA
@@ -36,13 +39,25 @@ F32 = torch.float32
 NEG_INF = -1e30
 _DTYPES = {F32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)   # csrc instantiations
-_BQ = _BK = 64                           # csrc BQ, BK
+STAGES = 2                               # csrc STAGES: bf16 K/V ring depth
+_F32_BQ = _F32_BK = 64                   # csrc F32_BQ, F32_BK
 SMEM_OPTIN = 232_448                     # a block's shared-memory limit
 
 
-def smem_bytes(D: int) -> int:
-    """Dynamic shared memory of one block (csrc `smem_bytes`)."""
-    return 4 * (D * (_BQ + 1) + D * (_BK + 1) + _BK * D + _BQ * (_BK + 1))
+def bf16_tile(D: int) -> tuple[int, int]:
+    """(query rows a block, keys a tile) of the bf16 kernel (csrc
+    `rows_per_block`, `keys_per_tile`)."""
+    return (64, 64) if D > 128 else (128, 128)
+
+
+def smem_bytes(D: int, dtype=torch.bfloat16) -> int:
+    """Dynamic shared memory of one block (csrc `wgmma_smem_bytes` for
+    bf16, `f32_smem_bytes` for float32)."""
+    if dtype == F32:
+        return 4 * (D * (_F32_BQ + 1) + D * (_F32_BK + 1) + _F32_BK * D
+                    + _F32_BQ * (_F32_BK + 1))
+    rows, keys = bf16_tile(D)
+    return 1024 + 2 * D * (rows + 2 * STAGES * keys) + 8 * (2 * STAGES + 1)
 
 
 def _lib():
@@ -146,6 +161,9 @@ def _check(q, k, v, window, kv_len):
                              f"{t.device}, q is {q.dtype} on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} must be 16-byte "
+                             "aligned (TMA)")
     if q.dtype not in _DTYPES:
         raise ValueError(f"flash_attention: dtype {q.dtype} not supported")
     if D not in HEAD_DIMS:

@@ -1,0 +1,81 @@
+"""Device time of the flash and decode kernels beside one PyTorch call.
+
+    PYTHONPATH=src python -m repro_torch.launch.profile_attention
+
+Needs one CUDA card.  Times each kernel and
+`F.scaled_dot_product_attention` on the same bf16 inputs from
+torch.profiler's CUDA (CUPTI) kernel records: the kernels' own
+durations, with warm caches and no launch gaps, where `chip_smoke.py`
+times whole calls with CUDA events after an L2 flush.  Shapes: the
+decode kernel at llama3-8b's serving shape (batch 4, 129 of 168
+tokens), on a 30,001-token cache and at stablelm-3b's widths; the flash
+forward at stablelm-3b's training and llama3-8b's prefill shapes.
+Prints the card's name and power limit, then one JSON line.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ops
+
+DECODE = ((4, 32, 8, 128, 168, 129), (8, 32, 8, 128, 32_768, 30_001),
+          (4, 32, 32, 80, 4096, 3001))
+FLASH = ((1, 4096, 32, 32, 80), (1, 4096, 32, 8, 128))
+
+
+def device_us(fn, reps: int = 20) -> float:
+    """Device time of one call of `fn` in µs: the CUDA kernels it
+    launched, summed over `reps` calls, over `reps`."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()) / reps
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_attention needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(0)
+    bf16 = torch.bfloat16
+    rows = []
+    for B, H, KVH, D, S, valid in DECODE:
+        q = torch.randn(B, H, D, generator=g, device=dev).to(bf16)
+        k, v = (torch.randn(B, KVH, S, D, generator=g, device=dev).to(bf16)
+                for _ in range(2))
+        q4, kv, vv = q[:, :, None], k[:, :, :valid], v[:, :, :valid]
+        rows.append(dict(
+            kernel="decode_attention", B=B, H=H, KVH=KVH, D=D,
+            valid_len=valid,
+            kernel_us=device_us(lambda: ops.decode_attention_head_major(
+                q, k, v, valid)),
+            library_us=device_us(lambda: F.scaled_dot_product_attention(
+                q4, kv, vv, enable_gqa=True))))
+    for B, S, H, KVH, D in FLASH:
+        q = torch.randn(B, S, H, D, generator=g, device=dev).to(bf16)
+        k, v = (torch.randn(B, S, KVH, D, generator=g, device=dev).to(bf16)
+                for _ in range(2))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        rows.append(dict(
+            kernel="flash_attention", B=B, S=S, H=H, KVH=KVH, D=D,
+            kernel_us=device_us(lambda: ops.flash_attention_fwd(q, k, v)),
+            library_us=device_us(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True))))
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0])
+    print(json.dumps({"profile": rows}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

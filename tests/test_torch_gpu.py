@@ -83,6 +83,78 @@ def test_decode_kernel_matches_plain(cuda, B, S, H, KVH, D, valid, dtype):
                                    **TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,KVH,D,valid,one_split", [
+    (4, 64, 32, 8, 128, 8, True),         # one split: the block writes out
+    (1, 8192, 8, 1, 128, 8000, False),    # the fused merge of many splits
+    (1, 500, 32, 32, 80, 457, False),     # D = 80: 10 of 16 lanes
+    (2, 1000, 14, 2, 64, 999, False),     # internvl2's G = 7
+    (4, 100, 32, 8, 128, 1, True),        # valid_len 1
+    (2, 2100, 4, 2, 20, 2000, False),     # D = 20: element loads
+])
+def test_decode_kernel_paths(cuda, B, S, H, KVH, D, valid, one_split,
+                             dtype):
+    """The kernel's paths against the plain version, through both
+    layouts, each in one launch."""
+    from repro_torch.kernels import decode_attention as tdecode
+    dt = getattr(torch, dtype)
+    G = H // KVH
+    slots = tdecode._slots(cuda.index or 0, dt, tdecode.head_slice(G))
+    _, n_splits = tdecode.plan_splits(B, KVH, valid,
+                                      tdecode.tile(G, D, dt), slots)
+    assert (n_splits == 1) == one_split
+    rng = np.random.default_rng(1)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+        device=cuda, dtype=dt)
+        for shape in ((B, H, D), (B, S, KVH, D), (B, S, KVH, D)))
+    want = ref.decode_attention_ref(q, k, v, valid).float().cpu().numpy()
+    before = ops.LAUNCHES["decode_attention"]
+    for _ in range(2):    # the second call finds the counters reset
+        outs = (ops.decode_attention(q, k, v, valid),
+                ops.decode_attention_head_major(
+                    q, k.transpose(1, 2).contiguous(),
+                    v.transpose(1, 2).contiguous(), valid))
+        torch.cuda.synchronize()
+        for out in outs:
+            np.testing.assert_allclose(out.float().cpu().numpy(), want,
+                                       **TOL[dtype])
+    assert ops.LAUNCHES["decode_attention"] == before + 4
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernel_on_two_streams_at_once(cuda, dtype):
+    """Launches on two streams may overlap on the card: each stream's
+    fused merge keeps its own arrival counters, so no block takes the
+    other launch's arrivals and partials for its own."""
+    from repro_torch.kernels import decode_attention as tdecode
+    dt = getattr(torch, dtype)
+    B, S, H, KVH, D, valid = 2, 16384, 8, 1, 128, 16000
+    rng = np.random.default_rng(2)
+    qs = [torch.from_numpy(rng.standard_normal((B, H, D), np.float32)).to(
+        device=cuda, dtype=dt) for _ in range(2)]
+    k, v = (torch.from_numpy(rng.standard_normal((B, KVH, S, D),
+                                                 np.float32)).to(
+        device=cuda, dtype=dt) for _ in range(2))
+    wants = [ref.decode_attention_ref(q, k.transpose(1, 2), v.transpose(1, 2),
+                                      valid).float().cpu().numpy()
+             for q in qs]
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    torch.cuda.synchronize()
+    outs = ([], [])
+    for _ in range(8):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(ops.decode_attention_head_major(qs[i], k, v,
+                                                               valid))
+    torch.cuda.synchronize()
+    assert all((qs[0].device, st.cuda_stream) in tdecode._COUNTERS
+               for st in streams)
+    for want, got in zip(wants, outs):
+        for out in got:
+            np.testing.assert_allclose(out.float().cpu().numpy(), want,
+                                       **TOL[dtype])
+
+
 def test_decode_kernel_rejects_what_it_does_not_take(cuda):
     q = torch.zeros(1, 4, 64, device=cuda)
     k = torch.zeros(1, 32, 2, 64, device=cuda)
@@ -183,8 +255,8 @@ def test_flash_kernel_matches_plain(cuda, B, Sq, Skv, H, KVH, D, window,
     assert out.dtype == q.dtype and lse.dtype == torch.float32
     np.testing.assert_allclose(out.float().cpu().numpy(),
                                want.float().numpy(), **TOL[dtype])
-    # the kernel keeps p in float32 where the plain version rounds it to
-    # the input type before P.V; lse sees only the float32 scores
+    # both round p to the input type before P.V (the bf16 kernel in
+    # registers, as the wgmma A operand); lse sees only the float32 scores
     np.testing.assert_allclose(lse.cpu().numpy(), want_lse.numpy(),
                                rtol=1e-5, atol=1e-5)
 
@@ -199,6 +271,34 @@ def test_flash_kernel_q_offset(cuda, q_offset):
     out, lse = ops.flash_attention_fwd(q, k, v, q_offset=q_offset)
     np.testing.assert_allclose(out.cpu().numpy(), want.numpy(),
                                **TOL["float32"])
+    np.testing.assert_allclose(lse.cpu().numpy(), want_lse.numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KVH,D,window,kv_len,q_offset", [
+    (1, 300, 300, 8, 8, 80, None, None, 0),     # D = 80, S % 128 != 0
+    (2, 190, 250, 8, 8, 80, None, 201, 0),      # D = 80, kv_len mid-tile
+    (1, 256, 256, 8, 2, 128, None, 70, 0),      # kv_len in the first tile
+    (1, 384, 384, 8, 2, 64, 100, None, 0),      # G = 4, window mid-tile
+    (1, 256, 256, 16, 2, 128, None, None, 0),   # G = 8
+    (1, 200, 237, 16, 4, 80, None, None, 37),   # q_offset 37, ragged S
+    (1, 130, 300, 8, 8, 256, 50, 280, 37),      # D = 256, every mask
+    (1, 77, 140, 4, 1, 16, 30, None, 37),       # D = 16: one 16-col chunk
+    (1, 150, 150, 4, 2, 32, None, None, 0),     # D = 32: one 32-col chunk
+])
+def test_flash_kernel_bf16_edges(cuda, B, Sq, Skv, H, KVH, D, window,
+                                 kv_len, q_offset):
+    """The wgmma kernel where masks, ragged tiles and the D chunks meet:
+    every row sees a different number of keys."""
+    q, k, v = flash_inputs(cuda, B, Sq, Skv, H, KVH, D, "bfloat16", seed=3)
+    kw = dict(window=window, kv_len=kv_len, q_offset=q_offset)
+    want, want_lse = ops.flash_attention_fwd(q.cpu(), k.cpu(), v.cpu(), **kw)
+    before = ops.LAUNCHES["flash_attention"]
+    out, lse = ops.flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               want.float().numpy(), **TOL["bfloat16"])
     np.testing.assert_allclose(lse.cpu().numpy(), want_lse.numpy(),
                                rtol=1e-5, atol=1e-5)
 

@@ -88,48 +88,95 @@ def test_decode_attention_rejects_valid_len_out_of_range(valid):
         ops.decode_attention(q, k, v, valid)
 
 
-@pytest.mark.parametrize("B,KVH,valid,tile", [
-    (4, 8, 1, 64), (4, 8, 129, 64), (4, 8, 160, 64), (8, 8, 30001, 64),
-    (4, 32, 3001, 32), (4, 2, 3001, 64), (1, 1, 17, 64), (1, 4, 700, 16)])
-def test_plan_splits_covers_valid_len(B, KVH, valid, tile):
-    """Splits are whole tiles, cover [0, valid_len) and none starts at
-    or past it, whatever the SM count."""
-    for n_sm in (1, 132):
-        split_len, n_splits = tdecode.plan_splits(B, KVH, valid, tile, n_sm)
+@pytest.mark.parametrize("B,KVH,G,D,valid,dtype", [
+    (4, 8, 4, 128, 1, torch.bfloat16), (4, 8, 4, 128, 129, torch.bfloat16),
+    (4, 8, 4, 128, 160, torch.float32), (8, 8, 4, 128, 30001, torch.bfloat16),
+    (4, 32, 1, 80, 3001, torch.bfloat16), (4, 2, 7, 64, 3001, torch.bfloat16),
+    (1, 1, 16, 256, 17, torch.float32), (1, 4, 2, 16, 700, torch.float32)])
+def test_plan_splits_covers_valid_len(B, KVH, G, D, valid, dtype):
+    """Splits are whole tiles of the kernel's loop, cover [0, valid_len)
+    and none starts at or past it, whatever the card holds at once; the
+    grid is at most one wave of resident blocks; one split (no merge)
+    where the (batch, kv head) blocks alone fill the card."""
+    tile = tdecode.tile(G, D, dtype)
+    for slots in (1, 132, 4 * 132, 16 * 132):
+        split_len, n_splits = tdecode.plan_splits(B, KVH, valid, tile,
+                                                  slots)
         assert split_len % tile == 0
         assert (n_splits - 1) * split_len < valid <= n_splits * split_len
-        assert B * KVH * n_splits <= max(tdecode._BLOCKS_PER_SM * n_sm,
-                                         B * KVH)
+        assert B * KVH * n_splits <= max(slots, B * KVH)
+        assert n_splits <= tdecode._MAX_SPLITS
+        if B * KVH >= slots or valid <= tile:
+            assert n_splits == 1
 
 
 @pytest.mark.parametrize("G,D", [(1, 64), (4, 128), (16, 128), (1, 256),
-                                 (16, 256), (1, 80)])
+                                 (16, 256), (1, 80), (7, 64), (2, 16)])
 def test_decode_tile_fits_static_shared_memory(G, D):
-    tile = tdecode._tile(G, D)
-    assert tile >= 8 and tile & (tile - 1) == 0
-    assert 4 * (G * D + tile * D + G * tile + 3 * G) <= tdecode._SMEM_LIMIT
+    """The block's merge buffers fit the 48 KB of static shared memory; a
+    power-of-two lane group of 8 dims a lane covers D; at most two head
+    slices cover G; the constants agree with the CUDA source."""
+    assert tdecode.smem_bytes(G) <= tdecode._SMEM_LIMIT
+    n = tdecode.lanes(D)
+    assert n & (n - 1) == 0 and n <= 32
+    assert n * tdecode._DPL >= D > n * tdecode._DPL // 2
+    hg = tdecode.head_slice(G)
+    assert hg in (1, 2, 4, 8) and hg >= min(G, 8) and -(-G // hg) <= 2
+    for dtype in (torch.float32, torch.bfloat16):
+        tile = tdecode.tile(G, D, dtype)
+        assert tile >= 1 and tile & (tile - 1) == 0
+    src = (_build.CSRC / "decode_attention.cu").read_text()
+    for name, want in (("NT", 32 * tdecode._NW), ("MAXG", tdecode._MAX_G),
+                       ("MAXD", tdecode._MAX_D), ("DPL", tdecode._DPL),
+                       ("MAX_SPLITS", tdecode._MAX_SPLITS)):
+        got = re.search(rf"constexpr int {name} = (\d+);", src).group(1)
+        assert int(got) == want, name
+    assert "merge_kernel" not in src     # the merge is fused: one launch
+    # the last block's merge weights (MAX_SPLITS x G) fit in red_o
+    assert tdecode._MAX_SPLITS * G <= tdecode._NW * hg * tdecode._MAX_D
+    # tokens a lane loads at once, as the wrapper's tile counts them
+    assert re.search(r"return sizeof\(T\) == 2 \? \(HG >= 8 \? 2 : 4\) "
+                     r": \(HG >= 4 \? 1 : 2\);", src)
 
 
 @pytest.mark.parametrize("D", tflash.HEAD_DIMS)
 def test_flash_tile_fits_shared_memory(D):
-    """The flash block's q, K, V and probability tiles (float32) fit the
-    227 KB a block may opt in to; above the 48 KB static limit the
-    kernel opts in (cudaFuncSetAttribute)."""
-    assert tflash.smem_bytes(D) <= tflash.SMEM_OPTIN
+    """The bf16 block's q tile and STAGES stages of K and V tiles (and
+    the float32 block's q, K, V and probability tiles) fit the 227 KB a
+    block may opt in to; above the 48 KB static limit the kernel opts in
+    (cudaFuncSetAttribute)."""
     src = (_build.CSRC / "flash_attention.cu").read_text()
-    if tflash.smem_bytes(D) > 48 * 1024:
-        assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in src
+    for dtype in (torch.bfloat16, torch.float32):
+        assert tflash.smem_bytes(D, dtype) <= tflash.SMEM_OPTIN
+        if tflash.smem_bytes(D, dtype) > 48 * 1024:
+            assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in src
+    rows, keys = tflash.bf16_tile(D)
+    assert tflash.smem_bytes(D) == (1024 + 2 * D * (
+        rows + 2 * tflash.STAGES * keys) + 8 * (2 * tflash.STAGES + 1))
 
 
 def test_flash_wrapper_agrees_with_its_source():
-    """No compiler here: the wrapper's head dims and tile sizes are read
-    back from the CUDA source, so the two cannot drift apart."""
+    """No compiler here: the wrapper's head dims, tile sizes and ring
+    depth are read back from the CUDA source, so the two cannot drift
+    apart; the bf16 kernel issues wgmma for both products and loads K/V
+    by TMA into a ring of at least 2 stages."""
     src = (_build.CSRC / "flash_attention.cu").read_text()
     cases = tuple(sorted(int(d) for d in re.findall(r"case (\d+):", src)))
     assert cases == tflash.HEAD_DIMS
-    for name in ("BQ", "BK"):
+    for name in ("F32_BQ", "F32_BK"):
         got = re.search(rf"constexpr int {name} = (\d+);", src).group(1)
-        assert int(got) == 64 == tflash._BQ == tflash._BK
+        assert int(got) == 64 == tflash._F32_BQ == tflash._F32_BK
+    stages = int(re.search(r"constexpr int STAGES = (\d+);", src).group(1))
+    assert stages == tflash.STAGES >= 2
+    for fn, i in (("rows_per_block", 0), ("keys_per_tile", 1)):
+        op, cut, big, small = re.search(
+            rf"constexpr int {fn}\(int D\) {{\s*return D (>=?) (\d+) \? "
+            r"(\d+) : (\d+);\s*}", src).groups()
+        for D in tflash.HEAD_DIMS:
+            above = D >= int(cut) if op == ">=" else D > int(cut)
+            assert tflash.bf16_tile(D)[i] == int(big if above else small)
+    for ptx in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier"):
+        assert ptx in src
     assert "flash_attention" in _build.KERNELS
     assert "flash_attention" in _build.LAUNCHES
 

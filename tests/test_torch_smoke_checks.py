@@ -1,0 +1,112 @@
+"""The agreement checks that `chip_smoke.py` holds the flash and decode
+kernels to on the card, run here against the plain versions at the
+script's main shapes (heads and batch cut; the sequence lengths, head
+dims and grouping kept, so each output element has the size it has
+there).  They accept an independent implementation that rounds
+differently, and reject an output that lost one key tile of the flash
+kernel or one split of the decode kernel's cache."""
+import importlib.util
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import decode_attention as tdecode
+from repro_torch.kernels import flash_attention as tflash
+from repro_torch.kernels import ref
+
+BF16, F32 = torch.bfloat16, torch.float32
+# the most blocks of 128 threads 132 SMs hold at once (16 an SM): the
+# most splits, so the shortest split, any decode plan can give there
+MOST_SLOTS = 132 * 16
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+cs = _chip_smoke()
+
+
+def normal(rng, shape):
+    return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(BF16)
+
+
+def attention_f32(q, k, v, keep):
+    """Causal GQA attention in float32 over the keys `keep` (Sq, Skv)
+    allows, one head at a time. -> (out in q's dtype, lse (B, H, Sq))."""
+    B, Sq, H, D = q.shape
+    G = H // k.shape[2]
+    out = torch.empty(B, Sq, H, D, dtype=F32)
+    lse = torch.empty(B, H, Sq, dtype=F32)
+    for h in range(H):
+        s = torch.einsum("bqd,bkd->bqk", q[:, :, h].float(),
+                         k[:, :, h // G].float()) * D ** -0.5
+        s = s.masked_fill(~keep, float("-inf"))
+        lse[:, h] = torch.logsumexp(s, dim=-1)
+        out[:, :, h] = torch.einsum("bqk,bkd->bqd", torch.softmax(s, -1),
+                                    v[:, :, h // G].float())
+    return out.to(q.dtype), lse
+
+
+# stablelm-3b's training shape (G 1, D 80) and llama3-8b's prefill shape
+# (G 4, D 128), 2 and 4 query heads of their 32
+FLASH = [(4096, 2, 2, 80), (4096, 4, 1, 128)]
+
+
+@pytest.mark.parametrize("S,H,KVH,D", FLASH)
+@pytest.mark.parametrize("drop", [False, True])
+def test_flash_check(S, H, KVH, D, drop):
+    """Kept: every key, softmax in float32 (the plain version rounds P to
+    bf16).  Dropped: one 128-key tile of the middle, for the last 128
+    rows only; both the output check and the lse check must see it."""
+    rng = np.random.default_rng(S + D)
+    q, k, v = (normal(rng, (1, S, h, D)) for h in (H, KVH, KVH))
+    want, want_lse = tflash.flash_attention_plain(q, k, v)
+    pos = torch.arange(S)
+    keep = pos[None, :] <= pos[:, None]
+    if drop:
+        keep[S - 128:, S // 2:S // 2 + 128] = False
+    got, lse = attention_f32(q, k, v, keep)
+    agree = cs.flash_agrees(got, lse, want, want_lse, cs.TOL[BF16])
+    if drop:
+        assert agree["err_over_tol"] > 1.0
+        assert agree["lse_max_abs_err"] > cs.LSE_TOL
+        assert not agree["ok"]
+    else:
+        assert agree["ok"], agree
+
+
+# the long cache (8 x 30,001 tokens, G 4, D 128; batch cut to 2) and
+# stablelm-3b's widths (4 x 3,001 tokens, G 1, D 80; batch cut to 2)
+DECODE = [(2, 32, 8, 128, 30_001, 8), (2, 32, 32, 80, 3001, 4)]
+
+
+@pytest.mark.parametrize("B,H,KVH,D,valid,B_card", DECODE)
+@pytest.mark.parametrize("drop", [False, True])
+def test_decode_check(B, H, KVH, D, valid, B_card, drop):
+    """Kept: the same function in float64.  Dropped: the middle split of
+    the plan with the most splits the card could run at this shape
+    (`B_card` sequences), from every (sequence, kv head)."""
+    rng = np.random.default_rng(valid)
+    q = normal(rng, (B, H, D))
+    k, v = (normal(rng, (B, valid, KVH, D)) for _ in range(2))
+    want = ref.decode_attention_ref(q, k, v, valid)
+    if drop:
+        split_len, n = tdecode.plan_splits(
+            B_card, KVH, valid, tdecode.tile(H // KVH, D, BF16), MOST_SLOTS)
+        assert n > 2
+        lo = split_len * (n // 2)
+        k, v = (torch.cat([x[:, :lo], x[:, lo + split_len:]], dim=1)
+                for x in (k, v))
+    qg = q.double().reshape(B, KVH, H // KVH, D)
+    s = torch.einsum("bhgd,bshd->bhgs", qg, k.double()) * D ** -0.5
+    got = torch.einsum("bhgs,bshd->bhgd", torch.softmax(s, -1),
+                       v.double()).reshape(B, H, D).to(BF16)
+    agree = cs.decode_agrees([got], want, cs.TOL[BF16])
+    assert agree["ok"] != drop, agree
