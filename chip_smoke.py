@@ -7,7 +7,8 @@ Builds the hand-written CUDA kernels from `src/repro_torch/csrc` and runs
 eight phases, each printing one JSON line:
 
   device   the card's name and power limit, and the kernels' build time;
-  ptxas    registers and spill bytes of the flash and decode kernels;
+  ptxas    registers and spill bytes of the flash, decode and ssd kernels
+           (every pass of the ssd scan);
   kernels  each kernel against its plain PyTorch version on the card, at
            the shapes the serving and training paths give it and at
            others, with its time, the plain version's time, one PyTorch
@@ -272,19 +273,23 @@ def flash_case(ops, fa, dev, g, flush, B, S, H, KVH, D, window,
                 **shares(ms, b_ms, library_ms), visible_pairs=pairs)
 
 
-def ssd_case(ops, ssd, dev, g, flush, B, nC, Q, nh, hp, ns, dtype) -> dict:
+def ssd_case(ops, ssd, dev, g, flush, B, nC, Q, nh, hp, ns, dtype,
+             dt_scale=1.0) -> dict:
     """The mixer's form (`ssd_scan_fwd`, y in float32) against the plain
-    chunk scan; inputs drawn as tests/test_kernels.py draws them."""
+    chunk scan; inputs drawn as tests/test_kernels.py draws them, dt times
+    `dt_scale` (40: La falls by about 8,000 over a chunk, so exp(La_i -
+    La_j) above the diagonal would overflow)."""
     def normal(*shape):
         return torch.randn(*shape, generator=g, device=dev)
 
     x, Bm, Cm = ((normal(*s) * 0.5).to(dtype) for s in (
         (B, nC, Q, nh, hp), (B, nC, Q, ns), (B, nC, Q, ns)))
-    dt = F.softplus(normal(B, nC, Q, nh))
+    dt = F.softplus(normal(B, nC, Q, nh)) * dt_scale
     A = -torch.exp(normal(nh) * 0.2)
     y, h = ops.ssd_scan_fwd(x, Bm, Cm, dt, A)
     want_y, want_h = ssd.ssd_scan_plain(x, Bm, Cm, dt, A)
     tol = SSD_TOL[dtype]
+    finite = bool(torch.isfinite(y).all() and torch.isfinite(h).all())
     over = max(excess(y, want_y, tol, tol),
                excess(h, want_h, SSD_H_TOL, SSD_H_TOL))
     ms = device_ms(lambda: ops.ssd_scan_fwd(x, Bm, Cm, dt, A), flush)
@@ -296,7 +301,8 @@ def ssd_case(ops, ssd, dev, g, flush, B, nC, Q, nh, hp, ns, dtype) -> dict:
     n_ops = 2 * B * nC * (Q * Q * ns + nh * (Q * Q * hp + 2 * Q * ns * hp))
     b_ms, b_by = bound(n_bytes, n_ops, dtype)
     return dict(shape=dict(B=B, nC=nC, Q=Q, nh=nh, hp=hp, ns=ns),
-                dtype=str(dtype).removeprefix("torch."), ok=over <= 1.0,
+                dtype=str(dtype).removeprefix("torch."), dt_scale=dt_scale,
+                ok=finite and over <= 1.0, finite=finite,
                 max_abs_err=float((y - want_y).abs().max()),
                 h_max_abs_err=float((h - want_h).abs().max()),
                 err_over_tol=over, tol=tol, h_tol=SSD_H_TOL, kernel_ms=ms,
@@ -339,11 +345,15 @@ def kernels_phase(dev, flush, power: str) -> dict:
     ssd_cases = [ssd_case(ops, ssd, dev, g, flush, *shape)
                  for shape in (
                      # mamba2-1.3b's prefill and training shape (4096
-                     # tokens, bf16); the same in float32; the hand-off
-                     # check's 2 x 512 tokens in float32
+                     # tokens, bf16: the tensor-core passes); the same in
+                     # float32 (the CUDA-core kernel); the hand-off
+                     # check's 2 x 512 tokens in float32 and in bf16; the
+                     # prefill shape under large decay
                      (1, 16, 256, 64, 64, 128, bf16),
                      (1, 16, 256, 64, 64, 128, f32),
-                     (HANDOFF_BATCH, 2, 256, 64, 64, 128, f32))]
+                     (HANDOFF_BATCH, 2, 256, 64, 64, 128, f32),
+                     (HANDOFF_BATCH, 2, 256, 64, 64, 128, bf16),
+                     (1, 16, 256, 64, 64, 128, bf16, 40.0))]
     torch.cuda.synchronize()
     emit("kernels", ralt_update=dict(
         tpu_counterpart="src/repro/kernels/ralt_score.py:78", cases=ralt),
@@ -900,9 +910,10 @@ def main() -> int:
     emit("device", name=torch.cuda.get_device_name(dev), nvidia_smi=power,
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, build_s=time.perf_counter() - t0)
-    # registers and spills of the two kernels redesigned for Hopper
+    # registers and spills of the kernels redesigned for Hopper
     emit("ptxas", **{name: _build.ptxas_report(name)
-                     for name in ("flash_attention", "decode_attention")})
+                     for name in ("flash_attention", "decode_attention",
+                                  "ssd_scan")})
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     main_shapes = kernels_phase(dev, flush, power)
     del flush

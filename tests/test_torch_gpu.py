@@ -387,9 +387,10 @@ def test_train_step_on_card_matches_cpu(cuda):
 # ----------------------------------------------------------------------
 # ssd scan
 # ----------------------------------------------------------------------
-def ssd_inputs(cuda, B, nC, Q, nh, hp, ns, dtype, seed=0):
+def ssd_inputs(cuda, B, nC, Q, nh, hp, ns, dtype, seed=0, dt_scale=1.0):
     """x, B, C in `dtype`, dt and A in float32, as tests/test_kernels.py
-    draws them (A = -exp(N(0, 0.2)), dt = softplus(N(0, 1)))."""
+    draws them (A = -exp(N(0, 0.2)), dt = softplus(N(0, 1)) times
+    `dt_scale`)."""
     rng = np.random.default_rng(seed)
 
     def normal(*shape):
@@ -397,7 +398,7 @@ def ssd_inputs(cuda, B, nC, Q, nh, hp, ns, dtype, seed=0):
 
     x, Bm, Cm = (normal(*s) * 0.5 for s in ((B, nC, Q, nh, hp),
                                             (B, nC, Q, ns), (B, nC, Q, ns)))
-    dt = torch.nn.functional.softplus(normal(B, nC, Q, nh))
+    dt = torch.nn.functional.softplus(normal(B, nC, Q, nh)) * dt_scale
     A = -torch.exp(normal(nh) * 0.2)
     dt_ = getattr(torch, dtype)
     return ([t.to(device=cuda, dtype=dt_) for t in (x, Bm, Cm)]
@@ -414,10 +415,15 @@ SSD_TOL = {"float32": dict(rtol=5e-4, atol=5e-4),   # tests/test_kernels.py
     (1, 3, 100, 2, 32, 48),                 # 3 chunks, ragged 64-row tile
     (2, 5, 256, 4, 64, 128),                # 5 chunks at the full chunk
     (1, 16, 256, 64, 64, 128),              # mamba2-1.3b's prefill shape
+    (1, 1, 256, 8, 64, 128),                # one chunk: no state passing
+    (2, 2, 100, 3, 128, 256),               # ragged Q, hp 128, ns 256
+    (2, 3, 64, 4, 32, 16),                  # ns 16: one k step
+    (1, 2, 192, 2, 128, 48),                # 3 query tiles, ns 48
 ])
 def test_ssd_kernel_matches_plain(cuda, B, nC, Q, nh, hp, ns, dtype):
     """Both forms of the op against the plain chunk scan on the same
-    inputs; h_final within 5e-3 as in tests/test_kernels.py."""
+    inputs; h_final within 5e-3 as in tests/test_kernels.py.  bfloat16
+    runs the four tensor-core passes, float32 the CUDA-core kernel."""
     x, Bm, Cm, dt, A = ssd_inputs(cuda, B, nC, Q, nh, hp, ns, dtype)
     want_y, want_h = ssd.ssd_scan_plain(x, Bm, Cm, dt, A)
     before = ops.LAUNCHES["ssd_scan"]
@@ -434,6 +440,38 @@ def test_ssd_kernel_matches_plain(cuda, B, nC, Q, nh, hp, ns, dtype):
     for got in (h32, h):
         np.testing.assert_allclose(got.cpu().numpy(), want_h.cpu().numpy(),
                                    rtol=5e-3, atol=5e-3)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_kernel_large_decay_stays_finite(cuda, dtype):
+    """dt 40 times its draw: La falls by about 8,000 over a 256-row chunk,
+    so exp(La_i - La_j) above the diagonal would overflow; the kernels
+    mask before the exp and stay finite.  At La near -8,000 float32 keeps
+    La_i - La_j only to about 5e-4, so two float32 scans differ by about
+    that much relative after the exp, and more where y cancels: y is held
+    at the bf16 5e-2 in both dtypes here, h_final at 5e-3."""
+    x, Bm, Cm, dt, A = ssd_inputs(cuda, 1, 3, 256, 8, 64, 128, dtype,
+                                  seed=3, dt_scale=40.0)
+    want_y, want_h = ssd.ssd_scan_plain(x, Bm, Cm, dt, A)
+    y, h = ops.ssd_scan_fwd(x, Bm, Cm, dt, A)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    np.testing.assert_allclose(y.cpu().numpy(), want_y.cpu().numpy(),
+                               **SSD_TOL["bfloat16"])
+    np.testing.assert_allclose(h.cpu().numpy(), want_h.cpu().numpy(),
+                               rtol=5e-3, atol=5e-3)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_counts_one_per_op_call(cuda, dtype):
+    """LAUNCHES counts op calls: one per call of either form, whether the
+    call launches one kernel (float32) or four passes (bfloat16)."""
+    args = ssd_inputs(cuda, 1, 2, 64, 2, 64, 16, dtype)
+    for fn in (ops.ssd_scan_fwd, ops.ssd_scan):
+        before = ops.LAUNCHES["ssd_scan"]
+        fn(*args)
+        assert ops.LAUNCHES["ssd_scan"] == before + 1
+    torch.cuda.synchronize()
 
 
 def test_ssd_kernel_rejects_what_it_does_not_take(cuda):
@@ -453,6 +491,25 @@ def test_ssd_kernel_rejects_what_it_does_not_take(cuda):
         ops.ssd_scan(x[..., :48].contiguous(), Bm, Cm, dt, A)
     with pytest.raises(ValueError, match="disagree"):
         ops.ssd_scan(x, Bm, Cm, dt[..., :1].contiguous(), A)
+    # the bfloat16 passes: head_dim 32, 64 or 128, ssm_state a multiple
+    # of 16 up to 256, x, B and C on 16 bytes
+    xb, Bb, Cb, dtb, Ab = ssd_inputs(cuda, 1, 2, 32, 2, 96, 32, "bfloat16")
+    with pytest.raises(ValueError, match="head_dim in"):
+        ops.ssd_scan(xb, Bb, Cb, dtb, Ab)
+    xb = xb[..., :64].contiguous()
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ops.ssd_scan(xb, Bb[..., :24].contiguous(), Cb[..., :24].contiguous(),
+                     dtb, Ab)
+    big = ssd_inputs(cuda, 1, 2, 32, 2, 64, 512, "bfloat16")
+    with pytest.raises(ValueError, match="up to 256"):
+        ops.ssd_scan(xb, big[1], big[2], dtb, Ab)
+    off = torch.empty(xb.numel() + 1, dtype=xb.dtype, device=cuda)[1:]
+    off = off.view(xb.shape).copy_(xb)
+    assert off.is_contiguous()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.ssd_scan(off, Bb, Cb, dtb, Ab)
+    ops.ssd_scan(xb, Bb, Cb, dtb, Ab)       # the same inputs, aligned
+    torch.cuda.synchronize()
 
 
 def test_mamba2_mixer_on_card_matches_cpu(cuda):

@@ -1,11 +1,13 @@
 """SSD-scan parity of the PyTorch port against the JAX reference: the
-plain chunk scan (what a CPU tensor runs, and what the CUDA kernel is
+plain chunk scan (what a CPU tensor runs, and what the CUDA kernels are
 held to in `tests/test_torch_gpu.py`) and the naive oracle against the
 Pallas kernel in interpret mode and the reference's oracle, at every
 shape and dtype of `tests/test_kernels.py` and with its tolerances; the
-autograd path through the plain scan; and the kernel's tiles against the
-card's shared-memory limit.  Inputs come from numpy seeds and reach both
-packages as the same numbers."""
+four passes of the bf16 kernel in plain PyTorch, unrounded against the
+same, and with the kernel's bf16 roundings against the plain scan at the
+kernel tolerances; the autograd path through the plain scan; and the
+kernels' tiles against the card's shared-memory limit.  Inputs come from
+numpy seeds and reach both packages as the same numbers."""
 import re
 
 import jax
@@ -80,6 +82,68 @@ def test_ssd_scan_matches_pallas_and_oracle(B, nC, Q, nh, hp, ns, dtype):
                                    **TOL_Y["float32"])
 
 
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,nC,Q,nh,hp,ns", SSD_SHAPES)
+def test_ssd_passes_match_plain_pallas_and_oracle(B, nC, Q, nh, hp, ns,
+                                                  dtype):
+    """The bf16 kernel's decomposition (C B^T per chunk, chunk states,
+    state passing, chunk outputs) unrounded: the plain chunk scan's
+    numbers to float32 rounding, and the Pallas kernel's and the oracle's
+    within tests/test_kernels.py's tolerances."""
+    x, Bm, Cm, dt, A = ssd_inputs(B, nC, Q, nh, hp, ns)
+    (jx, tx), (jb, tb), (jc, tc) = (both(v, dtype) for v in (x, Bm, Cm))
+    jdt, jA = jnp.asarray(dt), jnp.asarray(A)
+    tdt, tA = torch.from_numpy(dt), torch.from_numpy(A)
+    y, h = tssd.ssd_scan_passes_plain(tx, tb, tc, tdt, tA)
+    assert y.dtype == h.dtype == torch.float32
+    assert y.shape == tx.shape and h.shape == (B, nh, ns, hp)
+    want_y, want_h = tssd.ssd_scan_plain(tx, tb, tc, tdt, tA)
+    np.testing.assert_allclose(y.numpy(), want_y.numpy(), **TOL_Y["float32"])
+    np.testing.assert_allclose(h.numpy(), want_h.numpy(), **TOL_Y["float32"])
+    pal_y, pal_h = jops.ssd_scan(jx, jb, jc, jdt, jA, interpret=True)
+    np.testing.assert_allclose(y.to(tx.dtype).float().numpy(),
+                               np.asarray(pal_y, np.float32), **TOL_Y[dtype])
+    np.testing.assert_allclose(h.numpy(), np.asarray(pal_h), **TOL_H)
+    h0 = np.zeros((B, nh, ns, hp), np.float32)
+    oy, oh = jref.ssd_chunk_ref(jx.astype(jnp.float32), jb.astype(jnp.float32),
+                                jc.astype(jnp.float32), jdt, jA, h0)
+    np.testing.assert_allclose(y.numpy(), np.asarray(oy), **TOL_Y["float32"])
+    np.testing.assert_allclose(h.numpy(), np.asarray(oh), **TOL_Y["float32"])
+
+
+def excess(got, want, tol):
+    """max over elements of (|got - want| - tol |want|) / tol: at most 1
+    inside allclose(rtol=atol=tol)."""
+    return float(((got - want).abs() - tol * want.abs()).max() / tol)
+
+
+@pytest.mark.parametrize("B,nC,Q,nh,hp,ns,dt_scale", [
+    (1, 4, 256, 64, 64, 128, 1.0),    # mamba2-1.3b's widths, 4 of 16 chunks
+    (1, 4, 256, 64, 64, 128, 40.0),   # large decay: La near -8,000
+    (2, 3, 100, 4, 32, 48, 1.0),      # ragged Q, narrow widths
+])
+def test_ssd_passes_rounded_fit_kernel_tolerances(B, nC, Q, nh, hp, ns,
+                                                   dt_scale):
+    """With bf16 inputs and the kernel's roundings (B o u as a high and a
+    low part, W and h_in once each), the decomposition stays within the
+    tolerances the card's kernel is held to against the plain scan: y
+    5e-2, h_final 5e-3; finite under large decay, where exp(La_i - La_j)
+    above the diagonal would overflow.  Inputs drawn as chip_smoke.py
+    draws them, at a reduced chunk count."""
+    x, Bm, Cm, dt, A = ssd_inputs(B, nC, Q, nh, hp, ns, seed=7)
+    tx, tb, tc = (torch.from_numpy(v).to(torch.bfloat16) for v in (x, Bm, Cm))
+    tdt, tA = torch.from_numpy(dt * np.float32(dt_scale)), torch.from_numpy(A)
+    want_y, want_h = tssd.ssd_scan_plain(tx, tb, tc, tdt, tA)
+    y, h = tssd.ssd_scan_passes_plain(tx, tb, tc, tdt, tA, rounded=True)
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    assert excess(y, want_y, TOL_Y["bfloat16"]["atol"]) <= 1.0
+    assert excess(h, want_h, TOL_H["atol"]) <= 1.0
+    # the roundings are really taken: unrounded, the passes agree to
+    # float32 rounding
+    y32, _ = tssd.ssd_scan_passes_plain(tx, tb, tc, tdt, tA)
+    assert (y - y32).abs().max() > 1e3 * (y32 - want_y).abs().max()
+
 def test_ssd_chunk_ref_carries_h0_as_reference():
     """The oracle's initial state, which the op does not take."""
     x, Bm, Cm, dt, A = ssd_inputs(2, 3, 16, 2, 32, 8, seed=1)
@@ -132,12 +196,16 @@ def test_ssd_rejects_mismatched_shapes():
 @pytest.mark.parametrize("Q,ns", [(16, 16), (32, 16), (64, 128), (256, 128),
                                   (256, 256), (1024, 256)])
 def test_ssd_tile_fits_shared_memory(Q, ns):
-    """The block's tiles, state and per-chunk vectors fit the 227 KB a
-    block may opt in to; above the 48 KB static limit the kernel opts in
+    """The float32 kernel's tiles, state and per-chunk vectors, and each
+    bf16 pass's tiles and rings at every head_dim it takes, fit the 227 KB
+    a block may opt in to; above the 48 KB static limit the kernels opt in
     (cudaFuncSetAttribute)."""
-    assert tssd.smem_bytes(Q, ns) <= tssd.SMEM_OPTIN
     src = (_build.CSRC / "ssd_scan.cu").read_text()
-    if tssd.smem_bytes(Q, ns) > 48 * 1024:
+    need = [tssd.smem_bytes(Q, ns)]
+    for hp in tssd.HP_BF16:
+        need += tssd.pass_smem_bytes(Q, ns, hp).values()
+    assert max(need) <= tssd.SMEM_OPTIN
+    if max(need) > 48 * 1024:
         assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in src
 
 
@@ -150,8 +218,19 @@ def test_ssd_wrapper_agrees_with_its_source():
         return int(re.search(rf"constexpr int {name} = (\d+);",
                              src).group(1))
 
+    # the float32 kernel
     assert const("TQ") == const("TK") == tssd._TQ == tssd._TK
     assert const("P") == tssd._P
     assert const("NS_MAX") == tssd.NS_MAX
     assert tssd.smem_bytes(256, 128) == 110_848      # the source's header
+    # the bf16 passes
+    assert const("MT") == tssd._MT and const("MPAD") == tssd._MPAD
+    assert "constexpr int CBS = MT + 8;" in src and tssd._CBS == tssd._MT + 8
+    assert const("HP_MAX") == max(tssd.HP_BF16)
+    assert tuple(int(c) for c in re.findall(
+        r"case (\d+):\s+return launch_bf16<", src)) == tssd.HP_BF16
+    assert tssd.pass_smem_bytes(256, 128, 64) == {   # the source's header
+        "cb": 34_816, "states": 56_320, "outputs": 65_536}
+    for n in ("34,816", "56,320", "65,536"):
+        assert n in src
     assert "ssd_scan" in _build.KERNELS and "ssd_scan" in _build.LAUNCHES
