@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from `src/repro_torch/csrc` and runs
-eight phases, each printing one JSON line:
+nine phases, each printing one JSON line:
 
   device   the card's name and power limit, and the kernels' build time;
   ptxas    registers and spill bytes of the flash, decode and ssd kernels
@@ -19,7 +19,14 @@ eight phases, each printing one JSON line:
            seed) answering 8 requests through `ServeEngine`, after a check
            of the CUDA decode path's logits against the CPU path's;
   tiered   `TieredKVCache` at llama3-8b's KV widths replaying a hotspot
-           stream of single-page reads through the RALT tracker;
+           stream of single-page reads, the tracker recording each read
+           with one fused `ralt_record` launch;
+  tracker  the tracker at the tiered run's 65,536 pages over a hotspot id
+           stream, three ways with one numpy threshold sampler: the
+           `HotTracker` on the card (`ralt_record`), the functional
+           `record_accesses` on the card (`ralt_update` and the plain ops
+           around it) and the `HotTracker` on the CPU (the plain path);
+           every state field bit for bit at every refresh;
   prefill  llama3-8b at full width: a 128-token prefill step against
            teacher-forced decode steps (last logits and every layer's
            k/v; the seeded bf16 weights computed in float32, and in bf16
@@ -39,8 +46,9 @@ eight phases, each printing one JSON line:
            plain chunk scan.
 
 Kernel launches are counted from zero in each of the serve, tiered,
-prefill and train runs and in each part of the mamba2 run.  Then come
-the kernel summary line, the `nvidia-smi` line and the result line.
+tracker, prefill and train runs and in each part of the mamba2 run.
+Then come the kernel summary line, the `nvidia-smi` line and the result
+line.
 Exits nonzero without CUDA, outside a checkout of the repository, and
 on any failure.  Imports neither jax nor `repro`.
 """
@@ -70,6 +78,7 @@ PROMPT, NEW, BATCH, REQUESTS = 128, 32, 4, 8
 MAX_LEN = PROMPT + NEW + 8
 # tiered run: llama3-8b's KV widths, one layer per page
 N_PAGES, FAST_SLOTS, READS = 65_536, 8_192, 20_000
+TRACKER_READS = 2_000
 # prefill run: a 128-token check against decode, one 4096-token prefill
 PREFILL_CHECK, PREFILL_LEN = 128, 4096
 # train run: stablelm-3b, 2 sequences of 4096 tokens in 2 microbatches
@@ -93,18 +102,19 @@ def smi() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def device_ms(fn, flush: torch.Tensor, reps: int = REPS) -> float:
+def device_ms(fn, flush: torch.Tensor | None, reps: int = REPS) -> float:
     """Median device time of `fn` in ms over `reps` calls, each after a
     write of `flush` (larger than the 50 MB L2, so every call starts
-    cold).  The calls queue behind a spin kernel, so the host's launch
-    time does not show between the events."""
+    cold; None: warm caches).  The calls queue behind a spin kernel, so
+    the host's launch time does not show between the events."""
     fn()
     torch.cuda.synchronize()
     ev = [(torch.cuda.Event(enable_timing=True),
            torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
     torch.cuda._sleep(50_000_000)
     for a, b in ev:
-        flush.zero_()
+        if flush is not None:
+            flush.zero_()
         a.record()
         fn()
         b.record()
@@ -157,6 +167,75 @@ def ralt_case(ops, ralt_score, dev, g, flush, N: int) -> dict:
                 near_threshold=int(near.sum()), kernel_ms=ms,
                 plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
                 bound_by=b_by)
+
+
+def tracker_config(n_units: int):
+    """The tiered run's tracker: llama3-8b KV pages of one layer (64 KiB),
+    a fast tier of one page in 8."""
+    from repro_torch.tiering import TrackerConfig
+    return TrackerConfig(n_units=n_units, unit_bytes=65_536,
+                         fast_bytes=(n_units // 8) * 65_536)
+
+
+STATE_FIELDS = ("tick", "score", "c", "t", "seen", "now", "accessed_bytes",
+                "accessed_bytes_r", "hot_limit", "threshold")
+
+
+def state_mismatch(got, want) -> list[str]:
+    """The tracker state fields whose bits differ."""
+    return [k for k in STATE_FIELDS
+            if got[k].dtype != want[k].dtype
+            or not torch.equal(got[k].reshape(-1).view(torch.uint8),
+                               want[k].reshape(-1).view(torch.uint8))]
+
+
+def ralt_record_case(ops, hotness, dev, g, flush, N: int,
+                     n_ids: int) -> dict:
+    """One fused tracker record against `record_accesses` on the card, from
+    a drawn state whose clock remainders sit just below a slice and an
+    R-byte boundary (so the record advances `now` and decrements c);
+    every field bit for bit.  Times: L2 flushed and warm."""
+    cfg = tracker_config(N)
+    every = float(np.float32(cfg.gamma * cfg.fast_bytes))
+    R = float(np.float32(cfg.hot_hi_frac * cfg.fast_bytes))
+    st = hotness.init_state(cfg, dev)
+    st.update(
+        tick=torch.randint(0, 60, (N,), generator=g, device=dev,
+                           dtype=torch.int32),
+        score=torch.rand(N, generator=g, device=dev) * 5,
+        c=torch.rand(N, generator=g, device=dev) * cfg.c_max,
+        t=torch.rand(N, generator=g, device=dev) < 0.3,
+        seen=torch.rand(N, generator=g, device=dev) < 0.6,
+        now=torch.tensor(60, dtype=torch.int32, device=dev),
+        accessed_bytes=torch.tensor(every - 1000.0, device=dev),
+        accessed_bytes_r=torch.tensor(R - 100.0, device=dev))
+    ids = np.random.default_rng(N + n_ids).choice(N, n_ids, replace=False)
+    mask = torch.zeros(N, dtype=torch.bool, device=dev)
+    mask[torch.from_numpy(ids).to(dev)] = True
+    want = hotness.record_accesses(st, mask, cfg)
+    got = ops.ralt_record_({k: v.clone() for k, v in st.items()}, ids, cfg)
+    bad = state_mismatch(got, want)
+    err = max(float((got[k].float() - want[k].float()).abs().max())
+              for k in ("score", "c", "accessed_bytes", "accessed_bytes_r"))
+    advanced = int(got["now"]) > 60 and int(want["now"]) > 60
+    run = {k: v.clone() for k, v in st.items()}
+
+    def kernel():
+        nonlocal run
+        run = ops.ralt_record_(run, ids, cfg)
+
+    ms = device_ms(kernel, flush)
+    warm_ms = device_ms(kernel, None)
+    plain_ms = device_ms(lambda: hotness.record_accesses(st, mask, cfg), flush)
+    # tick, score, c read and written (4 B each), t and seen (1 B each);
+    # the ids and both clock rows; ~30 float32 operations a unit
+    b_ms, b_by = bound(28 * N + 4 * n_ids + 32, 30 * N, torch.float32)
+    return dict(N=N, ids=n_ids, ok=not bad and advanced,
+                mismatched_fields=bad, slice_advanced=advanced,
+                max_abs_err=err, tol="bit for bit", kernel_ms=ms,
+                kernel_warm_l2_ms=warm_ms, plain_ms=plain_ms,
+                library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                **shares(ms, b_ms, None))
 
 
 def decode_case(ops, ref, dev, g, flush, B, H, KVH, D, S, valid,
@@ -314,10 +393,17 @@ def kernels_phase(dev, flush, power: str) -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ralt_score, ref
     from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.tiering import hotness
 
     g = torch.Generator(device=dev).manual_seed(0)
     ralt = [ralt_case(ops, ralt_score, dev, g, flush, n)
             for n in (N_PAGES, 16_777_216)]
+    # the tiered run's record (one page id), the same at 16.8 M units, a
+    # long id list by value and one through device memory
+    record = [ralt_record_case(ops, hotness, dev, g, flush, n, k)
+              for n, k in ((N_PAGES, 1), (16_777_216, 1),
+                           (N_PAGES, ralt_score.param_ids()),
+                           (N_PAGES, 5000))]
     bf16, f32 = torch.bfloat16, torch.float32
     decode = [decode_case(ops, ref, dev, g, flush, *shape)
               for shape in (
@@ -357,6 +443,9 @@ def kernels_phase(dev, flush, power: str) -> dict:
     torch.cuda.synchronize()
     emit("kernels", ralt_update=dict(
         tpu_counterpart="src/repro/kernels/ralt_score.py:78", cases=ralt),
+        ralt_record=dict(
+            tpu_counterpart="src/repro/kernels/ralt_score.py:78",
+            cases=record),
         decode_attention=dict(
             tpu_counterpart="src/repro/kernels/decode_attention.py:106",
             cases=decode),
@@ -366,13 +455,15 @@ def kernels_phase(dev, flush, power: str) -> dict:
         ssd_scan=dict(tpu_counterpart="src/repro/kernels/ssd_scan.py:89",
                       cases=ssd_cases),
         peak_bytes_per_s=PEAK_BYTES, power_limit=power)
-    bad = [c for c in ralt + decode + flash + ssd_cases if not c["ok"]]
+    bad = [c for c in ralt + record + decode + flash + ssd_cases
+           if not c["ok"]]
     if bad:
         raise SystemExit(f"kernel disagrees with its plain version: {bad}")
-    # the main path's shapes: the tracker's page table, the first
-    # generated token's decode step, stablelm-3b's training attention,
-    # mamba2-1.3b's prefill and training scan
-    return {"ralt_update": ralt[0], "decode_attention": decode[1],
+    # the main path's shapes: the tracker's page table (one page a
+    # record), the first generated token's decode step, stablelm-3b's
+    # training attention, mamba2-1.3b's prefill and training scan
+    return {"ralt_update": ralt[0], "ralt_record": record[0],
+            "decode_attention": decode[1],
             "flash_attention": flash[0], "ssd_scan": ssd_cases[0]}
 
 
@@ -457,6 +548,7 @@ def serve_phase(dev, power: str) -> dict:
                max_memory_allocated=torch.cuda.max_memory_allocated(dev),
                decode_launches=launches["decode_attention"],
                ralt_launches=launches["ralt_update"],
+               ralt_record_launches=launches["ralt_record"],
                cuda_vs_cpu_logits_max_abs_err=ref_err, power_limit=power)
     emit("serve", **out)
     V = padded_vocab(cfg)
@@ -554,6 +646,7 @@ def tiered_phase(dev, power: str) -> dict:
                hbm_bw_measured=hbm_bw, pcie_bw_measured=pcie_bw,
                load_s=load_s, wall_s=wall, reads_per_s=READS / wall,
                wrong_elements=int(wrong),
+               ralt_record_launches=launches["ralt_record"],
                ralt_launches=launches["ralt_update"],
                decode_launches=launches["decode_attention"],
                power_limit=power)
@@ -561,12 +654,75 @@ def tiered_phase(dev, power: str) -> dict:
     checks = {
         "hit rate beats fast_slots / n_pages":
             out["fast_hit_rate"] > FAST_SLOTS / N_PAGES,
-        "RALT kernel once per read": launches["ralt_update"] == READS,
+        "fused tracker kernel once per read":
+            launches["ralt_record"] == READS,
+        "no other tracker launch": launches["ralt_update"] == 0,
         "every read returns its page": out["wrong_elements"] == 0,
     }
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise SystemExit(f"tiered phase failed: {failed}")
+    return launches
+
+
+# ----------------------------------------------------------------------
+# tracker
+# ----------------------------------------------------------------------
+def tracker_phase(dev, power: str) -> dict:
+    """The tracker at N_PAGES units over TRACKER_READS single-page reads of
+    the hotspot stream, limits refreshed every 64 reads as the tiered
+    cache's sweeps do: the `HotTracker` on the card, the functional
+    `record_accesses` / `update_limits` on the card and the `HotTracker`
+    on the CPU, one numpy sampler (the torch CPU and CUDA generators
+    differ); every state field bit for bit at every refresh."""
+    from repro_torch.kernels import ops
+    from repro_torch.tiering import HotTracker, hotness
+
+    def sampler(now, n, n_units):
+        return np.random.default_rng(now).integers(0, n_units, n)
+
+    cfg = tracker_config(N_PAGES)
+    card = HotTracker(cfg, device=dev, sampler=sampler)
+    cpu = HotTracker(cfg, device="cpu", sampler=sampler)
+    state = hotness.init_state(cfg, dev)
+    ops.reset_launches()
+    mismatches, refreshes = [], 0
+    for i, p in enumerate(hotspot_stream(N_PAGES, TRACKER_READS, seed=1)):
+        card.record_ids([p])
+        mask = torch.zeros(N_PAGES, dtype=torch.bool, device=dev)
+        mask[p] = True
+        state = hotness.record_accesses(state, mask, cfg)
+        cpu.record_ids([p])
+        if i % 64 == 63:
+            card.refresh_limits()
+            cpu.refresh_limits()
+            state = hotness.update_limits(state, cfg, sampler)
+            refreshes += 1
+            for name, st in (("card", card.state), ("functional", state)):
+                bad = state_mismatch({k: v.cpu() for k, v in st.items()},
+                                     cpu.state)
+                if bad:
+                    mismatches.append(dict(read=i, tracker=name,
+                                           fields=bad))
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    out = dict(n_units=N_PAGES, reads=TRACKER_READS, refreshes=refreshes,
+               now=int(card.state["now"]), mismatches=mismatches[:10],
+               ralt_record_launches=launches["ralt_record"],
+               ralt_launches=launches["ralt_update"], power_limit=power)
+    emit("tracker", **out)
+    checks = {
+        "card and functional trackers match the CPU bit for bit":
+            not mismatches,
+        "slices advance": out["now"] > 0,
+        "fused kernel once per HotTracker record":
+            launches["ralt_record"] == TRACKER_READS,
+        "RALT kernel once per functional record":
+            launches["ralt_update"] == TRACKER_READS,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"tracker phase failed: {failed}")
     return launches
 
 
@@ -920,7 +1076,8 @@ def main() -> int:
     # each phase's model is freed when its function returns; each
     # kernel's launches are those of the phase that is its main path
     launches = {"decode_attention": serve_phase(dev, power)[
-        "decode_attention"], "ralt_update": tiered_phase(dev, power)[
+        "decode_attention"], "ralt_record": tiered_phase(dev, power)[
+        "ralt_record"], "ralt_update": tracker_phase(dev, power)[
         "ralt_update"]}
     torch.cuda.empty_cache()
     prefill_phase(dev, power)
@@ -930,6 +1087,8 @@ def main() -> int:
     launches["ssd_scan"] = mamba2_phase(dev, power)["ssd_scan"]
     sources = {
         "ralt_update": ("src/repro_torch/csrc/ralt_score.cu",
+                        "src/repro/kernels/ralt_score.py:78"),
+        "ralt_record": ("src/repro_torch/csrc/ralt_score.cu",
                         "src/repro/kernels/ralt_score.py:78"),
         "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                              "src/repro/kernels/decode_attention.py:106"),

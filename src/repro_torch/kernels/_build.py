@@ -29,8 +29,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 KERNELS = ("ralt_score", "decode_attention", "flash_attention", "ssd_scan")
 
-LAUNCHES = {"ralt_update": 0, "decode_attention": 0, "flash_attention": 0,
-            "ssd_scan": 0}
+LAUNCHES = {"ralt_update": 0, "ralt_record": 0, "decode_attention": 0,
+            "flash_attention": 0, "ssd_scan": 0}
 
 
 def reset_launches() -> None:

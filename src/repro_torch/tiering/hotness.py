@@ -23,6 +23,11 @@ XLA CPU backend contracts them.  Constants enter as float32 device
 scalars made with `torch.full` (a fill, no host copy), so recording an
 access never waits for the host.  Only `sampled_threshold` reads `now`
 on the host, to seed the index sampler.
+
+On CUDA, `HotTracker` records through `kernels.ops.ralt_record_`: the
+whole of `record_accesses` as one in-place launch, bit for bit the same.
+`record_accesses` stays the plain version (and the functional form on
+any device).
 """
 from __future__ import annotations
 
@@ -188,9 +193,18 @@ class HotTracker:
         self.sampler = sampler or seeded_sampler(self.device)
 
     def record(self, hit_mask):
-        self.state = record_accesses(self.state, hit_mask, self.cfg)
+        if self.device.type == "cuda":
+            # nonzero waits for the device: the kernel is launched with
+            # the number of units hit
+            ids = torch.as_tensor(hit_mask, device=self.device).nonzero()
+            self.state = kops.ralt_record_(self.state, ids, self.cfg)
+        else:
+            self.state = record_accesses(self.state, hit_mask, self.cfg)
 
     def record_ids(self, ids):
+        if self.device.type == "cuda":
+            self.state = kops.ralt_record_(self.state, ids, self.cfg)
+            return
         mask = torch.zeros(self.cfg.n_units, dtype=torch.bool,
                            device=self.device)
         mask[to_device(ids, self.device).long()] = True

@@ -151,20 +151,9 @@ class TieredKVCache:
         fast = [p for p in pages if self.tier[p] == self.TIER_FAST]
         slow = [p for p in pages if self.tier[p] == self.TIER_SLOW]
         if fast:
-            slots = to_device(self.slot_of[fast], self.device)
-            gathered = self.fast_pool.index_select(0, slots)
-            for i, p in enumerate(fast):
-                out[p] = gathered[i]
-            self.clock.hbm_s += len(fast) * self.cfg.page_bytes / self.hbm_bw
-            self.clock.fast_hits += len(fast)
-        for p in slow:
-            out[p] = self.slow_pool[p].to(self.device, non_blocking=True,
-                                          copy=True)
-            self.clock.pcie_s += self.cfg.page_bytes / self.pcie_bw
-            self.clock.slow_hits += 1
-            # insert into the staging list (the mPC analogue) with the
-            # version observed at read time (§3.3 check)
-            self.staging.setdefault(p, int(self.version[p]))
+            self._gather_fast(fast, out)
+        if slow:
+            self._fetch_slow(slow, out)
         self._record(pages)
         self._maybe_flush()
         self._access_count += 1
@@ -178,10 +167,32 @@ class TieredKVCache:
             obs.on_access()
         return [out[p] for p in pages]
 
+    def _gather_fast(self, fast, out):
+        """Fast pages: one device gather."""
+        slots = to_device(self.slot_of[fast], self.device)
+        gathered = self.fast_pool.index_select(0, slots)
+        for i, p in enumerate(fast):
+            out[p] = gathered[i]
+        self.clock.hbm_s += len(fast) * self.cfg.page_bytes / self.hbm_bw
+        self.clock.fast_hits += len(fast)
+
+    def _fetch_slow(self, slow, out):
+        """Slow pages: a host-to-device copy each, staged for promotion."""
+        for p in slow:
+            out[p] = self.slow_pool[p].to(self.device, non_blocking=True,
+                                          copy=True)
+            self.clock.pcie_s += self.cfg.page_bytes / self.pcie_bw
+            self.clock.slow_hits += 1
+            # insert into the staging list (the mPC analogue) with the
+            # version observed at read time (§3.3 check)
+            self.staging.setdefault(p, int(self.version[p]))
+
     # ------------------------------------------------------------------
     # hotness plumbing
     # ------------------------------------------------------------------
     def _record(self, pages):
+        """The tracker's record of this read: on CUDA one `ralt_record`
+        launch with the page ids by value."""
         self.tracker.record_ids(np.asarray(pages, np.int64))
 
     def _hot_set(self):

@@ -15,9 +15,11 @@ import torch
 
 from repro_torch.configs import smoke_config
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ralt_score
 from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.models import transformer
 from repro_torch.tiering import KVTierConfig, TieredKVCache
+from repro_torch.tiering import hotness
 
 pytestmark = pytest.mark.gpu
 
@@ -56,6 +58,158 @@ def test_ralt_kernel_matches_plain(cuda, N, offset):
     assert ops.LAUNCHES["ralt_update"] == before + 1
     for x, y in zip(got, want):
         assert torch.equal(x.cpu(), y)
+
+
+STATE_FIELDS = ("tick", "score", "c", "t", "seen", "now", "accessed_bytes",
+                "accessed_bytes_r", "hot_limit", "threshold")
+
+
+def assert_states_equal(got, want):
+    """Every field of two tracker states, bit for bit."""
+    for name in STATE_FIELDS:
+        a, b = got[name].cpu(), want[name].cpu()
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.equal(a.reshape(-1).view(torch.uint8),
+                           b.reshape(-1).view(torch.uint8)), name
+
+
+def random_state(cfg, cuda, seed):
+    """A tracker state with every field drawn (counters, tags and clock
+    remainders near their edges), on the card."""
+    rng = np.random.default_rng(seed)
+    n = cfg.n_units
+    st = hotness.init_state(cfg, cuda)
+    every = np.float32(cfg.gamma * cfg.fast_bytes)
+    R = np.float32(cfg.hot_hi_frac * cfg.fast_bytes)
+    vals = dict(
+        tick=rng.integers(0, 60, n).astype(np.int32),
+        score=(rng.random(n) * 5).astype(np.float32),
+        c=np.where(rng.random(n) < 0.3, 0,
+                   rng.random(n) * cfg.c_max).astype(np.float32),
+        t=rng.random(n) < 0.3, seen=rng.random(n) < 0.6,
+        now=np.int32(60), accessed_bytes=np.float32(every * 0.97),
+        accessed_bytes_r=np.float32(R * 0.99))
+    return {**st, **{k: torch.from_numpy(np.asarray(v)).to(cuda)
+                     for k, v in vals.items()}}
+
+
+def clone_state(st):
+    return {k: v.clone() for k, v in st.items()}
+
+
+def record_both(kst, pst, ids, cfg):
+    """One record through the fused kernel (host ids) and through the
+    plain `record_accesses` on the card (a dense mask of the same ids)."""
+    n = cfg.n_units
+    mask = torch.zeros(n, dtype=torch.bool, device=pst["tick"].device)
+    if len(ids):
+        mask[torch.as_tensor(np.asarray(ids) % n,
+                             device=mask.device)] = True
+    before = ops.LAUNCHES["ralt_record"]
+    kst = ops.ralt_record_(kst, ids, cfg)
+    assert ops.LAUNCHES["ralt_record"] == before + 1
+    return kst, hotness.record_accesses(pst, mask, cfg)
+
+
+TIERED_TRACKER = dict(n_units=65_536, unit_bytes=65_536,
+                      fast_bytes=8_192 * 65_536)
+
+
+def test_ralt_record_hotspot_stream_matches_plain(cuda):
+    """2,000 single-page reads of a hotspot stream at the tiered KV
+    cache's 65,536 pages, then records of many ids (by value and through
+    device memory): the fused kernel against `record_accesses` on the
+    card, every field bit for bit after every record."""
+    cfg = hotness.TrackerConfig(**TIERED_TRACKER)
+    kst = hotness.init_state(cfg, cuda)
+    pst = hotness.init_state(cfg, cuda)
+    rng = np.random.default_rng(0)
+    for i in range(2000):
+        p = int(rng.integers(0, 3276)) if rng.random() < 0.95 \
+            else int(rng.integers(0, 65_536))
+        kst, pst = record_both(kst, pst, [p], cfg)
+        assert_states_equal(kst, pst)
+    assert int(kst["now"]) > 0
+    k = ralt_score.param_ids()
+    for n_ids in (k, k + 1, 5000, 0):
+        ids = rng.integers(0, 65_536, n_ids)
+        kst, pst = record_both(kst, pst, ids, cfg)
+        assert_states_equal(kst, pst)
+
+
+@pytest.mark.parametrize("case", ["duplicates", "slices", "r_bytes",
+                                  "tail", "unaligned", "device_ids"])
+def test_ralt_record_edge_records_match_plain(cuda, case):
+    """Repeated ids; records that advance many slices (large unit_bytes,
+    small gamma); records that cross R (dec >= 1); N not a multiple of 4
+    (the scalar tail); arrays off 16-byte alignment (the scalar path);
+    ids as a CUDA tensor: every field bit for bit."""
+    kw = dict(n_units=4096, unit_bytes=4096, fast_bytes=64 * 4096)
+    if case == "slices":
+        kw.update(unit_bytes=1 << 20, gamma=0.0037)
+    if case == "r_bytes":
+        kw.update(hot_hi_frac=0.03, delta_c=7.5, c_max=40.0)
+    if case == "tail":
+        kw.update(n_units=4099)
+    cfg = hotness.TrackerConfig(**kw)
+    n = cfg.n_units
+    pst = random_state(cfg, cuda, seed=len(case))
+    if case == "unaligned":
+        pst = {k: (torch.cat([v[:1], v])[1:] if v.dim() else v)
+               for k, v in pst.items()}
+        assert pst["tick"].data_ptr() % 16 != 0
+    kst = clone_state(pst) if case != "unaligned" else {
+        k: (torch.cat([v[:1], v])[1:] if v.dim() else v.clone())
+        for k, v in pst.items()}
+    rng = np.random.default_rng(7)
+    for i in range(40):
+        ids = rng.integers(0, n, 1 + i % 13)
+        if case == "duplicates":
+            ids = np.concatenate([ids, ids[: 1 + i % 3], [n - 1, n - 1]])
+        if case == "device_ids":
+            mask = torch.zeros(n, dtype=torch.bool, device=cuda)
+            mask[torch.from_numpy(ids).to(cuda)] = True
+            kst = ops.ralt_record_(kst, mask.nonzero(), cfg)
+            pst = hotness.record_accesses(pst, mask, cfg)
+        else:
+            kst, pst = record_both(kst, pst, ids, cfg)
+        assert_states_equal(kst, pst)
+    if case == "slices":
+        assert int(kst["now"]) > 60 + 40 * 100
+    if case == "r_bytes":
+        assert float(kst["c"].max()) < 40.0
+
+
+def test_tracker_on_card_matches_cpu_twin(cuda):
+    """`HotTracker` on the card (the fused kernel; `record` and
+    `record_ids`) and on the CPU (the plain path), one numpy sampler:
+    every field bit for bit at every refresh."""
+    def sampler(now, n, n_units):
+        return np.random.default_rng(now).integers(0, n_units, n)
+
+    cfg = hotness.TrackerConfig(n_units=4096, unit_bytes=4096,
+                                fast_bytes=512 * 4096)
+    cpu = hotness.HotTracker(cfg, device="cpu", sampler=sampler)
+    card = hotness.HotTracker(cfg, device=cuda, sampler=sampler)
+    rng = np.random.default_rng(3)
+    before = ops.LAUNCHES["ralt_record"]
+    for i in range(600):
+        ids = rng.integers(0, 200 if rng.random() < 0.9 else 4096,
+                           1 + i % 5)
+        if i % 3 == 0:
+            mask = torch.zeros(4096, dtype=torch.bool)
+            mask[torch.from_numpy(ids)] = True
+            cpu.record(mask)
+            card.record(mask.to(cuda))
+        else:
+            cpu.record_ids(ids)
+            card.record_ids(ids)
+        if i % 64 == 63:
+            cpu.refresh_limits()
+            card.refresh_limits()
+            assert_states_equal(card.state, cpu.state)
+            assert torch.equal(card.hot().cpu(), cpu.hot())
+    assert ops.LAUNCHES["ralt_record"] == before + 600
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -193,7 +347,8 @@ def test_decode_step_on_card_matches_cpu(cuda):
 
 def test_tiered_kv_on_card_matches_cpu(cuda):
     """The same hotspot replay on both devices, with the same threshold
-    draws: identical counters, one RALT launch per read on the card."""
+    draws: identical counters, one fused tracker launch per read on the
+    card and no other RALT launch."""
     def sampler(now, n, n_units):
         return np.random.default_rng(now).integers(0, n_units, n)
 
@@ -210,12 +365,13 @@ def test_tiered_kv_on_card_matches_cpu(cuda):
     rng = np.random.default_rng(0)
     stream = [int(rng.integers(0, 12)) if rng.random() < 0.95
               else int(rng.integers(0, 256)) for _ in range(1500)]
-    before = ops.LAUNCHES["ralt_update"]
+    before = dict(ops.LAUNCHES)
     for p in stream:
         got = [kv.read_pages([p])[0].cpu() for kv in kvs]
         assert torch.equal(got[0], got[1])
         assert float(got[1][0].flatten()[0]) == p % 7
-    assert ops.LAUNCHES["ralt_update"] == before + len(stream)
+    assert ops.LAUNCHES["ralt_record"] == before["ralt_record"] + len(stream)
+    assert ops.LAUNCHES["ralt_update"] == before["ralt_update"]
     for name in ("fast_hits", "slow_hits", "promoted", "demoted",
                  "retained", "aborted", "sweeps", "flushes"):
         assert getattr(kvs[1].clock, name) == getattr(kvs[0].clock, name)

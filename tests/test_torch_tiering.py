@@ -66,6 +66,140 @@ def test_tracker_matches_reference(kw):
                                rtol=1e-5)
 
 
+def replay_both(kw, records, *, refresh_every=5, as_mask=False):
+    """Feed `records` (lists of ids) to the reference's tracker and the
+    port's (CPU, plain path), refreshing limits every `refresh_every`
+    records; every state field bit for bit after each record.  With
+    `as_mask` the port records a bool mask (`record`) instead of ids."""
+    jcfg, tcfg = jhot.TrackerConfig(**kw), thot.TrackerConfig(**kw)
+    jt = jhot.HotTracker(jcfg)
+    tt = thot.HotTracker(tcfg, device="cpu", sampler=reference_sampler)
+    for i, ids in enumerate(records):
+        ids = np.asarray(ids, np.int64)
+        jt.record_ids(jnp.asarray(ids, jnp.int32))
+        if as_mask:
+            mask = torch.zeros(kw["n_units"], dtype=torch.bool)
+            mask[torch.from_numpy(ids)] = True
+            tt.record(mask)
+        else:
+            tt.record_ids(ids)
+        if i % refresh_every == refresh_every - 1:
+            jt.refresh_limits()
+            tt.refresh_limits()
+        assert_states_match(jt.state, tt.state)
+    return jt, tt
+
+
+EDGE_KW = dict(n_units=64, unit_bytes=4096, fast_bytes=8 * 4096,
+               n_samples=32)
+
+
+def test_tracker_duplicate_ids_count_once():
+    """Repeats within one record count once, as the reference's mask
+    does: the bytes accessed are distinct units x unit_bytes."""
+    rng = np.random.default_rng(1)
+    records = [np.concatenate([[3, 3, 3, 5, 5], rng.integers(0, 64, 6),
+                               rng.integers(0, 64, 6)]) for _ in range(30)]
+    _, tt = replay_both(EDGE_KW, records)
+    _, once = replay_both(EDGE_KW, [np.unique(r) for r in records])
+    for name, x in once.state.items():
+        assert torch.equal(tt.state[name], x), name
+
+
+def test_tracker_record_advances_several_slices():
+    """gamma small against unit_bytes: one record moves `now` by many
+    slices at once (the slice remainder is not fused)."""
+    kw = dict(EDGE_KW, gamma=0.0037)
+    rng = np.random.default_rng(2)
+    records = [rng.integers(0, 64, 1 + i % 9) for i in range(30)]
+    jt, tt = replay_both(kw, records)
+    jt1 = jhot.record_accesses(jt.state, jnp.zeros(64, bool).at[
+        jnp.arange(12)].set(True), jhot.TrackerConfig(**kw))
+    assert int(jt1["now"]) - int(jt.state["now"]) > 100
+    assert int(tt.state["now"]) > 30 * 20
+
+
+def test_tracker_record_crosses_r_bytes():
+    """hot_hi_frac small: R is about 2.4 units' bytes, so every record
+    of 4-6 units decrements the counters by 1-3 (dec >= 1; the R-byte
+    remainder is one fused multiply-add) and clears the tags of units
+    whose counter reaches 0."""
+    kw = dict(EDGE_KW, hot_hi_frac=0.3, hot_lo_frac=0.01, delta_c=7.5,
+              c_max=40.0)
+    rng = np.random.default_rng(3)
+    hot = np.arange(4)
+    records = [np.concatenate([hot, rng.integers(4, 64, i % 3)])
+               for i in range(30)]
+    _, tt = replay_both(kw, records)
+    c, seen = tt.state["c"].numpy(), tt.state["seen"].numpy()
+    assert 0 < c[:4].min() and c[:4].max() < 40.0, "capped, then dec >= 1"
+    cold = seen & (np.arange(64) >= 4)
+    assert (c[cold] == 0).any() and (c[cold] > 0).any()
+    assert not tt.state["t"].numpy()[c == 0].any()
+
+
+def test_tracker_record_mask_matches_record_ids():
+    """`record(mask)` and `record_ids(ids)` are one step: both against
+    the reference, and against each other."""
+    rng = np.random.default_rng(4)
+    records = [rng.integers(0, 64, rng.integers(0, 12)) for _ in range(40)]
+    _, by_mask = replay_both(EDGE_KW, records, as_mask=True)
+    _, by_ids = replay_both(EDGE_KW, records)
+    for name, x in by_ids.state.items():
+        assert torch.equal(by_mask.state[name], x), name
+
+
+def test_ralt_record_host_ids():
+    """The fused record's host side: ids sorted, distinct, negatives
+    from the end as a mask index takes them; out of range raises."""
+    from repro_torch.kernels import ralt_score
+    got = ralt_score.sorted_ids([9, 2, 2, -1, 0, 9], 10)
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, [0, 2, 9])
+    np.testing.assert_array_equal(
+        ralt_score.sorted_ids(torch.tensor([3, 3]), 4), [3])
+    assert ralt_score.sorted_ids([], 4).size == 0
+    for bad in ([10], [-11]):
+        with pytest.raises(IndexError):
+            ralt_score.sorted_ids(bad, 10)
+
+
+def test_ralt_record_clock_views():
+    """The two-slot clock: a fresh state's scalars are copied into row
+    0; views of a row are recognised as such; the views hold the same
+    values and dtypes as the state's 0-d tensors."""
+    from repro_torch.kernels import ralt_score
+    cfg = thot.TrackerConfig(n_units=16, unit_bytes=64, fast_bytes=1024)
+    st = thot.init_state(cfg, CPU)
+    st = {**st, "now": torch.tensor(7, dtype=torch.int32),
+          "accessed_bytes": torch.tensor(1.5),
+          "accessed_bytes_r": torch.tensor(-2.25)}
+    buf, slot = ralt_score._clock(st)
+    assert slot == 0 and buf.shape == (2, 4)
+    views = buf.clock_views[0]
+    for k, v in views.items():
+        assert v.shape == () and v.dtype == st[k].dtype
+        assert torch.equal(v, st[k]), k
+    for row in (0, 1):
+        b2, s2 = ralt_score._clock({**st, **buf.clock_views[row]})
+        assert b2 is buf and s2 == row
+    with pytest.raises(ValueError, match="CUDA"):
+        ralt_score.ralt_record_(st, [1], cfg)
+
+
+def test_ralt_record_param_ids_fit_launch():
+    """The ids passed by value and the rest of the launch's parameters
+    stay inside the classic 4 KB limit on kernel parameters, and fit
+    the shared-memory staging."""
+    import re
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / "ralt_score.cu").read_text()
+    k = int(re.search(r"constexpr int kParamIds = (\d+);", src).group(1))
+    smem = int(re.search(r"constexpr int kSmemIds = (\d+);", src).group(1))
+    assert 4 * k + 128 <= 4096 and k <= smem
+    assert "ralt_record" in _build.LAUNCHES
+
+
 def test_sampled_threshold_targets_fraction():
     """§3.2 sampling with the port's own seeded sampler: the threshold
     keeps about target_bytes of the hottest units."""
