@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from `src/repro_torch/csrc` and runs
-nine phases, each printing one JSON line:
+eleven phases, each printing one JSON line:
 
   device   the card's name and power limit, and the kernels' build time;
   ptxas    registers and spill bytes of the flash, decode and ssd kernels
@@ -43,10 +43,29 @@ nine phases, each printing one JSON line:
            compute), one timed 4096-token prefill, 32 greedy decode steps
            from its state, and 4 train steps as in `train`, after one
            step's loss and gradient norm with the scan kernel against the
-           plain chunk scan.
+           plain chunk scan;
+  moe      qwen3-moe-235b-a22b at full width (d_model 4096, 64 q / 4 kv
+           heads, 128 experts top-8, random bf16 weights from a seed),
+           depth cut to 8 of 94 layers (all 94 would hold 470 GB): the
+           CUDA decode path's logits against the CPU path's at the smoke
+           config; a 128-token prefill against teacher-forced decode at 2
+           layers in float32 with cf = E/K (no drops); 8 requests served
+           through `ServeEngine` (dropless decode) beside the step's byte
+           bound; one timed 4096-token prefill at the published cf 1.25
+           with the share of assignments dropped;
+  caches   `TieredEmbedding` over the seeded qwen3 embedding table
+           (151,936 x 4096 bf16, 1/8 of the rows on the card) replaying
+           400 lookups of 64 zipf(1.3) ids, and `ExpertCache` over one
+           qwen3 layer's 128 expert blobs (36 MiB each, 16 on the card)
+           replaying 300 steps of zipf(1.4) routing, each against a CPU
+           twin fed the same stream and threshold draws: clocks, slot
+           tables and tracker state bit for bit, every lookup the exact
+           gather, every resident blob its host blob, one `ralt_record`
+           per lookup or route.
 
 Kernel launches are counted from zero in each of the serve, tiered,
-tracker, prefill and train runs and in each part of the mamba2 run.
+tracker, prefill and train runs, in each part of the mamba2 and moe runs
+and in each cache's replay.
 Then come the kernel summary line, the `nvidia-smi` line and the result
 line.
 Exits nonzero without CUDA, outside a checkout of the repository, and
@@ -89,10 +108,22 @@ HANDOFF_BATCH, HANDOFF_LEN, DECODE_STEPS = 2, 512, 32
 # tests/test_kernels.py's ssd_scan tolerances: y by dtype, h_final
 SSD_TOL = {torch.float32: 5e-4, torch.bfloat16: 5e-2}
 SSD_H_TOL = 5e-3
+# moe run: qwen3-moe-235b-a22b cut to 8 layers; its float32 check at 2
+MOE_ARCH, MOE_LAYERS, MOE_CHECK_LAYERS = "qwen3-moe-235b-a22b", 8, 2
+# caches run: qwen3's vocab rows and one layer's experts, 1/8 on the card
+EMB_FAST, EMB_STAGING, EMB_LOOKUPS, EMB_IDS = 18_992, 64, 400, 64
+EXPERT_FAST, EXPERT_SWAP, EXPERT_STEPS, EXPERT_DRAWS = 16, 8, 300, 128
 
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def fail_on(phase: str, checks: dict) -> None:
+    """Exit naming the checks of `phase` that failed, if any did."""
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"{phase} phase failed: {failed}")
 
 
 def smi() -> str:
@@ -399,11 +430,12 @@ def kernels_phase(dev, flush, power: str) -> dict:
     ralt = [ralt_case(ops, ralt_score, dev, g, flush, n)
             for n in (N_PAGES, 16_777_216)]
     # the tiered run's record (one page id), the same at 16.8 M units, a
-    # long id list by value and one through device memory
+    # long id list by value and one through device memory; the expert
+    # cache's (128 experts) and the embedding's (qwen3's vocab rows)
     record = [ralt_record_case(ops, hotness, dev, g, flush, n, k)
               for n, k in ((N_PAGES, 1), (16_777_216, 1),
                            (N_PAGES, ralt_score.param_ids()),
-                           (N_PAGES, 5000))]
+                           (N_PAGES, 5000), (128, 64), (151_936, 64))]
     bf16, f32 = torch.bfloat16, torch.float32
     decode = [decode_case(ops, ref, dev, g, flush, *shape)
               for shape in (
@@ -417,7 +449,9 @@ def kernels_phase(dev, flush, power: str) -> dict:
                   # a long cache, then stablelm's D = 80 and internvl2's 64
                   (8, 32, 8, 128, 32_768, 30_001, bf16),
                   (4, 32, 32, 80, 4096, 3001, bf16),
-                  (4, 14, 2, 64, 4096, 3001, bf16))]
+                  (4, 14, 2, 64, 4096, 3001, bf16),
+                  # qwen3-moe's serving shape: G = 16, two slices of 8
+                  (BATCH, 64, 4, 128, MAX_LEN, PROMPT + 1, bf16))]
     flash = [flash_case(ops, fa, dev, g, flush, *shape)
              for shape in (
                  # the training path's shapes: stablelm-3b (D = 80, MHA)
@@ -427,7 +461,9 @@ def kernels_phase(dev, flush, power: str) -> dict:
                  (1, PREFILL_LEN, 32, 8, 128, None, bf16),
                  (1, 4001, 32, 8, 128, None, bf16),
                  (1, 4096, 8, 4, 256, 96, bf16),
-                 (1, 2048, 14, 2, 64, None, f32))]
+                 (1, 2048, 14, 2, 64, None, f32),
+                 # qwen3-moe's prefill: G = 16, H = 64
+                 (1, PREFILL_LEN, 64, 4, 128, None, bf16))]
     ssd_cases = [ssd_case(ops, ssd, dev, g, flush, *shape)
                  for shape in (
                      # mamba2-1.3b's prefill and training shape (4096
@@ -470,19 +506,18 @@ def kernels_phase(dev, flush, power: str) -> dict:
 # ----------------------------------------------------------------------
 # serve
 # ----------------------------------------------------------------------
-def reference_check(dev) -> float:
-    """Logits of 12 decode steps of llama3-8b's smoke config (float32),
-    CUDA path against the CPU path that the tests hold to the reference."""
+def reference_check(dev, arch: str = "llama3-8b") -> float:
+    """Logits of 12 decode steps of `arch`'s smoke config (float32), CUDA
+    path against the CPU path that the tests hold to the reference."""
     from repro_torch.configs import smoke_config
     from repro_torch.models import transformer
+    from repro_torch.tree import tree_map
 
-    cfg = smoke_config("llama3-8b")
+    cfg = smoke_config(arch)
     cpu = torch.device("cpu")
     params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
                                      cpu)
-    on_dev = {k: ([{n: w.to(dev) for n, w in layer.items()} for layer in v]
-                  if k == "layers" else v.to(dev))
-              for k, v in params.items()}
+    on_dev = tree_map(lambda t: t.to(dev), params)
     caches = (transformer.init_cache(cfg, 3, 16, cpu),
               transformer.init_cache(cfg, 3, 16, dev))
     rng = np.random.default_rng(5)
@@ -496,23 +531,14 @@ def reference_check(dev) -> float:
     return err
 
 
-def serve_phase(dev, power: str) -> dict:
-    from repro_torch.configs import get_config
+def serve_run(eng, cfg, dev) -> tuple[dict, dict, dict]:
+    """REQUESTS requests of PROMPT random tokens and NEW new ones through
+    `eng`, launches counted from zero, every step's logits checked for
+    NaN.  -> (results, checks, launches)."""
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import padded_vocab
     from repro_torch.serving import engine
 
-    ref_err = reference_check(dev)
-    if not ref_err <= 1e-4:
-        raise SystemExit(f"CUDA decode logits differ from the CPU path's "
-                         f"by {ref_err}")
-    cfg = get_config("llama3-8b")
-    torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    eng = engine.ServeEngine(cfg, batch=BATCH, max_len=MAX_LEN, seed=0,
-                             device=dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
     rng = np.random.default_rng(0)
     for rid in range(REQUESTS):
         eng.submit(engine.Request(
@@ -542,15 +568,13 @@ def serve_phase(dev, power: str) -> dict:
     out = dict(model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
                dtype=cfg.dtype, params=cfg.param_count(), batch=BATCH,
                requests_completed=len(done), tokens=tokens,
-               steps_used=eng.steps_used, init_s=init_s, wall_s=wall,
+               steps_used=eng.steps_used, wall_s=wall,
                tokens_per_s=tokens / wall, ms_per_step=wall * 1e3
                / eng.steps_used,
                max_memory_allocated=torch.cuda.max_memory_allocated(dev),
                decode_launches=launches["decode_attention"],
                ralt_launches=launches["ralt_update"],
-               ralt_record_launches=launches["ralt_record"],
-               cuda_vs_cpu_logits_max_abs_err=ref_err, power_limit=power)
-    emit("serve", **out)
+               ralt_record_launches=launches["ralt_record"])
     V = padded_vocab(cfg)
     checks = {
         "every request completed": len(done) == REQUESTS and all(
@@ -561,9 +585,28 @@ def serve_phase(dev, power: str) -> dict:
         "decode kernel once per layer and step":
             launches["decode_attention"] == cfg.n_layers * eng.steps_used,
     }
-    failed = [k for k, ok in checks.items() if not ok]
-    if failed:
-        raise SystemExit(f"serve phase failed: {failed}")
+    return out, checks, launches
+
+
+def serve_phase(dev, power: str) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.serving import engine
+
+    ref_err = reference_check(dev)
+    if not ref_err <= 1e-4:
+        raise SystemExit(f"CUDA decode logits differ from the CPU path's "
+                         f"by {ref_err}")
+    cfg = get_config("llama3-8b")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    eng = engine.ServeEngine(cfg, batch=BATCH, max_len=MAX_LEN, seed=0,
+                             device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    out, checks, launches = serve_run(eng, cfg, dev)
+    emit("serve", **out, init_s=init_s,
+         cuda_vs_cpu_logits_max_abs_err=ref_err, power_limit=power)
+    fail_on("serve", checks)
     return launches
 
 
@@ -659,15 +702,19 @@ def tiered_phase(dev, power: str) -> dict:
         "no other tracker launch": launches["ralt_update"] == 0,
         "every read returns its page": out["wrong_elements"] == 0,
     }
-    failed = [k for k, ok in checks.items() if not ok]
-    if failed:
-        raise SystemExit(f"tiered phase failed: {failed}")
+    fail_on("tiered", checks)
     return launches
 
 
 # ----------------------------------------------------------------------
 # tracker
 # ----------------------------------------------------------------------
+def numpy_sampler(now, n, n_units):
+    """Threshold draws shared by a card and a CPU tracker (the torch CPU
+    and CUDA generators differ)."""
+    return np.random.default_rng(now).integers(0, n_units, n)
+
+
 def tracker_phase(dev, power: str) -> dict:
     """The tracker at N_PAGES units over TRACKER_READS single-page reads of
     the hotspot stream, limits refreshed every 64 reads as the tiered
@@ -678,9 +725,7 @@ def tracker_phase(dev, power: str) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.tiering import HotTracker, hotness
 
-    def sampler(now, n, n_units):
-        return np.random.default_rng(now).integers(0, n_units, n)
-
+    sampler = numpy_sampler
     cfg = tracker_config(N_PAGES)
     card = HotTracker(cfg, device=dev, sampler=sampler)
     cpu = HotTracker(cfg, device="cpu", sampler=sampler)
@@ -720,9 +765,7 @@ def tracker_phase(dev, power: str) -> dict:
         "RALT kernel once per functional record":
             launches["ralt_update"] == TRACKER_READS,
     }
-    failed = [k for k, ok in checks.items() if not ok]
-    if failed:
-        raise SystemExit(f"tracker phase failed: {failed}")
+    fail_on("tracker", checks)
     return launches
 
 
@@ -815,9 +858,7 @@ def prefill_phase(dev, power: str) -> dict:
         "decode kernel once per layer and step":
             launches["decode_attention"] == 2 * cfg.n_layers * PREFILL_CHECK,
     }
-    failed = [k for k, ok in checks.items() if not ok]
-    if failed:
-        raise SystemExit(f"prefill phase failed: {failed}")
+    fail_on("prefill", checks)
     return launches
 
 
@@ -914,9 +955,7 @@ def train_phase(dev, power: str) -> dict:
         "flash kernel once per layer, pass, microbatch and step":
             launches["flash_attention"] == want,
     }
-    failed = [k for k, ok in checks.items() if not ok]
-    if failed:
-        raise SystemExit(f"train phase failed: {failed}")
+    fail_on("train", checks)
     return launches
 
 
@@ -1039,10 +1078,293 @@ def mamba2_phase(dev, power: str) -> dict:
         "scan kernel once per layer, pass, microbatch and step":
             launches["ssd_scan"] == L * 2 * TRAIN_MICRO * TRAIN_STEPS,
     }
-    failed = [k for k, ok in checks.items() if not ok]
-    if failed:
-        raise SystemExit(f"mamba2 phase failed: {failed}")
+    fail_on("mamba2", checks)
     return launches
+
+
+# ----------------------------------------------------------------------
+# moe
+# ----------------------------------------------------------------------
+def moe_phase(dev, power: str) -> dict:
+    """qwen3-moe-235b-a22b at full width, cut to MOE_LAYERS layers: (a)
+    prefill against teacher-forced decode at MOE_CHECK_LAYERS layers in
+    float32 with cf = E/K, so that prefill drops nothing (the smoke
+    configs' rule); (b) `ServeEngine` over REQUESTS requests (dropless
+    decode); (c) one timed PREFILL_LEN-token prefill at the published
+    cf, after an untimed one that counts the dropped assignments."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import moe
+    from repro_torch.models.config import Block
+    from repro_torch.serving import engine
+    from repro_torch.tree import tree_leaves, tree_map
+
+    ref_err = reference_check(dev, MOE_ARCH)
+    full = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, stages=((MOE_LAYERS, (Block("moe"),)),))
+    E, K, d, ff = cfg.n_experts, cfg.top_k, cfg.d_model, cfg.d_ff
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    eng = engine.ServeEngine(cfg, batch=BATCH, max_len=MAX_LEN, seed=0,
+                             device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = eng.params
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in [params["lm_head"]] + [
+                           w for layer in params["layers"]
+                           for w in tree_leaves(layer)])
+    # (a) the seeded bf16 weights of the first layers computed in float32
+    cfg32 = dataclasses.replace(
+        cfg, stages=((MOE_CHECK_LAYERS, (Block("moe"),)),), dtype="float32",
+        capacity_factor=E / K)
+    params32 = {k: tree_map(lambda t: t.float(), v)
+                for k, v in params.items() if k != "layers"}
+    params32["layers"] = [tree_map(lambda t: t.float(), layer)
+                          for layer in params["layers"][:MOE_CHECK_LAYERS]]
+    rng = np.random.default_rng(1)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                           (1, PREFILL_CHECK))).to(dev)
+    ops.reset_launches()
+    check = prefill_vs_decode(cfg32, params32, prompt, dev)
+    check_launches = dict(ops.LAUNCHES)
+    check_mem = torch.cuda.max_memory_allocated(dev)
+    del params32
+    torch.cuda.empty_cache()
+    # (b) serve
+    torch.cuda.reset_peak_memory_stats(dev)
+    serve, serve_checks, launches = serve_run(eng, cfg, dev)
+    expert_bytes = MOE_LAYERS * E * 3 * d * ff * 2
+    serve.update(step_bytes=weight_bytes,
+                 step_bound_ms=weight_bytes / PEAK_BYTES * 1e3,
+                 expert_bytes=expert_bytes,
+                 expert_bound_ms=expert_bytes / PEAK_BYTES * 1e3)
+    # (c) prefill at the published capacity factor
+    prefill = make_prefill_step(cfg)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                           (1, PREFILL_LEN))).to(dev)
+    kept, assigned, capacities = [], [], set()
+    real = moe.moe_ffn
+
+    def counting(p, x, c, dropless=False):
+        xf = x.reshape(-1, x.shape[-1])
+        C = moe.capacity(xf.shape[0], c, dropless)
+        _, eidx = moe.route(p["router"], xf, c)
+        kept.append(moe.kept(eidx, c.n_experts, C).sum())
+        assigned.append(eidx.numel())
+        capacities.add(C)
+        return real(p, x, c, dropless)
+
+    moe.moe_ffn = counting
+    try:
+        prefill(params, {"tokens": tokens})     # warm-up, same shape
+    finally:
+        moe.moe_ffn = real
+    dropped = 1 - float(sum(kept)) / sum(assigned)
+    dropped_by_layer = [1 - float(k) / a for k, a in zip(kept, assigned)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    last, _ = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = dict(ops.LAUNCHES)
+    prefill_mem = torch.cuda.max_memory_allocated(dev)
+    res = dict(
+        model=cfg.name, layers=cfg.n_layers, full_layers=full.n_layers,
+        reduced=[f"layers: {MOE_LAYERS} of {full.n_layers}"],
+        d_model=d, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+        experts=E, top_k=K, expert_d_ff=ff, vocab=cfg.vocab,
+        dtype=cfg.dtype, params=cfg.param_count(),
+        full_params=full.param_count(), init_s=init_s,
+        cuda_vs_cpu_smoke_logits_max_abs_err=ref_err,
+        prefill_vs_decode_f32=dict(
+            layers=MOE_CHECK_LAYERS, tokens=PREFILL_CHECK,
+            capacity_factor=E / K, tol=TOL[torch.bfloat16],
+            max_memory_allocated=check_mem,
+            flash_launches=check_launches["flash_attention"],
+            decode_launches=check_launches["decode_attention"], **check),
+        serve=serve,
+        prefill=dict(tokens=PREFILL_LEN,
+                     capacity_factor=cfg.capacity_factor,
+                     capacity=sorted(capacities),
+                     dropped_share=dropped,
+                     dropped_share_by_layer=dropped_by_layer,
+                     prefill_s=prefill_s,
+                     tokens_per_s=PREFILL_LEN / prefill_s,
+                     max_memory_allocated=prefill_mem,
+                     flash_launches=prefill_launches["flash_attention"],
+                     finite=bool(torch.isfinite(last).all())),
+        power_limit=power)
+    emit("moe", **res)
+    fail_on("moe", {
+        "CUDA decode logits match the CPU path's (smoke, 1e-4)":
+            ref_err <= 1e-4,
+        "prefill matches teacher-forced decode (float32)":
+            check["err_over_tol"] <= 1.0 and check["finite"],
+        "check: flash once per layer, decode once per layer and step":
+            check_launches["flash_attention"] == MOE_CHECK_LAYERS
+            and check_launches["decode_attention"]
+            == MOE_CHECK_LAYERS * PREFILL_CHECK,
+        **serve_checks,
+        "prefill: flash kernel once per layer":
+            prefill_launches["flash_attention"] == MOE_LAYERS,
+        "prefill: finite logits": res["prefill"]["finite"],
+        "prefill under 80 GB": prefill_mem < 80e9,
+    })
+    return launches
+
+
+# ----------------------------------------------------------------------
+# caches
+# ----------------------------------------------------------------------
+COUNTERS = ("fast_hits", "slow_hits", "promoted", "demoted", "retained",
+            "aborted", "sweeps", "flushes", "hbm_s", "pcie_s")
+
+
+def clock_mismatch(a, b) -> list[str]:
+    return [k for k in COUNTERS if getattr(a.clock, k) != getattr(b.clock, k)]
+
+
+def timed_replay(call, stream) -> tuple[list, float]:
+    """[call(x) for x in stream] on the card, launches counted from zero;
+    -> (results, host µs per call)."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = [call(x) for x in stream]
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e6 / len(stream)
+
+
+def caches_phase(dev, power: str) -> dict:
+    """`TieredEmbedding` and `ExpertCache` at qwen3's widths on the card,
+    each against a CPU twin of the same class fed the same stream and
+    threshold draws (the twin shares the pinned host data)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import padded_vocab
+    from repro_torch.tiering import ExpertCache, TieredEmbedding
+
+    cfg = get_config(MOE_ARCH)
+    hbm_bw, pcie_bw = measured_bandwidths(dev)
+    V, d, E = cfg.vocab, cfg.d_model, cfg.n_experts
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    # the embedding as `init_params` draws it first, vocab rows only
+    table_dev = (torch.randn(padded_vocab(cfg), d, generator=g, device=dev)
+                 * d ** -0.5).to(torch.bfloat16)[:V]
+    table = torch.empty(table_dev.shape, dtype=table_dev.dtype,
+                        pin_memory=True)
+    table.copy_(table_dev)
+    rng = np.random.default_rng(0)
+    lookups = [np.minimum(rng.zipf(1.3, EMB_IDS) - 1, V - 1)
+               for _ in range(EMB_LOOKUPS)]
+    embs = [TieredEmbedding(table, EMB_FAST, EMB_STAGING, hbm_bw=hbm_bw,
+                            pcie_bw=pcie_bw, device=where,
+                            sampler=numpy_sampler)
+            for where in (dev, "cpu")]
+    outs, emb_us = timed_replay(embs[0].lookup, lookups)
+    emb_launches = dict(ops.LAUNCHES)
+    wrong = sum(int((o != table_dev[torch.from_numpy(ids).to(dev)]).sum())
+                for o, ids in zip(outs, lookups))
+    del outs, table_dev
+    twin_wrong = sum(int((embs[1].lookup(ids) != table[ids]).sum())
+                     for ids in lookups)
+    card, twin = embs
+    emb = dict(
+        vocab=V, d_model=d, table_bytes=table.numel() * table.element_size(),
+        fast_rows=EMB_FAST, staging_slots=EMB_STAGING, lookups=EMB_LOOKUPS,
+        ids_per_lookup=EMB_IDS, fast_hit_rate=card.fast_hit_rate(),
+        promoted=card.clock.promoted, demoted=card.clock.demoted,
+        retained=card.clock.retained, flushes=card.clock.flushes,
+        sim_s=card.clock.total_s, host_us_per_lookup=emb_us,
+        wrong_elements=wrong, twin_wrong_elements=twin_wrong,
+        clock_mismatches=clock_mismatch(card, twin),
+        tracker_mismatches=state_mismatch(
+            {k: v.cpu() for k, v in card.tracker.state.items()},
+            twin.tracker.state),
+        ralt_record_launches=emb_launches["ralt_record"])
+    emb_checks = {
+        "embedding: every lookup the exact gather, card and twin":
+            wrong == 0 and twin_wrong == 0,
+        "embedding: clocks and tracker state equal the CPU twin's":
+            not emb["clock_mismatches"] and not emb["tracker_mismatches"]
+            and card.fast_hit_rate() == twin.fast_hit_rate(),
+        "embedding: slot tables, free list and staging equal the twin's":
+            np.array_equal(card.slot_of_row, twin.slot_of_row)
+            and np.array_equal(card.row_of_slot, twin.row_of_slot)
+            and card.free == twin.free
+            and list(card.staging) == list(twin.staging),
+        "embedding: one ralt_record per lookup":
+            emb_launches["ralt_record"] == EMB_LOOKUPS,
+        "embedding: rows promoted": card.clock.promoted > 0,
+    }
+    del embs, card, twin, table
+    # one layer's experts: (gate, up, down^T) of each, (3, d, ff) bf16
+    layer = moe.init_moe(cfg, g, dev)
+    blobs_dev = torch.stack([layer["w_gate"], layer["w_up"],
+                             layer["w_down"].transpose(1, 2)], dim=1)
+    del layer
+    blobs = torch.empty(blobs_dev.shape, dtype=blobs_dev.dtype,
+                        pin_memory=True)
+    blobs.copy_(blobs_dev)
+    del blobs_dev
+    steps = [np.bincount(np.minimum(rng.zipf(1.4, EXPERT_DRAWS) - 1, E - 1),
+                         minlength=E) for _ in range(EXPERT_STEPS)]
+    ecs = [ExpertCache(blobs, EXPERT_FAST, EXPERT_SWAP, hbm_bw=hbm_bw,
+                       pcie_bw=pcie_bw, device=where, sampler=numpy_sampler)
+           for where in (dev, "cpu")]
+    _, route_us = timed_replay(ecs[0].route, steps)
+    ec_launches = dict(ops.LAUNCHES)
+    for counts in steps:
+        ecs[1].route(counts)
+    card, twin = ecs
+    bad_blobs = [int(e) for s, e in enumerate(card.expert_of_slot)
+                 if e >= 0 and not torch.equal(card.cache[s].cpu(), blobs[e])]
+    ec = dict(
+        experts=E, blob_bytes=card.blob_bytes,
+        host_bytes=blobs.numel() * blobs.element_size(),
+        fast_experts=EXPERT_FAST, swap_every=EXPERT_SWAP, steps=EXPERT_STEPS,
+        draws_per_step=EXPERT_DRAWS,
+        resident_fraction=card.resident_fraction(steps[-1]),
+        twin_resident_fraction=twin.resident_fraction(steps[-1]),
+        fast_hit_rate=card.clock.fast_hits
+        / (card.clock.fast_hits + card.clock.slow_hits),
+        promoted=card.clock.promoted, demoted=card.clock.demoted,
+        retained=card.clock.retained, sweeps=card.clock.sweeps,
+        sim_s=card.clock.total_s, host_us_per_route=route_us,
+        resident=int((card.expert_of_slot >= 0).sum()),
+        resident_blobs_differing=bad_blobs,
+        clock_mismatches=clock_mismatch(card, twin),
+        tracker_mismatches=state_mismatch(
+            {k: v.cpu() for k, v in card.tracker.state.items()},
+            twin.tracker.state),
+        ralt_record_launches=ec_launches["ralt_record"])
+    ec_checks = {
+        "experts: every resident blob its host blob":
+            not bad_blobs and ec["resident"] > 0,
+        "experts: clocks, tracker state and resident fraction equal the "
+        "CPU twin's": not ec["clock_mismatches"]
+            and not ec["tracker_mismatches"]
+            and ec["resident_fraction"] == ec["twin_resident_fraction"],
+        "experts: slot tables and free list equal the twin's":
+            np.array_equal(card.slot_of, twin.slot_of)
+            and np.array_equal(card.expert_of_slot, twin.expert_of_slot)
+            and card.free == twin.free,
+        "experts: one ralt_record per route":
+            ec_launches["ralt_record"] == EXPERT_STEPS,
+        "experts: blobs promoted": card.clock.promoted > 0,
+    }
+    emit("caches", embedding=emb, experts=ec, hbm_bw_measured=hbm_bw,
+         pcie_bw_measured=pcie_bw, power_limit=power)
+    fail_on("caches", {**emb_checks, **ec_checks})
+    return ec_launches
 
 
 # ----------------------------------------------------------------------
@@ -1085,6 +1407,10 @@ def main() -> int:
     launches["flash_attention"] = train_phase(dev, power)["flash_attention"]
     torch.cuda.empty_cache()
     launches["ssd_scan"] = mamba2_phase(dev, power)["ssd_scan"]
+    torch.cuda.empty_cache()
+    moe_phase(dev, power)
+    torch.cuda.empty_cache()
+    caches_phase(dev, power)
     sources = {
         "ralt_update": ("src/repro_torch/csrc/ralt_score.cu",
                         "src/repro/kernels/ralt_score.py:78"),

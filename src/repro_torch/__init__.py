@@ -1,12 +1,13 @@
 """PyTorch / CUDA port of the accelerator half of the HotRAP reproduction.
 
 `repro_torch` mirrors the module layout of `repro` (the JAX package,
-which stays the reference) for three slices: serving (the RALT hotness
+which stays the reference) for four slices: serving (the RALT hotness
 tracker, the tiered paged KV cache, the attention-only decoder models
 and the lockstep serving engine), training and prefill (forward and
 loss, AdamW, the data pipeline, checkpoints, the train and prefill steps
-and the training launcher), and the attention-free Mamba2 family (its
-mixer and decode step on all of those paths).  The four Pallas kernels
+and the training launcher), the attention-free Mamba2 family (its mixer
+and decode step on all of those paths), and the MoE family with the
+tiered embedding and expert caches.  The four Pallas kernels
 of the reference are rewritten by hand in CUDA C++ for Hopper (`csrc/`),
 built with `nvcc` at first use and bound with `ctypes`
 (`kernels/_build.py`).

@@ -2,9 +2,9 @@
 
 One module per architecture, each exporting ``CONFIG: ModelConfig`` and
 ``smoke()`` exactly as the reference's `repro.configs.<id>`.  Ported so
-far: the pure-attention architectures (no window, no int8 KV, no
-experts) and the attention-free Mamba2; the rest of the reference's ids
-raise ``KeyError`` with "not ported yet".
+far: the pure-attention architectures without a window or int8 KV, the
+attention-free Mamba2 and the MoE qwen3-moe (full attention); the rest
+of the reference's ids raise ``KeyError`` with "not ported yet".
 """
 from __future__ import annotations
 
@@ -24,7 +24,8 @@ ARCH_IDS = (
     "qwen3-moe-235b-a22b",
     "mixtral-8x22b",
 )
-PORTED = ("llama3-8b", "internvl2-1b", "stablelm-3b", "mamba2-1.3b")
+PORTED = ("llama3-8b", "internvl2-1b", "stablelm-3b", "mamba2-1.3b",
+          "qwen3-moe-235b-a22b")
 
 
 def _module(arch_id: str):

@@ -9,7 +9,9 @@ port keeps one dict per layer in execution order.  The `_to_reference`
 functions give the reference's layout back (torch CPU tensors, dtypes
 kept), which is also the layout the port's checkpoints are written in,
 so a checkpoint written by either package restores in the other.  Each
-block kind has its own leaves (`attention.WEIGHTS`, `mamba2.WEIGHTS`).
+block kind has its own leaves (`attention.WEIGHTS`, `mamba2.WEIGHTS`; a
+`moe` block the attention leaves and a nested ``moe`` dict of
+`moe.WEIGHTS`), named by their path in the layer's dict.
 This module never imports jax or `repro`.
 """
 from __future__ import annotations
@@ -17,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .models import attention, mamba2
+from .models import attention, mamba2, moe
 from .models.transformer import layer_blocks
 
 
@@ -30,8 +32,31 @@ def _tensor(arr, dtype, device):
         dtype=dtype, device=device)
 
 
-def _weights(block):
-    return mamba2.WEIGHTS if block.kind == "mamba2" else attention.WEIGHTS
+def _weights(block) -> list[tuple]:
+    """The paths of one layer's leaves in its dict."""
+    if block.kind == "mamba2":
+        return [(w,) for w in mamba2.WEIGHTS]
+    if block.kind == "moe":
+        return [(w,) for w in attention.ATTN_WEIGHTS] + \
+            [("moe", w) for w in moe.WEIGHTS]
+    return [(w,) for w in attention.WEIGHTS]
+
+
+def _nest(flat: dict) -> dict:
+    """{path: leaf} -> the nested dict the paths name."""
+    out = {}
+    for path, leaf in flat.items():
+        d = out
+        for key in path[:-1]:
+            d = d.setdefault(key, {})
+        d[path[-1]] = leaf
+    return out
+
+
+def _leaf(tree: dict, path: tuple):
+    for key in path:
+        tree = tree[key]
+    return tree
 
 
 def _layer_index(cfg):
@@ -59,19 +84,25 @@ def params_from_reference(np_tree, cfg, device, dtype=None) -> dict:
             left[(name,)] = np_tree[name]
     if np_tree.get("shared") is not None:
         left[("shared",)] = np_tree["shared"]
+
+    def walk(prefix, node):
+        if isinstance(node, dict):
+            for k, sub in node.items():
+                walk(prefix + (k,), sub)
+        else:
+            left[prefix] = node
+
     for si, stage in enumerate(np_tree["stages"]):
-        for bname, block in stage.items():
-            for wname, w in block.items():
-                left[("stages", si, bname, wname)] = w
+        walk(("stages", si), stage)
 
     def take(path, dtype=dt):
         if path not in left:
             raise KeyError(f"reference tree lacks {path}")
         return _tensor(left.pop(path), dtype, device)
 
-    def leaf_dtype(block, w):
+    def leaf_dtype(block, path):
         if dtype is None and block.kind == "mamba2" \
-                and w in mamba2.F32_WEIGHTS:
+                and path[-1] in mamba2.F32_WEIGHTS:
             return torch.float32
         return dt
 
@@ -82,13 +113,14 @@ def params_from_reference(np_tree, cfg, device, dtype=None) -> dict:
     stacked = {}
     for si, (_, blocks) in enumerate(cfg.stages):
         for bi, block in enumerate(blocks):
-            stacked[si, bi] = {w: take(("stages", si, f"b{bi}", w),
-                                       leaf_dtype(block, w))
-                               for w in _weights(block)}
+            stacked[si, bi] = {path: take(("stages", si, f"b{bi}", *path),
+                                          leaf_dtype(block, path))
+                               for path in _weights(block)}
     # each layer its own tensor (not a view of the stack), so it can be
     # updated in place and freed on its own
-    params["layers"] = [{w: t[r].clone() for w, t in stacked[si, bi].items()}
-                        for si, bi, r, _ in _layer_index(cfg)]
+    params["layers"] = [
+        _nest({path: t[r].clone() for path, t in stacked[si, bi].items()})
+        for si, bi, r, _ in _layer_index(cfg)]
     if left:
         raise ValueError(f"unconsumed reference leaves: {sorted(left)}")
     return params
@@ -110,10 +142,10 @@ def params_to_reference(params, cfg) -> dict:
     index = _layer_index(cfg)
     for si, (_, blocks) in enumerate(cfg.stages):
         tree["stages"].append({
-            f"b{bi}": {w: torch.stack([host(layers[n][w])
-                                       for s, b, _, n in index
-                                       if (s, b) == (si, bi)])
-                       for w in _weights(block)}
+            f"b{bi}": _nest({path: torch.stack([host(_leaf(layers[n], path))
+                                                for s, b, _, n in index
+                                                if (s, b) == (si, bi)])
+                             for path in _weights(block)})
             for bi, block in enumerate(blocks)})
     return tree
 

@@ -1,6 +1,7 @@
 """Device resolution shared by every entry point of the port."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -28,3 +29,28 @@ def to_device(x, device: torch.device) -> torch.Tensor:
     if device.type == "cuda" and t.device.type == "cpu":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
+
+
+def host_tensor(x, device: torch.device) -> torch.Tensor:
+    """Host data (numpy array or CPU tensor) as a CPU tensor, pinned when
+    `device` is CUDA so copies out of it are queued without waiting; a
+    numpy array is shared, not copied, on the CPU."""
+    t = torch.as_tensor(x)
+    if t.device.type != "cpu":
+        raise ValueError(f"host data must be on the CPU, got {t.device}")
+    if device.type == "cuda" and not t.is_pinned():
+        t = t.pin_memory()
+    return t
+
+
+def gather_to_device(host: torch.Tensor, idx, device: torch.device):
+    """host[idx] (rows along dim 0) on `device`.  For CUDA the rows are
+    gathered into a pinned buffer and copied on the current stream; the
+    host's caching allocator keeps the buffer until the copy is done."""
+    idx = torch.as_tensor(np.asarray(idx, np.int64))
+    if device.type == "cpu":
+        return host.index_select(0, idx)
+    buf = torch.empty((len(idx), *host.shape[1:]), dtype=host.dtype,
+                      pin_memory=True)
+    torch.index_select(host, 0, idx, out=buf)
+    return buf.to(device, non_blocking=True)

@@ -7,6 +7,8 @@ is the hand-written flash kernel.  The decode cache is head-major
 decode core is the hand-written decode kernel
 (`kernels.ops.decode_attention_head_major`), which reads that layout in
 place.  Sliding-window and int8 decode are later slices and raise here.
+Both take an `mlp_fn` in place of the block's SwiGLU (the `moe` block's
+expert MLP, `models/moe.py`).
 """
 from __future__ import annotations
 
@@ -16,14 +18,17 @@ from ..kernels import ops
 from .common import F32, flash_attention, rms_norm, rope, swiglu
 
 
-# the parameters of one attention(+MLP) block
-WEIGHTS = ("norm1", "wq", "wk", "wv", "wo", "norm2", "w_gate", "w_up",
-           "w_down")
+# the parameters of one attention(+MLP) block; ATTN_WEIGHTS without the
+# SwiGLU's, which a `moe` block replaces with its nested "moe" dict
+ATTN_WEIGHTS = ("norm1", "wq", "wk", "wv", "wo", "norm2")
+WEIGHTS = ATTN_WEIGHTS + ("w_gate", "w_up", "w_down")
 
 
-def init_attn_block(cfg, d_ff: int, generator: torch.Generator, device):
+def init_attn_block(cfg, d_ff: int | None, generator: torch.Generator,
+                    device):
     """Params of one attention(+MLP) block, drawn on `device` from
-    `generator` (normal, scaled by fan_in ** -0.5, then cast)."""
+    `generator` (normal, scaled by fan_in ** -0.5, then cast); with
+    `d_ff` None, the attention half only."""
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = getattr(torch, cfg.dtype)
 
@@ -31,17 +36,24 @@ def init_attn_block(cfg, d_ff: int, generator: torch.Generator, device):
         w = torch.randn(shape, generator=generator, dtype=F32, device=device)
         return (w * fan_in ** -0.5).to(dt)
 
-    return {
+    p = {
         "norm1": torch.zeros(d, dtype=dt, device=device),
         "wq": mk(d, H, hd, fan_in=d),
         "wk": mk(d, KV, hd, fan_in=d),
         "wv": mk(d, KV, hd, fan_in=d),
         "wo": mk(H, hd, d, fan_in=H * hd),
         "norm2": torch.zeros(d, dtype=dt, device=device),
-        "w_gate": mk(d, d_ff, fan_in=d),
-        "w_up": mk(d, d_ff, fan_in=d),
-        "w_down": mk(d_ff, d, fan_in=d_ff),
     }
+    if d_ff is not None:
+        p.update(w_gate=mk(d, d_ff, fan_in=d), w_up=mk(d, d_ff, fan_in=d),
+                 w_down=mk(d_ff, d, fan_in=d_ff))
+    return p
+
+
+def _mlp(p, h, mlp_fn):
+    if mlp_fn is not None:
+        return mlp_fn(h)
+    return swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
 
 
 def _qkv(p, x, positions, cfg):
@@ -54,7 +66,8 @@ def _qkv(p, x, positions, cfg):
             rope(k, positions, cfg.rope_theta), v)
 
 
-def attn_block(p, x, cfg, window: int | None = None, positions=None):
+def attn_block(p, x, cfg, window: int | None = None, positions=None,
+               mlp_fn=None):
     """Training/prefill forward.  x: (B, S, d).  Returns (y, (k, v)) with
     k/v (B, S, KV, hd) after RoPE."""
     B, S, d = x.shape
@@ -67,11 +80,11 @@ def attn_block(p, x, cfg, window: int | None = None, positions=None):
                         kv_chunk=c)
     x = x + o.reshape(B, S, -1) @ p["wo"].reshape(-1, d)
     h = rms_norm(x, p["norm2"])
-    return x + swiglu(h, p["w_gate"], p["w_up"], p["w_down"]), (k, v)
+    return x + _mlp(p, h, mlp_fn), (k, v)
 
 
 def attn_decode(p, x, cache_k, cache_v, pos: int, cfg,
-                window: int | None = None):
+                window: int | None = None, mlp_fn=None):
     """Single-token decode.  x: (B, d); caches head-major (B, KV, S_max,
     hd), updated in place at `pos`; attention covers positions
     [0, pos].  Returns the block output (B, d)."""
@@ -90,4 +103,4 @@ def attn_decode(p, x, cache_k, cache_v, pos: int, cfg,
     o = ops.decode_attention_head_major(q, cache_k, cache_v, pos + 1)
     x = x + o.reshape(B, -1) @ p["wo"].reshape(-1, d)
     h = rms_norm(x, p["norm2"])
-    return x + swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+    return x + _mlp(p, h, mlp_fn)

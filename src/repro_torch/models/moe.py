@@ -1,0 +1,138 @@
+"""Mixture-of-Experts MLP with token-choice top-k routing and fixed expert
+capacity (port of `repro/models/moe.py`).
+
+One device means one token group (the reference's G = 1 without a
+mesh).  Dispatch is the reference's argsort-based slotting: assignments
+are sorted by expert (stable), each expert's slots c < C pull the c-th
+of its assignments through `searchsorted` offsets into a dense (E, C, d)
+buffer, and the expert products run over that buffer as batched matmuls.
+Overflow beyond C = int(T * K / E * capacity_factor) (at least 1, at
+most T) is dropped in that sorted order; `dropless=True` sets C = T.
+
+The reference combines with a scatter-add over the expert-major (E * C)
+slots, which on CUDA would be `index_add_`, whose atomics make a bf16
+sum depend on arrival order.  The port gathers instead: each token finds
+its K slots through the inverse of the sort and adds the gated outputs
+from zeros in ascending expert order, in the model's dtype, which is the
+order the reference's scatter-add follows.  Top-k is a stable descending
+sort, so a tie at the K boundary goes to the lower expert id, as
+`jax.lax.top_k` breaks it.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .common import F32
+
+WEIGHTS = ("router", "w_gate", "w_up", "w_down")
+
+
+def init_moe(cfg, generator: torch.Generator, device):
+    """Router (d, E) and expert weights (E, d, ff), (E, d, ff), (E, ff,
+    d), drawn on `device` (normal, scaled by fan_in ** -0.5, then
+    cast)."""
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    dt = getattr(torch, cfg.dtype)
+
+    def mk(*shape, fan_in):
+        w = torch.randn(shape, generator=generator, dtype=F32, device=device)
+        return (w * fan_in ** -0.5).to(dt)
+
+    return {"router": mk(d, E, fan_in=d),
+            "w_gate": mk(E, d, ff, fan_in=d),
+            "w_up": mk(E, d, ff, fan_in=d),
+            "w_down": mk(E, ff, d, fan_in=ff)}
+
+
+def capacity(T: int, cfg, dropless: bool = False) -> int:
+    """Slots per expert for T tokens (`moe.py:89-90` of the reference)."""
+    C = T if dropless else max(int(T * cfg.top_k / cfg.n_experts
+                                   * cfg.capacity_factor), 1)
+    return min(C, T)
+
+
+def route(router, xf, cfg):
+    """xf: (T, d) -> (gates (T, K) float32, renormalised; experts (T, K)
+    int64).  The logits are computed in the model's dtype, then cast."""
+    probs = torch.softmax((xf @ router).to(F32), dim=-1)
+    top = torch.sort(probs, dim=-1, descending=True, stable=True)
+    K = cfg.top_k
+    gates, eidx = top.values[:, :K], top.indices[:, :K]
+    return gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9), eidx
+
+
+def dispatch(eidx, E: int, C: int):
+    """The reference's slotting of (T, K) expert choices.  Returns
+    (order, starts, a_idx, valid): the stable sort of the flat
+    assignments by expert, each expert's first position in it, and for
+    each of the E * C slots (expert-major) the assignment it pulls and
+    whether that assignment belongs to the slot's expert."""
+    n = eidx.numel()
+    dev = eidx.device
+    e_flat = eidx.reshape(n)
+    order = torch.argsort(e_flat, stable=True)
+    e_sorted = e_flat[order]
+    experts = torch.arange(E, device=dev)
+    starts = torch.searchsorted(e_sorted, experts)
+    pos = (starts[:, None] + torch.arange(C, device=dev)).reshape(E * C)
+    pos_c = pos.clamp(0, n - 1)
+    valid = (pos < n) & (e_sorted[pos_c] == experts.repeat_interleave(C))
+    return order, starts, order[pos_c], valid
+
+
+def ranks(eidx, order, starts):
+    """(T, K): each assignment's place among its expert's assignments in
+    the stable sort; it has a slot iff its rank is below C."""
+    return (torch.argsort(order) - starts[eidx.reshape(-1)]).reshape(
+        eidx.shape)
+
+
+def kept(eidx, E: int, C: int) -> torch.Tensor:
+    """(T, K) bool: which assignments found a slot."""
+    order, starts, _, _ = dispatch(eidx, E, C)
+    return ranks(eidx, order, starts) < C
+
+
+def moe_ffn(p, x, cfg, dropless: bool = False):
+    """x: (B, S, d) or (B, d) -> the same shape."""
+    orig_shape = x.shape
+    d = orig_shape[-1]
+    xf = x.reshape(-1, d)
+    T = xf.shape[0]
+    E, K = cfg.n_experts, cfg.top_k
+    C = capacity(T, cfg, dropless)
+    gates, eidx = route(p["router"], xf, cfg)
+
+    # ---- dispatch: slot (e, c) pulls its token; empty slots are zero ----
+    order, starts, a_idx, valid = dispatch(eidx, E, C)
+    tok = torch.where(valid, a_idx // K, 0)
+    eb = (xf[tok] * valid[:, None].to(xf.dtype)).reshape(E, C, d)
+
+    # ---- expert FFN over the dense (E, C, d) buffer ----
+    g = torch.bmm(eb, p["w_gate"])
+    u = torch.bmm(eb, p["w_up"])
+    h = F.silu(g.to(F32)).to(x.dtype) * u
+    yb = torch.bmm(h, p["w_down"]).reshape(E * C, d)
+
+    # ---- combine: each token gathers its K slots, ascending expert ----
+    e_t, by_expert = torch.sort(eidx, dim=-1, stable=True)   # (T, K)
+    rank = torch.gather(ranks(eidx, order, starts), 1, by_expert)
+    hit = rank < C
+    slot = torch.where(hit, e_t * C + rank, 0)
+    w = (torch.gather(gates, 1, by_expert) * hit).to(yb.dtype)
+    contrib = yb[slot] * w[..., None]                       # (T, K, d)
+    y = torch.zeros_like(xf)
+    for k in range(K):
+        y = y + contrib[:, k]
+    return y.reshape(orig_shape)
+
+
+def aux_load_balance_loss(p, x, cfg):
+    """Switch-style auxiliary loss (fraction * probability per expert)."""
+    xf = x.reshape(-1, x.shape[-1])
+    probs = torch.softmax((xf @ p["router"]).to(F32), dim=-1)
+    top1 = probs.argmax(dim=-1)
+    frac = F.one_hot(top1, cfg.n_experts).to(F32).mean(dim=0)
+    imp = probs.mean(dim=0)
+    return cfg.n_experts * torch.sum(frac * imp)

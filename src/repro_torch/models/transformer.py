@@ -1,14 +1,17 @@
 """Model assembly (port of `repro/models/transformer.py`): parameters,
 the train/prefill forward and loss, the decode cache and one decode step,
-for architectures built of `attn` blocks without a window and of
-`mamba2` blocks.
+for architectures built of `attn` and `moe` blocks without a window and
+of `mamba2` blocks.
 
 Parameters are a plain dict: ``embed`` (V, d), ``final_norm`` (d,),
 ``lm_head`` (d, V) unless embeddings are tied, and ``layers``, one dict
 per layer in execution order, holding that block kind's weights (the
 reference stacks each stage's layers along a leading repeat axis instead;
-`convert.params_from_reference` maps one onto the other).  Vocab sizes
-are padded to a multiple of 256.
+`convert.params_from_reference` maps one onto the other).  A `moe` layer
+holds the attention weights and a nested ``moe`` dict (`models/moe.py`)
+in place of the SwiGLU's; its forward routes with the configured
+capacity and its decode step dropless (`moe_ffn(dropless=True)`).
+Vocab sizes are padded to a multiple of 256.
 """
 from __future__ import annotations
 
@@ -18,9 +21,10 @@ from torch.utils.checkpoint import checkpoint
 from .attention import attn_block, attn_decode, init_attn_block
 from .common import F32, chunked_cross_entropy, rms_norm
 from .config import ModelConfig
+from . import moe
 from .mamba2 import init_mamba2, mamba2_mixer, mamba2_step
 
-KINDS = ("attn", "mamba2")      # block kinds the port runs
+KINDS = ("attn", "mamba2", "moe")      # block kinds the port runs
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -57,11 +61,23 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device):
               "final_norm": torch.zeros(d, dtype=dt, device=device)}
     if not cfg.tie_embeddings:
         params["lm_head"] = normal(d, V)
-    params["layers"] = [
-        init_mamba2(cfg, generator, device) if b.kind == "mamba2"
-        else init_attn_block(cfg, cfg.d_ff, generator, device)
-        for b in layer_blocks(cfg)]
+    params["layers"] = [_init_layer(cfg, b, generator, device)
+                        for b in layer_blocks(cfg)]
     return params
+
+
+def _init_layer(cfg, block, generator, device):
+    if block.kind == "mamba2":
+        return init_mamba2(cfg, generator, device)
+    if block.kind == "moe":
+        p = init_attn_block(cfg, None, generator, device)
+        p["moe"] = moe.init_moe(cfg, generator, device)
+        return p
+    return init_attn_block(cfg, cfg.d_ff, generator, device)
+
+
+def _moe_mlp(p, cfg, dropless: bool = False):
+    return lambda h: moe.moe_ffn(p["moe"], h, cfg, dropless=dropless)
 
 
 def _apply_block(kind, p, x, cfg):
@@ -70,7 +86,8 @@ def _apply_block(kind, p, x, cfg):
     if kind == "mamba2":
         y, (ssm, conv) = mamba2_mixer(p, x, cfg)
         return y, {"ssm": ssm, "conv": conv}
-    y, (k, v) = attn_block(p, x, cfg)
+    mlp_fn = _moe_mlp(p, cfg) if kind == "moe" else None
+    y, (k, v) = attn_block(p, x, cfg, mlp_fn=mlp_fn)
     return y, {"k": k, "v": v}
 
 
@@ -152,6 +169,8 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos: int):
             c["ssm"].copy_(ssm)
             c["conv"].copy_(conv)
         else:
-            x = attn_decode(p, x, c["k"], c["v"], pos, cfg)
+            mlp_fn = _moe_mlp(p, cfg, dropless=True) if b.kind == "moe" \
+                else None
+            x = attn_decode(p, x, c["k"], c["v"], pos, cfg, mlp_fn=mlp_fn)
     x = rms_norm(x, params["final_norm"])
     return x @ _head(params, cfg)

@@ -218,3 +218,11 @@ class HotTracker:
 
     def scores(self):
         return current_scores(self.state, self.cfg)
+
+    def host_scores(self):
+        """`scores()` as a numpy array, evaluated on the CPU from the
+        state: host bookkeeping that orders units by score then orders
+        them alike whichever device holds the state (the card's float32
+        pow need not round as the CPU's does)."""
+        state = {k: self.state[k].cpu() for k in ("score", "tick", "now")}
+        return current_scores(state, self.cfg).numpy()

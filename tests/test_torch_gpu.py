@@ -1,9 +1,9 @@
 """The PyTorch port on the card: each hand-written CUDA kernel against its
 plain PyTorch version (which `tests/test_torch_kernels.py`,
 `tests/test_torch_training.py` and `tests/test_torch_ssd.py` hold to the
-JAX reference), and the decode step, tiered KV cache, training step and
-mamba2 mixer, prefill and decode on CUDA against the same code on the
-CPU.  Imports neither jax nor `repro`, so it runs on a GPU machine
+JAX reference), and the decode step, tiered KV cache, training step,
+mamba2 mixer, prefill and decode, the MoE MLP and model, and the tiered
+embedding and expert cache on CUDA against the same code on the CPU.  Imports neither jax nor `repro`, so it runs on a GPU machine
 without them:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -17,8 +17,10 @@ from repro_torch.configs import smoke_config
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import ralt_score
 from repro_torch.kernels import ssd_scan as ssd
-from repro_torch.models import transformer
-from repro_torch.tiering import KVTierConfig, TieredKVCache
+from repro_torch.models import moe, transformer
+from repro_torch.tiering import ExpertCache, KVTierConfig, TieredEmbedding
+from repro_torch.tiering import TieredKVCache
+from repro_torch.tree import tree_map
 from repro_torch.tiering import hotness
 
 pytestmark = pytest.mark.gpu
@@ -217,7 +219,8 @@ def test_tracker_on_card_matches_cpu_twin(cuda):
     (2, 256, 8, 2, 64, 256), (2, 256, 8, 2, 64, 130), (1, 512, 4, 1, 128, 17),
     (4, 128, 4, 4, 128, 128), (1, 1024, 8, 4, 256, 700),
     (4, 168, 32, 8, 128, 1), (4, 168, 32, 8, 128, 129),
-    (2, 4096, 32, 32, 80, 3001), (1, 300, 16, 1, 256, 300)])
+    (2, 4096, 32, 32, 80, 3001), (1, 300, 16, 1, 256, 300),
+    (4, 168, 64, 4, 128, 129)])                  # qwen3-moe: G = 16
 def test_decode_kernel_matches_plain(cuda, B, S, H, KVH, D, valid, dtype):
     rng = np.random.default_rng(0)
     q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
@@ -398,6 +401,7 @@ def flash_inputs(cuda, B, Sq, Skv, H, KVH, D, dtype, seed=0):
     (2, 130, 190, 8, 1, 16, None, 150),           # Sq != Skv, kv_len < Skv
     (1, 100, 100, 16, 2, 32, 7, None),            # G = 8, narrow window
     (1, 70, 45, 4, 4, 256, 8, None),              # rows that see no key
+    (1, 333, 333, 64, 4, 128, None, None),        # qwen3-moe: G = 16
 ])
 def test_flash_kernel_matches_plain(cuda, B, Sq, Skv, H, KVH, D, window,
                                     kv_len, dtype):
@@ -726,3 +730,105 @@ def test_mamba2_prefill_and_decode_on_card_match_cpu(cuda):
                                           toks.to(cuda), pos)
             np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
                                        rtol=1e-4, atol=1e-4)
+
+
+# ----------------------------------------------------------------------
+# MoE and the tiered embedding and expert caches
+# ----------------------------------------------------------------------
+def test_moe_on_card_matches_cpu(cuda):
+    """The qwen3-moe smoke model (float32, TF32 off): the MoE MLP with
+    drops (cf 1.0) and dropless, then a 16-token prefill and 8 decode
+    steps, on both devices."""
+    import dataclasses
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_config("qwen3-moe-235b-a22b")
+    cpu = torch.device("cpu")
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                     cpu)
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((4, 16, cfg.d_model),
+                                             np.float32))
+    drops = dataclasses.replace(cfg, capacity_factor=1.0)
+    for c, dropless in ((drops, False), (cfg, True)):
+        want = moe.moe_ffn(params["layers"][0]["moe"], x, c, dropless)
+        got = moe.moe_ffn(on_card["layers"][0]["moe"], x.to(cuda), c,
+                          dropless)
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=1e-5, atol=1e-5)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (3, 16)))
+    with torch.no_grad():
+        want, cache = transformer.forward(params, cfg, prompt,
+                                          return_cache=True)
+        got, _ = transformer.forward(on_card, cfg, prompt.to(cuda),
+                                     return_cache=True)
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=1e-4, atol=1e-4)
+        caches = (transformer.init_cache(cfg, 3, 16, cpu),
+                  transformer.init_cache(cfg, 3, 16, cuda))
+        for pos in range(8):
+            toks = torch.from_numpy(rng.integers(0, cfg.vocab, 3))
+            want = transformer.decode_step(params, cfg, caches[0], toks, pos)
+            got = transformer.decode_step(on_card, cfg, caches[1],
+                                          toks.to(cuda), pos)
+            np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                       rtol=1e-4, atol=1e-4)
+
+
+def numpy_sampler(now, n, n_units):
+    return np.random.default_rng(now).integers(0, n_units, n)
+
+
+def test_tiered_embedding_on_card_matches_cpu(cuda):
+    """A zipf replay on both devices with the same threshold draws: every
+    lookup the exact gather, the same clocks and slot tables, one fused
+    tracker launch per lookup."""
+    rng = np.random.default_rng(0)
+    table = torch.from_numpy(rng.standard_normal((4096, 64), np.float32)
+                             ).to(torch.bfloat16)
+    embs = [TieredEmbedding(table, 512, 64, hbm_bw=1e12, pcie_bw=1e10,
+                            device=d, sampler=numpy_sampler)
+            for d in ("cpu", cuda)]
+    before = ops.LAUNCHES["ralt_record"]
+    for _ in range(300):
+        ids = np.minimum(rng.zipf(1.3, 64) - 1, 4095)
+        want = table[torch.from_numpy(ids)]
+        for emb in embs:
+            assert torch.equal(emb.lookup(ids).cpu(), want)
+    assert ops.LAUNCHES["ralt_record"] == before + 300
+    for name in ("fast_hits", "slow_hits", "promoted", "demoted",
+                 "retained", "flushes"):
+        assert getattr(embs[1].clock, name) == getattr(embs[0].clock, name)
+    np.testing.assert_array_equal(embs[1].slot_of_row, embs[0].slot_of_row)
+    assert embs[1].free == embs[0].free
+    assert embs[1].clock.promoted > 0
+    assert torch.equal(embs[1].cache.cpu(), embs[0].cache)
+
+
+def test_expert_cache_on_card_matches_cpu(cuda):
+    """A zipf routing replay on both devices: the same clocks, slot
+    tables and resident fraction, every resident blob its host blob, one
+    fused tracker launch per step."""
+    rng = np.random.default_rng(1)
+    blobs = torch.from_numpy(rng.standard_normal((64, 3, 32, 32),
+                                                 np.float32))
+    ecs = [ExpertCache(blobs, 16, 8, hbm_bw=1e12, pcie_bw=1e10, device=d,
+                       sampler=numpy_sampler) for d in ("cpu", cuda)]
+    before = ops.LAUNCHES["ralt_record"]
+    for _ in range(200):
+        counts = np.bincount(np.minimum(rng.zipf(1.4, 128) - 1, 63),
+                             minlength=64)
+        for ec in ecs:
+            ec.route(counts)
+        assert ecs[1].resident_fraction(counts) == \
+            ecs[0].resident_fraction(counts)
+    assert ops.LAUNCHES["ralt_record"] == before + 200
+    for name in ("fast_hits", "slow_hits", "promoted", "demoted",
+                 "retained", "sweeps"):
+        assert getattr(ecs[1].clock, name) == getattr(ecs[0].clock, name)
+    np.testing.assert_array_equal(ecs[1].expert_of_slot,
+                                  ecs[0].expert_of_slot)
+    for s, e in enumerate(ecs[1].expert_of_slot):
+        if e >= 0:
+            assert torch.equal(ecs[1].cache[s].cpu(), blobs[e])
+    assert ecs[1].clock.promoted > 0

@@ -270,11 +270,16 @@ def test_checkpoint_roundtrips_both_ways(tmp_path):
                                       np.asarray(b, np.float32))
 
 
-@pytest.mark.parametrize("kind", ["moe", "shared_attn"])
-def test_unported_block_kinds_raise(kind):
+@pytest.mark.parametrize("block,match", [
+    # moe blocks run since the MoE slice; a windowed one (mixtral) waits
+    # for windowed decode
+    pytest.param(Block("moe", window=16), "window", id="moe"),
+    pytest.param(Block("shared_attn"), "shared_attn", id="shared_attn")])
+def test_unported_block_kinds_raise(block, match):
     cfg = ModelConfig(name="x", d_model=16, n_heads=2, n_kv_heads=2,
                       head_dim=8, d_ff=32, vocab=64,
-                      stages=((1, (Block("mamba2"), Block(kind))),),
-                      ssm_state=8, ssm_heads=2, ssm_head_dim=8)
-    with pytest.raises(NotImplementedError, match=kind):
+                      stages=((1, (Block("mamba2"), block)),),
+                      ssm_state=8, ssm_heads=2, ssm_head_dim=8,
+                      n_experts=4, top_k=2)
+    with pytest.raises(NotImplementedError, match=match):
         transformer.init_params(cfg, torch.Generator(), CPU)

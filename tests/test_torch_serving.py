@@ -29,7 +29,7 @@ from repro.serving.engine import ServeEngine as JServeEngine
 from repro.tiering.hotness import TrackerConfig as JTrackerConfig
 from repro.tiering.kvcache import KVTierConfig as JKVTierConfig
 from repro_torch.configs import PORTED, get_config, smoke_config
-from repro_torch.convert import params_from_reference
+from repro_torch.convert import params_from_reference, params_to_reference
 from repro_torch.data.lm_pipeline import DataConfig
 from repro_torch.launch.steps import TrainOptions
 from repro_torch.models import attention, common, config, transformer
@@ -37,6 +37,7 @@ from repro_torch.optim import AdamWConfig
 from repro_torch.serving.engine import Request, ServeEngine
 from repro_torch.tiering.hotness import HotTracker, TrackerConfig
 from repro_torch.tiering.kvcache import KVTierConfig, TieredKVCache
+from repro_torch.tree import tree_leaves
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 CPU = torch.device("cpu")
@@ -104,13 +105,27 @@ def test_params_from_reference_consumes_every_leaf(arch):
     params = params_from_reference(tree, cfg, CPU)
     assert len(params["layers"]) == cfg.n_layers
     n_ref = sum(x.size for x in jax.tree.leaves(tree))
-    n_port = sum(t.numel() for t in [params["embed"], params["final_norm"]]
-                 + ([params["lm_head"]] if "lm_head" in params else [])
-                 + [w for layer in params["layers"] for w in layer.values()])
+    n_port = sum(t.numel() for t in tree_leaves(params))
     assert n_port == n_ref
     tree["stages"][0]["b0"]["extra"] = np.zeros((2, 3), np.float32)
     with pytest.raises(ValueError, match="unconsumed"):
         params_from_reference(tree, cfg, CPU)
+
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_params_to_reference_round_trip(arch):
+    """`params_to_reference` gives the reference's tree back, leaf for
+    leaf (nested `moe` leaves included), in the reference's layout."""
+    cfg = smoke_config(arch)
+    tree = reference_params(jsmoke_config(arch), 0)
+    back = params_to_reference(params_from_reference(tree, cfg, CPU), cfg)
+    want = jax.tree_util.tree_leaves_with_path(tree)
+    got = jax.tree_util.tree_leaves_with_path(
+        jax.tree.map(lambda t: t.numpy(), back))
+    assert [p for p, _ in got] == [p for p, _ in want]
+    for (path, g), (_, w) in zip(got, want):
+        np.testing.assert_array_equal(g, np.asarray(w, np.float32),
+                                      err_msg=str(path))
 
 
 def test_init_params_shapes_match_reference():
@@ -233,6 +248,16 @@ def test_engine_greedy_matches_reference_stablelm():
     assert len(done[0].out) == 8
 
 
+def test_engine_greedy_matches_reference_qwen3_moe():
+    """The MoE engine over two waves (dropless decode, as the reference
+    decodes)."""
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, 512, 6) for _ in range(3)]
+    _, done = run_both("qwen3-moe-235b-a22b", batch=2, max_len=24, seed=1,
+                       prompts=prompts, max_new=5)
+    assert len(done) == 3 and all(len(r.out) == 5 for r in done)
+
+
 def test_engine_starves_like_reference():
     """A step budget that runs out leaves the same state on both."""
     jcfg, cfg = jsmoke_config("llama3-8b"), smoke_config("llama3-8b")
@@ -292,7 +317,10 @@ for name in ("repro_torch.launch.train", "repro_torch.launch.steps",
              "repro_torch.data", "repro_torch.data.lm_pipeline",
              "repro_torch.kernels.flash_attention",
              "repro_torch.kernels.ssd_scan", "repro_torch.models.mamba2",
-             "repro_torch.configs.mamba2_1_3b"):
+             "repro_torch.configs.mamba2_1_3b", "repro_torch.models.moe",
+             "repro_torch.configs.qwen3_moe_235b_a22b",
+             "repro_torch.tiering.embedding",
+             "repro_torch.tiering.expert_cache"):
     assert name in sys.modules, name
 print(len(names), "modules")
 """

@@ -1,6 +1,7 @@
 """Tiering parity: the port's RALT tracker and tiered KV cache against the
 reference (`repro.tiering`), fed the same accesses and the reference's
-own threshold-sampling draws (torch cannot reproduce `jax.random`)."""
+own threshold-sampling draws (torch cannot reproduce `jax.random`).  The
+tiered embedding and expert cache are in `test_torch_tiered_caches.py`."""
 import jax
 import jax.numpy as jnp
 import numpy as np

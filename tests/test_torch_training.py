@@ -35,6 +35,7 @@ from repro_torch.launch import steps
 from repro_torch.models import common, transformer
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
                                cosine_schedule)
+from repro_torch.tree import named_leaves
 
 CPU = torch.device("cpu")
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),       # tests/test_kernels.py
@@ -256,9 +257,10 @@ def test_loss_and_every_gradient_match_jax(arch):
         assert_close_scaled(grads["lm_head"].numpy(),
                             want["lm_head"].numpy(), 1e-4)
     for got, exp in zip(grads["layers"], want["layers"]):
-        assert got.keys() == exp.keys()
-        for name in got:
-            assert_close_scaled(got[name].numpy(), exp[name].numpy(), 1e-4)
+        got, exp = named_leaves(got), named_leaves(exp)
+        assert [n for n, _ in got] == [n for n, _ in exp]
+        for (name, g), (_, e) in zip(got, exp):
+            assert_close_scaled(g.numpy(), e.numpy(), 1e-4)
 
 
 def test_cross_entropy_matches_reference():
