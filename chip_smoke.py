@@ -4,14 +4,15 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from `src/repro_torch/csrc` and runs
-eleven phases, each printing one JSON line:
+fifteen phases, each printing one JSON line:
 
   device   the card's name and power limit, and the kernels' build time;
-  ptxas    registers and spill bytes of the flash, decode and ssd kernels
-           (every pass of the ssd scan);
+  ptxas    registers and spill bytes of the flash, decode (float and
+           int8-cache) and ssd kernels (every pass of the ssd scan);
   kernels  each kernel against its plain PyTorch version on the card, at
            the shapes the serving and training paths give it and at
-           others, with its time, the plain version's time, one PyTorch
+           others (the decode kernel's int8-cache variant as a kernel of
+           its own), with its time, the plain version's time, one PyTorch
            call's time where one computes the same function, its bound,
            the share of the bound it reaches and its time over the
            PyTorch call's;
@@ -61,11 +62,33 @@ eleven phases, each printing one JSON line:
            twin fed the same stream and threshold draws: clocks, slot
            tables and tracker state bit for bit, every lookup the exact
            gather, every resident blob its host blob, one `ralt_record`
-           per lookup or route.
+           per lookup or route;
+  window   gemma3-4b at full width and depth (34 layers, 5 windowed of
+           1024 to 1 global, random bf16 weights from a seed): the CUDA
+           decode path's smoke logits against the CPU path's past the
+           rings' wrap; a 1,088-token prefill against teacher-forced
+           decode at the first 6 layers in float32 (a windowed layer's
+           position p in ring slot p % 1024); 4 requests of 1,024 + 32
+           tokens through `ServeEngine`, every ring wrapping; one timed
+           4096-token prefill;
+  mixtral  mixtral-8x22b as `moe` runs qwen3 (every block windowed at
+           4096), depth cut to 8 of 56 layers (all 56 would hold 281 GB),
+           its prefill 8192 tokens so that the window masks keys;
+  dense    minitron-8b and musicgen-large at full width and depth: the
+           smoke logits check and 8 requests served each; one timed
+           4096-token musicgen prefill whose first 64 positions are a
+           seeded audio `frontend_emb`;
+  int8     llama3-8b with the int8 KV cache (`kv_quant`): the CUDA int8
+           decode path's smoke logits against the CPU path's, then the
+           `serve` phase's 8 requests on the same weights through the
+           decode kernel's int8 variant, with the cache's bytes against
+           the bf16 cache's and the greedy tokens' agreement with the
+           `serve` run's.
 
 Kernel launches are counted from zero in each of the serve, tiered,
-tracker, prefill and train runs, in each part of the mamba2 and moe runs
-and in each cache's replay.
+tracker, prefill, train and int8 runs, in each part of the mamba2, moe,
+window and mixtral runs, in each dense model's serve run and in each
+cache's replay.
 Then come the kernel summary line, the `nvidia-smi` line and the result
 line.
 Exits nonzero without CUDA, outside a checkout of the repository, and
@@ -113,6 +136,15 @@ MOE_ARCH, MOE_LAYERS, MOE_CHECK_LAYERS = "qwen3-moe-235b-a22b", 8, 2
 # caches run: qwen3's vocab rows and one layer's experts, 1/8 on the card
 EMB_FAST, EMB_STAGING, EMB_LOOKUPS, EMB_IDS = 18_992, 64, 400, 64
 EXPERT_FAST, EXPERT_SWAP, EXPERT_STEPS, EXPERT_DRAWS = 16, 8, 300, 128
+# window run: gemma3-4b at full depth; 4 requests of 1024 + 32 tokens (the
+# 1024-slot rings wrap); its float32 check past the wrap at the first 6
+# layers (5 windowed, 1 global)
+WINDOW_ARCH, WINDOW_PROMPT, WINDOW_CHECK_LEN = "gemma3-4b", 1024, 1088
+# mixtral run: 8 of 56 layers, its float32 check at 2; an 8192-token
+# prefill, so that the 4096-token window masks keys
+MIXTRAL_ARCH, MIXTRAL_LAYERS, MIXTRAL_PREFILL = "mixtral-8x22b", 8, 8192
+# dense run: musicgen's audio stub, the reference's FRONTEND_LEN["audio"]
+DENSE_ARCHS, AUDIO_FRAMES = ("minitron-8b", "musicgen-large"), 64
 
 
 def emit(phase: str, **fields) -> None:
@@ -301,6 +333,37 @@ def decode_case(ops, ref, dev, g, flush, B, H, KVH, D, S, valid,
                 bound_by=b_by, **shares(ms, b_ms, library_ms))
 
 
+def decode_int8_case(ops, ref, quantize_kv, dev, g, flush, B, H, KVH, D, S,
+                     valid) -> dict:
+    """The decode kernel's int8-cache variant against the plain version:
+    bf16 q, the cache quantized from bf16 rows as the model's decode step
+    does (`attention.quantize_kv`).  No single PyTorch call attends over
+    an int8 cache with per-token scales."""
+    bf16 = torch.bfloat16
+    q = torch.randn(B, H, D, generator=g, device=dev).to(bf16)
+    k, ks = quantize_kv(torch.randn(B, KVH, S, D, generator=g,
+                                    device=dev).to(bf16))
+    v, vs = quantize_kv(torch.randn(B, KVH, S, D, generator=g,
+                                    device=dev).to(bf16))
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    scales = dict(k_scale=ks, v_scale=vs)
+    outs = [ops.decode_attention_head_major(q, k, v, valid, **scales)]
+    want = ref.decode_attention_ref(q, kt, vt, valid, ks, vs)
+    agree = decode_agrees(outs, want, TOL[bf16])
+    ms = device_ms(lambda: ops.decode_attention_head_major(q, k, v, valid,
+                                                           **scales), flush)
+    plain_ms = device_ms(lambda: ref.decode_attention_ref(q, kt, vt, valid,
+                                                          ks, vs), flush)
+    # int8 K and V rows and their two float32 scales, q and out in bf16
+    n_bytes = 2 * B * KVH * valid * (D + 4) + 2 * B * H * D * 2
+    b_ms, b_by = bound(n_bytes, 4 * B * H * valid * D + 7 * B * H * valid,
+                       bf16)
+    return dict(shape=dict(B=B, H=H, KVH=KVH, D=D, S=S, valid_len=valid),
+                dtype="bfloat16", cache="int8", **agree, tol=TOL[bf16],
+                kernel_ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=b_ms, bound_by=b_by, **shares(ms, b_ms, None))
+
+
 def visible_pairs(Sq: int, Skv: int, window) -> int:
     """(query, key) pairs that pass the causal and window masks."""
     rows = np.arange(Sq)
@@ -424,6 +487,7 @@ def kernels_phase(dev, flush, power: str) -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ralt_score, ref
     from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models.attention import quantize_kv
     from repro_torch.tiering import hotness
 
     g = torch.Generator(device=dev).manual_seed(0)
@@ -451,7 +515,16 @@ def kernels_phase(dev, flush, power: str) -> dict:
                   (4, 32, 32, 80, 4096, 3001, bf16),
                   (4, 14, 2, 64, 4096, 3001, bf16),
                   # qwen3-moe's serving shape: G = 16, two slices of 8
-                  (BATCH, 64, 4, 128, MAX_LEN, PROMPT + 1, bf16))]
+                  (BATCH, 64, 4, 128, MAX_LEN, PROMPT + 1, bf16),
+                  # gemma3's full 1024-slot ring (G 2, D 256), mixtral's
+                  # serving shape (G 6), musicgen's (MHA, D 64)
+                  (BATCH, 8, 4, 256, 1024, 1024, bf16),
+                  (BATCH, 48, 8, 128, MAX_LEN, PROMPT + 1, bf16),
+                  (BATCH, 32, 32, 64, MAX_LEN, PROMPT + 1, bf16))]
+    # the int8 cache at llama3's serving shape and on a long cache
+    decode8 = [decode_int8_case(ops, ref, quantize_kv, dev, g, flush, *shape)
+               for shape in ((BATCH, 32, 8, 128, MAX_LEN, PROMPT + 1),
+                             (8, 32, 8, 128, 32_768, 30_001))]
     flash = [flash_case(ops, fa, dev, g, flush, *shape)
              for shape in (
                  # the training path's shapes: stablelm-3b (D = 80, MHA)
@@ -463,7 +536,11 @@ def kernels_phase(dev, flush, power: str) -> dict:
                  (1, 4096, 8, 4, 256, 96, bf16),
                  (1, 2048, 14, 2, 64, None, f32),
                  # qwen3-moe's prefill: G = 16, H = 64
-                 (1, PREFILL_LEN, 64, 4, 128, None, bf16))]
+                 (1, PREFILL_LEN, 64, 4, 128, None, bf16),
+                 # gemma3's windowed prefill (D 256, window 1024) and
+                 # mixtral's (G 6, window 4096)
+                 (1, PREFILL_LEN, 8, 4, 256, 1024, bf16),
+                 (1, MIXTRAL_PREFILL, 48, 8, 128, 4096, bf16))]
     ssd_cases = [ssd_case(ops, ssd, dev, g, flush, *shape)
                  for shape in (
                      # mamba2-1.3b's prefill and training shape (4096
@@ -485,44 +562,52 @@ def kernels_phase(dev, flush, power: str) -> dict:
         decode_attention=dict(
             tpu_counterpart="src/repro/kernels/decode_attention.py:106",
             cases=decode),
+        decode_attention_int8=dict(
+            tpu_counterpart="src/repro/kernels/decode_attention.py:106",
+            cases=decode8),
         flash_attention=dict(
             tpu_counterpart="src/repro/kernels/flash_attention.py:111",
             cases=flash),
         ssd_scan=dict(tpu_counterpart="src/repro/kernels/ssd_scan.py:89",
                       cases=ssd_cases),
         peak_bytes_per_s=PEAK_BYTES, power_limit=power)
-    bad = [c for c in ralt + record + decode + flash + ssd_cases
+    bad = [c for c in ralt + record + decode + decode8 + flash + ssd_cases
            if not c["ok"]]
     if bad:
         raise SystemExit(f"kernel disagrees with its plain version: {bad}")
     # the main path's shapes: the tracker's page table (one page a
-    # record), the first generated token's decode step, stablelm-3b's
-    # training attention, mamba2-1.3b's prefill and training scan
+    # record), the first generated token's decode step (bf16 and int8
+    # caches), stablelm-3b's training attention, mamba2-1.3b's prefill
+    # and training scan
     return {"ralt_update": ralt[0], "ralt_record": record[0],
-            "decode_attention": decode[1],
+            "decode_attention": decode[1], "decode_attention_int8": decode8[0],
             "flash_attention": flash[0], "ssd_scan": ssd_cases[0]}
 
 
 # ----------------------------------------------------------------------
 # serve
 # ----------------------------------------------------------------------
-def reference_check(dev, arch: str = "llama3-8b") -> float:
-    """Logits of 12 decode steps of `arch`'s smoke config (float32), CUDA
-    path against the CPU path that the tests hold to the reference."""
+def reference_check(dev, arch: str = "llama3-8b", **over) -> float:
+    """Logits of decode steps of `arch`'s smoke config (float32; `over`
+    replaces fields, e.g. kv_quant), CUDA path against the CPU path that
+    the tests hold to the reference: 12 steps into 16 slots, or 40 into
+    64 past the 16-slot rings of a config with windowed layers."""
     from repro_torch.configs import smoke_config
     from repro_torch.models import transformer
     from repro_torch.tree import tree_map
 
-    cfg = smoke_config(arch)
+    cfg = dataclasses.replace(smoke_config(arch), **over)
+    windowed = any(b.window for b in transformer.layer_blocks(cfg))
+    steps, s_max = (40, 64) if windowed else (12, 16)
     cpu = torch.device("cpu")
     params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
                                      cpu)
     on_dev = tree_map(lambda t: t.to(dev), params)
-    caches = (transformer.init_cache(cfg, 3, 16, cpu),
-              transformer.init_cache(cfg, 3, 16, dev))
+    caches = (transformer.init_cache(cfg, 3, s_max, cpu),
+              transformer.init_cache(cfg, 3, s_max, dev))
     rng = np.random.default_rng(5)
     err = 0.0
-    for pos in range(12):
+    for pos in range(steps):
         toks = torch.from_numpy(rng.integers(0, cfg.vocab, 3))
         want = transformer.decode_step(params, cfg, caches[0], toks, pos)
         got = transformer.decode_step(on_dev, cfg, caches[1], toks.to(dev),
@@ -531,19 +616,22 @@ def reference_check(dev, arch: str = "llama3-8b") -> float:
     return err
 
 
-def serve_run(eng, cfg, dev) -> tuple[dict, dict, dict]:
-    """REQUESTS requests of PROMPT random tokens and NEW new ones through
-    `eng`, launches counted from zero, every step's logits checked for
-    NaN.  -> (results, checks, launches)."""
+def serve_run(eng, cfg, dev, requests: int = REQUESTS, prompt: int = PROMPT,
+              decode_op: str = "decode_attention"
+              ) -> tuple[dict, dict, dict, dict]:
+    """`requests` requests of `prompt` random tokens and NEW new ones
+    through `eng`, launches counted from zero, every step's logits
+    checked for NaN; `decode_op` names the decode kernel the cache's
+    dtype takes.  -> (results, checks, launches, {rid: tokens})."""
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import padded_vocab
     from repro_torch.serving import engine
 
     rng = np.random.default_rng(0)
-    for rid in range(REQUESTS):
+    for rid in range(requests):
         eng.submit(engine.Request(
             rid=rid, prompt=[int(t) for t in rng.integers(0, cfg.vocab,
-                                                          PROMPT)],
+                                                          prompt)],
             max_new=NEW))
     nan_seen = torch.zeros((), dtype=torch.bool, device=dev)
     decode_step = engine.decode_step
@@ -565,30 +653,34 @@ def serve_run(eng, cfg, dev) -> tuple[dict, dict, dict]:
     finally:
         engine.decode_step = decode_step
     tokens = sum(len(r.out) for r in done)
+    other = {"decode_attention": "decode_attention_int8",
+             "decode_attention_int8": "decode_attention"}[decode_op]
     out = dict(model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
-               dtype=cfg.dtype, params=cfg.param_count(), batch=BATCH,
+               dtype=cfg.dtype, params=cfg.param_count(), batch=eng.batch,
+               requests=requests, prompt_tokens=prompt, new_tokens=NEW,
                requests_completed=len(done), tokens=tokens,
                steps_used=eng.steps_used, wall_s=wall,
                tokens_per_s=tokens / wall, ms_per_step=wall * 1e3
                / eng.steps_used,
                max_memory_allocated=torch.cuda.max_memory_allocated(dev),
-               decode_launches=launches["decode_attention"],
+               decode_kernel=decode_op, decode_launches=launches[decode_op],
                ralt_launches=launches["ralt_update"],
                ralt_record_launches=launches["ralt_record"])
     V = padded_vocab(cfg)
     checks = {
-        "every request completed": len(done) == REQUESTS and all(
+        "every request completed": len(done) == requests and all(
             len(r.out) == NEW for r in done) and not eng.starved,
         "tokens < padded vocab": all(0 <= t < V for r in done
                                      for t in r.out),
         "no NaN logits": not bool(nan_seen),
         "decode kernel once per layer and step":
-            launches["decode_attention"] == cfg.n_layers * eng.steps_used,
+            launches[decode_op] == cfg.n_layers * eng.steps_used,
+        "no launch of the other decode variant": launches[other] == 0,
     }
-    return out, checks, launches
+    return out, checks, launches, {r.rid: r.out for r in done}
 
 
-def serve_phase(dev, power: str) -> dict:
+def serve_phase(dev, power: str) -> tuple[dict, dict]:
     from repro_torch.configs import get_config
     from repro_torch.serving import engine
 
@@ -603,11 +695,11 @@ def serve_phase(dev, power: str) -> dict:
                              device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    out, checks, launches = serve_run(eng, cfg, dev)
+    out, checks, launches, tokens = serve_run(eng, cfg, dev)
     emit("serve", **out, init_s=init_s,
          cuda_vs_cpu_logits_max_abs_err=ref_err, power_limit=power)
     fail_on("serve", checks)
-    return launches
+    return launches, tokens
 
 
 # ----------------------------------------------------------------------
@@ -776,7 +868,9 @@ def prefill_vs_decode(cfg, params, prompt, dev) -> dict:
     """The prefill step's last logits and k/v against what teacher-forced
     decode steps leave (`tests/test_arch_smoke.py:62-78`), as err/tol
     (at most 1 inside the allclose tolerance 2e-2) per layer and
-    overall."""
+    overall.  A windowed layer's ring of W slots holds the last W
+    positions, position p in slot p % W; another layer's cache every
+    position."""
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import transformer
 
@@ -787,9 +881,13 @@ def prefill_vs_decode(cfg, params, prompt, dev) -> dict:
             logits = transformer.decode_step(params, cfg, decode_cache,
                                              prompt[:, pos], pos)
     tol = TOL[torch.bfloat16]
-    by_layer = [max(excess(c[name], d[name].transpose(1, 2), tol, tol)
-                    for name in ("k", "v"))
-                for c, d in zip(cache, decode_cache)]
+    T, by_layer = prompt.shape[1], []
+    for c, d in zip(cache, decode_cache):
+        held = torch.arange(T - d["k"].shape[2], T, device=dev)
+        slot = held % d["k"].shape[2]
+        by_layer.append(max(excess(c[name][:, held],
+                                   d[name][:, :, slot].transpose(1, 2), tol,
+                                   tol) for name in ("k", "v")))
     logits_over = excess(last, logits, tol, tol)
     return dict(err_over_tol=max(by_layer + [logits_over]),
                 logits_err_over_tol=logits_over,
@@ -1085,24 +1183,26 @@ def mamba2_phase(dev, power: str) -> dict:
 # ----------------------------------------------------------------------
 # moe
 # ----------------------------------------------------------------------
-def moe_phase(dev, power: str) -> dict:
-    """qwen3-moe-235b-a22b at full width, cut to MOE_LAYERS layers: (a)
+def moe_phase(dev, power: str, arch: str = MOE_ARCH, layers: int = MOE_LAYERS,
+              prefill_len: int = PREFILL_LEN, phase: str = "moe") -> dict:
+    """A MoE model (qwen3-moe-235b-a22b; mixtral-8x22b, its blocks
+    windowed) at full width, cut to `layers` layers of its block: (a)
     prefill against teacher-forced decode at MOE_CHECK_LAYERS layers in
     float32 with cf = E/K, so that prefill drops nothing (the smoke
     configs' rule); (b) `ServeEngine` over REQUESTS requests (dropless
-    decode); (c) one timed PREFILL_LEN-token prefill at the published
+    decode); (c) one timed `prefill_len`-token prefill at the published
     cf, after an untimed one that counts the dropped assignments."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import moe
-    from repro_torch.models.config import Block
     from repro_torch.serving import engine
     from repro_torch.tree import tree_leaves, tree_map
 
-    ref_err = reference_check(dev, MOE_ARCH)
-    full = get_config(MOE_ARCH)
-    cfg = dataclasses.replace(full, stages=((MOE_LAYERS, (Block("moe"),)),))
+    ref_err = reference_check(dev, arch)
+    full = get_config(arch)
+    block = full.stages[0][1][0]
+    cfg = dataclasses.replace(full, stages=((layers, (block,)),))
     E, K, d, ff = cfg.n_experts, cfg.top_k, cfg.d_model, cfg.d_ff
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -1117,7 +1217,7 @@ def moe_phase(dev, power: str) -> dict:
                            for w in tree_leaves(layer)])
     # (a) the seeded bf16 weights of the first layers computed in float32
     cfg32 = dataclasses.replace(
-        cfg, stages=((MOE_CHECK_LAYERS, (Block("moe"),)),), dtype="float32",
+        cfg, stages=((MOE_CHECK_LAYERS, (block,)),), dtype="float32",
         capacity_factor=E / K)
     params32 = {k: tree_map(lambda t: t.float(), v)
                 for k, v in params.items() if k != "layers"}
@@ -1134,8 +1234,8 @@ def moe_phase(dev, power: str) -> dict:
     torch.cuda.empty_cache()
     # (b) serve
     torch.cuda.reset_peak_memory_stats(dev)
-    serve, serve_checks, launches = serve_run(eng, cfg, dev)
-    expert_bytes = MOE_LAYERS * E * 3 * d * ff * 2
+    serve, serve_checks, launches, _ = serve_run(eng, cfg, dev)
+    expert_bytes = layers * E * 3 * d * ff * 2
     serve.update(step_bytes=weight_bytes,
                  step_bound_ms=weight_bytes / PEAK_BYTES * 1e3,
                  expert_bytes=expert_bytes,
@@ -1143,7 +1243,7 @@ def moe_phase(dev, power: str) -> dict:
     # (c) prefill at the published capacity factor
     prefill = make_prefill_step(cfg)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab,
-                                           (1, PREFILL_LEN))).to(dev)
+                                           (1, prefill_len))).to(dev)
     kept, assigned, capacities = [], [], set()
     real = moe.moe_ffn
 
@@ -1174,8 +1274,9 @@ def moe_phase(dev, power: str) -> dict:
     prefill_mem = torch.cuda.max_memory_allocated(dev)
     res = dict(
         model=cfg.name, layers=cfg.n_layers, full_layers=full.n_layers,
-        reduced=[f"layers: {MOE_LAYERS} of {full.n_layers}"],
+        reduced=[f"layers: {layers} of {full.n_layers}"],
         d_model=d, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+        window=block.window,
         experts=E, top_k=K, expert_d_ff=ff, vocab=cfg.vocab,
         dtype=cfg.dtype, params=cfg.param_count(),
         full_params=full.param_count(), init_s=init_s,
@@ -1187,19 +1288,19 @@ def moe_phase(dev, power: str) -> dict:
             flash_launches=check_launches["flash_attention"],
             decode_launches=check_launches["decode_attention"], **check),
         serve=serve,
-        prefill=dict(tokens=PREFILL_LEN,
+        prefill=dict(tokens=prefill_len,
                      capacity_factor=cfg.capacity_factor,
                      capacity=sorted(capacities),
                      dropped_share=dropped,
                      dropped_share_by_layer=dropped_by_layer,
                      prefill_s=prefill_s,
-                     tokens_per_s=PREFILL_LEN / prefill_s,
+                     tokens_per_s=prefill_len / prefill_s,
                      max_memory_allocated=prefill_mem,
                      flash_launches=prefill_launches["flash_attention"],
                      finite=bool(torch.isfinite(last).all())),
         power_limit=power)
-    emit("moe", **res)
-    fail_on("moe", {
+    emit(phase, **res)
+    fail_on(phase, {
         "CUDA decode logits match the CPU path's (smoke, 1e-4)":
             ref_err <= 1e-4,
         "prefill matches teacher-forced decode (float32)":
@@ -1210,7 +1311,7 @@ def moe_phase(dev, power: str) -> dict:
             == MOE_CHECK_LAYERS * PREFILL_CHECK,
         **serve_checks,
         "prefill: flash kernel once per layer":
-            prefill_launches["flash_attention"] == MOE_LAYERS,
+            prefill_launches["flash_attention"] == layers,
         "prefill: finite logits": res["prefill"]["finite"],
         "prefill under 80 GB": prefill_mem < 80e9,
     })
@@ -1368,6 +1469,206 @@ def caches_phase(dev, power: str) -> dict:
 
 
 # ----------------------------------------------------------------------
+# window
+# ----------------------------------------------------------------------
+def timed_prefill(cfg, params, dev, tokens, frontend_emb=None) -> dict:
+    """One timed prefill of `tokens` after an untimed warm-up of the same
+    shape, launches counted from zero: seconds, tokens/s, peak memory,
+    flash launches, finite logits."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_prefill_step
+
+    prefill = make_prefill_step(cfg)
+    batch = {"tokens": tokens}
+    if frontend_emb is not None:
+        batch["frontend_emb"] = frontend_emb
+    prefill(params, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    last, _ = prefill(params, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dict(tokens=tokens.shape[1], prefill_s=wall,
+                tokens_per_s=tokens.shape[1] / wall,
+                max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+                flash_launches=ops.LAUNCHES["flash_attention"],
+                finite=bool(torch.isfinite(last).all()))
+
+
+def window_phase(dev, power: str) -> dict:
+    """gemma3-4b at full width and depth (34 layers, 5 windowed of 1024
+    to 1 global): (a) a WINDOW_CHECK_LEN-token prefill against
+    teacher-forced decode past the rings' wrap, at its first stage's 6
+    layers in float32; (b) `ServeEngine` over BATCH requests of
+    WINDOW_PROMPT + NEW tokens, so that every windowed ring wraps; (c)
+    one timed PREFILL_LEN-token prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.serving import engine
+    from repro_torch.tree import tree_map
+
+    ref_err = reference_check(dev, WINDOW_ARCH)
+    cfg = get_config(WINDOW_ARCH)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    eng = engine.ServeEngine(cfg, batch=BATCH,
+                             max_len=WINDOW_PROMPT + NEW + 8, seed=0,
+                             device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = eng.params
+    rings = sorted({c["k"].shape[2] for c in eng.cache})
+    # (a) the seeded bf16 weights of the first stage computed in float32
+    first = cfg.stages[0][1]
+    cfg32 = dataclasses.replace(cfg, stages=((1, first),), dtype="float32")
+    params32 = {k: tree_map(lambda t: t.float(), v)
+                for k, v in params.items() if k != "layers"}
+    params32["layers"] = [tree_map(lambda t: t.float(), layer)
+                          for layer in params["layers"][:len(first)]]
+    rng = np.random.default_rng(3)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                           (1, WINDOW_CHECK_LEN))).to(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    check = prefill_vs_decode(cfg32, params32, prompt, dev)
+    check_launches = dict(ops.LAUNCHES)
+    check_mem = torch.cuda.max_memory_allocated(dev)
+    del params32
+    torch.cuda.empty_cache()
+    # (b) serve past the wrap
+    torch.cuda.reset_peak_memory_stats(dev)
+    serve, serve_checks, launches, _ = serve_run(eng, cfg, dev,
+                                                 requests=BATCH,
+                                                 prompt=WINDOW_PROMPT)
+    # (c) prefill
+    prefill = timed_prefill(cfg, params, dev, torch.from_numpy(
+        rng.integers(0, cfg.vocab, (1, PREFILL_LEN))).to(dev))
+    res = dict(
+        model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+        heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+        windowed_layers=sum(bool(b.window)
+                            for b in transformer.layer_blocks(cfg)),
+        window=first[0].window, ring_slots=rings,
+        dtype=cfg.dtype, params=cfg.param_count(), init_s=init_s,
+        cuda_vs_cpu_smoke_logits_max_abs_err=ref_err,
+        prefill_vs_decode_f32=dict(
+            layers=len(first), tokens=WINDOW_CHECK_LEN,
+            tol=TOL[torch.bfloat16], max_memory_allocated=check_mem,
+            flash_launches=check_launches["flash_attention"],
+            decode_launches=check_launches["decode_attention"], **check),
+        serve=serve, prefill=prefill, power_limit=power)
+    emit("window", **res)
+    fail_on("window", {
+        "CUDA decode logits match the CPU path's past the wrap (smoke, "
+        "1e-4)": ref_err <= 1e-4,
+        "prefill matches teacher-forced decode past the wrap (float32)":
+            check["err_over_tol"] <= 1.0 and check["finite"],
+        "check: flash once per layer, decode once per layer and step":
+            check_launches["flash_attention"] == len(first)
+            and check_launches["decode_attention"]
+            == len(first) * WINDOW_CHECK_LEN,
+        "rings of the window beside the global layers' caches":
+            rings == [first[0].window, WINDOW_PROMPT + NEW + 8],
+        **serve_checks,
+        "prefill: flash kernel once per layer":
+            prefill["flash_launches"] == cfg.n_layers,
+        "prefill: finite logits": prefill["finite"],
+        "under 80 GB": max(check_mem, serve["max_memory_allocated"],
+                           prefill["max_memory_allocated"]) < 80e9,
+    })
+    return launches
+
+
+# ----------------------------------------------------------------------
+# dense
+# ----------------------------------------------------------------------
+def dense_phase(dev, power: str) -> None:
+    """minitron-8b and musicgen-large at full width and depth: each the
+    CUDA decode path's smoke logits against the CPU path's and REQUESTS
+    requests through `ServeEngine`; musicgen one timed PREFILL_LEN-token
+    prefill whose first AUDIO_FRAMES positions are a seeded audio
+    `frontend_emb`."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import engine
+
+    runs, checks = {}, {}
+    for arch in DENSE_ARCHS:
+        ref_err = reference_check(dev, arch)
+        cfg = get_config(arch)
+        torch.cuda.reset_peak_memory_stats(dev)
+        eng = engine.ServeEngine(cfg, batch=BATCH, max_len=MAX_LEN, seed=0,
+                                 device=dev)
+        serve, serve_checks, _, _ = serve_run(eng, cfg, dev)
+        run = dict(params=cfg.param_count(), heads=cfg.n_heads,
+                   kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+                   cuda_vs_cpu_smoke_logits_max_abs_err=ref_err, serve=serve)
+        checks.update({f"{arch}: {k}": ok for k, ok in serve_checks.items()})
+        checks[f"{arch}: CUDA decode logits match the CPU path's (smoke, "
+               "1e-4)"] = ref_err <= 1e-4
+        checks[f"{arch}: under 80 GB"] = serve["max_memory_allocated"] < 80e9
+        if cfg.frontend == "audio":
+            g = torch.Generator(device=dev).manual_seed(4)
+            frames = torch.randn(1, AUDIO_FRAMES, cfg.d_model, generator=g,
+                                 device=dev).to(getattr(torch, cfg.dtype))
+            tokens = torch.from_numpy(np.random.default_rng(4).integers(
+                0, cfg.vocab, (1, PREFILL_LEN))).to(dev)
+            run["prefill"] = prefill = timed_prefill(cfg, eng.params, dev,
+                                                     tokens, frames)
+            run["prefill"]["frontend_frames"] = AUDIO_FRAMES
+            checks[f"{arch}: prefill: flash kernel once per layer"] = \
+                prefill["flash_launches"] == cfg.n_layers
+            checks[f"{arch}: prefill: finite logits"] = prefill["finite"]
+        runs[arch] = run
+        del eng
+        torch.cuda.empty_cache()
+    emit("dense", **runs, power_limit=power)
+    fail_on("dense", checks)
+
+
+# ----------------------------------------------------------------------
+# int8
+# ----------------------------------------------------------------------
+def int8_phase(dev, power: str, bf16_tokens: dict) -> dict:
+    """llama3-8b at full width with the int8 KV cache (`kv_quant`): the
+    CUDA int8 decode path's smoke logits against the CPU path's, then the
+    `serve` phase's REQUESTS requests on the same seeded weights, whose
+    greedy tokens are compared with the bf16 cache's (`bf16_tokens`;
+    reported, not gated: the weights are random)."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import engine
+
+    ref_err = reference_check(dev, "llama3-8b", kv_quant=True)
+    cfg = dataclasses.replace(get_config("llama3-8b"), kv_quant=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = engine.ServeEngine(cfg, batch=BATCH, max_len=MAX_LEN, seed=0,
+                             device=dev)
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for c in eng.cache for t in c.values())
+    bf16_bytes = 2 * cfg.n_layers * BATCH * cfg.n_kv_heads * MAX_LEN \
+        * cfg.head_dim * 2
+    serve, checks, launches, tokens = serve_run(
+        eng, cfg, dev, decode_op="decode_attention_int8")
+    pairs = [(a, b) for rid, out in tokens.items()
+             for a, b in zip(out, bf16_tokens[rid])]
+    agree = sum(a == b for a, b in pairs) / len(pairs)
+    emit("int8", **serve, cache_bytes=cache_bytes, bf16_cache_bytes=bf16_bytes,
+         cache_share_of_bf16=cache_bytes / bf16_bytes,
+         greedy_agreement_with_bf16=agree,
+         cuda_vs_cpu_smoke_logits_max_abs_err=ref_err, power_limit=power)
+    fail_on("int8", {
+        **checks,
+        "CUDA int8 decode logits match the CPU path's (smoke, 1e-4)":
+            ref_err <= 1e-4,
+        "int8 cache under 0.65 x the bf16 cache's bytes":
+            cache_bytes < 0.65 * bf16_bytes,
+    })
+    return launches
+
+
+# ----------------------------------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1397,10 +1698,10 @@ def main() -> int:
     del flush
     # each phase's model is freed when its function returns; each
     # kernel's launches are those of the phase that is its main path
-    launches = {"decode_attention": serve_phase(dev, power)[
-        "decode_attention"], "ralt_record": tiered_phase(dev, power)[
-        "ralt_record"], "ralt_update": tracker_phase(dev, power)[
-        "ralt_update"]}
+    serve_launches, bf16_tokens = serve_phase(dev, power)
+    launches = {"decode_attention": serve_launches["decode_attention"],
+                "ralt_record": tiered_phase(dev, power)["ralt_record"],
+                "ralt_update": tracker_phase(dev, power)["ralt_update"]}
     torch.cuda.empty_cache()
     prefill_phase(dev, power)
     torch.cuda.empty_cache()
@@ -1411,6 +1712,16 @@ def main() -> int:
     moe_phase(dev, power)
     torch.cuda.empty_cache()
     caches_phase(dev, power)
+    torch.cuda.empty_cache()
+    window_phase(dev, power)
+    torch.cuda.empty_cache()
+    moe_phase(dev, power, MIXTRAL_ARCH, MIXTRAL_LAYERS, MIXTRAL_PREFILL,
+              "mixtral")
+    torch.cuda.empty_cache()
+    dense_phase(dev, power)
+    torch.cuda.empty_cache()
+    launches["decode_attention_int8"] = int8_phase(dev, power, bf16_tokens)[
+        "decode_attention_int8"]
     sources = {
         "ralt_update": ("src/repro_torch/csrc/ralt_score.cu",
                         "src/repro/kernels/ralt_score.py:78"),
@@ -1418,6 +1729,8 @@ def main() -> int:
                         "src/repro/kernels/ralt_score.py:78"),
         "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                              "src/repro/kernels/decode_attention.py:106"),
+        "decode_attention_int8": ("src/repro_torch/csrc/decode_attention.cu",
+                                  "src/repro/kernels/decode_attention.py:106"),
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:111"),
         "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",

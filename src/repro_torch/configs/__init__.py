@@ -1,10 +1,10 @@
 """Architecture registry of the port.
 
 One module per architecture, each exporting ``CONFIG: ModelConfig`` and
-``smoke()`` exactly as the reference's `repro.configs.<id>`.  Ported so
-far: the pure-attention architectures without a window or int8 KV, the
-attention-free Mamba2 and the MoE qwen3-moe (full attention); the rest
-of the reference's ids raise ``KeyError`` with "not ported yet".
+``smoke()`` exactly as the reference's `repro.configs.<id>`.  Ported:
+every architecture but zamba2-7b (its `shared_attn` block), windowed
+ones (gemma3-4b, mixtral-8x22b) and the int8 KV cache (``kv_quant``)
+included; zamba2-7b raises ``KeyError`` with "not ported yet".
 """
 from __future__ import annotations
 
@@ -25,7 +25,8 @@ ARCH_IDS = (
     "mixtral-8x22b",
 )
 PORTED = ("llama3-8b", "internvl2-1b", "stablelm-3b", "mamba2-1.3b",
-          "qwen3-moe-235b-a22b")
+          "qwen3-moe-235b-a22b", "minitron-8b", "musicgen-large",
+          "gemma3-4b", "mixtral-8x22b")
 
 
 def _module(arch_id: str):

@@ -30,7 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNELS = ("ralt_score", "decode_attention", "flash_attention", "ssd_scan")
 
 LAUNCHES = {"ralt_update": 0, "ralt_record": 0, "decode_attention": 0,
-            "flash_attention": 0, "ssd_scan": 0}
+            "decode_attention_int8": 0, "flash_attention": 0, "ssd_scan": 0}
 
 
 def reset_launches() -> None:

@@ -17,7 +17,12 @@ Two entry points share the kernel:
                                     signature;
   * `decode_attention_head_major`   caches (B, KVH, S, D) — the layout of
                                     the model's decode cache.
-The kernel takes the caches' strides, so neither layout is copied.
+The kernel takes the caches' strides, so neither layout is copied.  The
+head-major entry point also takes the model's int8 cache (`kv_quant`)
+with its float32 `k_scale` and `v_scale` of shape (B, KVH, S), read in
+place by the kernel's int8 variant (counted as `decode_attention_int8`),
+where the reference upcasts the whole cache in einsum
+(`repro/models/attention.py:146-166`).
 A CPU tensor runs the plain version `ref.decode_attention_ref`.
 """
 from __future__ import annotations
@@ -31,11 +36,13 @@ from . import _build
 from .ref import decode_attention_ref
 
 F32 = torch.float32
-_DTYPES = {F32: 0, torch.bfloat16: 1}
+_DTYPES = {F32: 0, torch.bfloat16: 1}      # q, out and a float cache
+_INT8 = 2               # csrc cache_dtype of an int8 cache
 _NW = 4                 # warps per block (csrc NT / 32)
 _MAX_G = 16             # query heads per KV head (csrc MAXG)
 _MAX_D = 256            # head_dim (csrc MAXD)
 _DPL = 8                # dims a lane holds (csrc DPL)
+_DPL_INT8 = 16          # ... of an int8 cache at hg <= 4 (csrc DPL_INT8)
 _SMEM_LIMIT = 48 * 1024  # static limit without an opt-in attribute
 _MAX_SPLITS = 256       # csrc MAX_SPLITS
 # (device, stream) -> int32 arrival counters of the fused merge.  The
@@ -50,10 +57,10 @@ def _lib():
     lib = _build.load("decode_attention")
     if lib.decode_attention.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.decode_attention.argtypes = [P] * 7 + [I] * 11 + [L] * 6 + [
+        lib.decode_attention.argtypes = [P] * 9 + [I] * 13 + [L] * 6 + [
             ctypes.c_float, P]
         lib.decode_attention.restype = ctypes.c_int
-        lib.decode_blocks_per_sm.argtypes = [I, I]
+        lib.decode_blocks_per_sm.argtypes = [I, I, I]
         lib.decode_blocks_per_sm.restype = I
     return lib
 
@@ -64,26 +71,36 @@ def head_slice(G: int) -> int:
     return next(hg for hg in (1, 2, 4, 8) if hg >= min(G, 8))
 
 
-def lanes(D: int) -> int:
-    """Lanes that share a K/V row, 8 dims each: D / 8 rounded up to a
-    power of two."""
+def dims_per_lane(cache_dtype, hg: int) -> int:
+    """Dims of a K/V row a lane holds (csrc `dims_per_lane`): 8 (one
+    16-byte load in bf16, two in float32), or 16 int8 (one 16-byte load)
+    while the hg heads' q and accumulators leave the registers."""
+    return _DPL_INT8 if cache_dtype == torch.int8 and hg <= 4 else _DPL
+
+
+def lanes(D: int, dpl: int = _DPL) -> int:
+    """Lanes that share a K/V row, `dpl` dims each: D / dpl rounded up to
+    a power of two."""
     n = 1
-    while n * _DPL < D:
+    while n * dpl < D:
         n *= 2
     return n
 
 
-def tile(G: int, D: int, dtype) -> int:
+def tile(G: int, D: int, dtype, cache_dtype=None) -> int:
     """Tokens a block reads per step of its loop: warps of a head slice
     x tokens per warp load x tokens a lane loads at once (csrc
-    `tokens_per_load`)."""
+    `tokens_per_load`).  `cache_dtype` defaults to `dtype`."""
+    cache_dtype = dtype if cache_dtype is None else cache_dtype
     hg = head_slice(G)
     wps = _NW // -(-G // hg)
-    if dtype == torch.bfloat16:
+    if cache_dtype == torch.int8:
+        per_load = 2 if hg == 4 else 4
+    elif cache_dtype == torch.bfloat16:
         per_load = 2 if hg >= 8 else 4
     else:
         per_load = 1 if hg >= 4 else 2
-    return wps * (32 // lanes(D)) * per_load
+    return wps * (32 // lanes(D, dims_per_lane(cache_dtype, hg))) * per_load
 
 
 def smem_bytes(G: int) -> int:
@@ -104,11 +121,16 @@ def plan_splits(B: int, KVH: int, valid_len: int, tile: int,
     return split_len, -(-valid_len // split_len)
 
 
+def _cache_code(cache_dtype) -> int:
+    return _INT8 if cache_dtype == torch.int8 else _DTYPES[cache_dtype]
+
+
 @functools.cache
-def _slots(index: int, dtype, hg: int) -> int:
+def _slots(index: int, dtype, cache_dtype, hg: int) -> int:
     """Blocks the card holds at once: SMs x resident blocks of the
-    (dtype, hg) kernel."""
-    n = _lib().decode_blocks_per_sm(_DTYPES[dtype], hg)
+    (dtype, cache dtype, hg) kernel."""
+    n = _lib().decode_blocks_per_sm(_DTYPES[dtype], _cache_code(cache_dtype),
+                                    hg)
     if n < 1:
         raise RuntimeError(f"decode_attention: occupancy query failed ({n})")
     return n * torch.cuda.get_device_properties(index).multi_processor_count
@@ -124,7 +146,7 @@ def _counters(dev, stream: int, n: int) -> torch.Tensor:
     return have
 
 
-def _cuda(q, k, v, valid_len, KVH, strides):
+def _cuda(q, k, v, valid_len, KVH, strides, k_scale, v_scale):
     """`strides`: element strides of the caches' (batch, kv head, token)
     axes; the head_dim axis is contiguous."""
     B, H, D = q.shape
@@ -132,28 +154,34 @@ def _cuda(q, k, v, valid_len, KVH, strides):
     G = H // KVH
     lib = _lib()
     hg = head_slice(G)
+    dpl = dims_per_lane(k.dtype, hg)
     split_len, n_splits = plan_splits(
-        B, KVH, valid_len, tile(G, D, q.dtype),
-        _slots(dev.index or 0, q.dtype, hg))
-    vec = int(D % _DPL == 0 and all(s % _DPL == 0 for s in strides)
+        B, KVH, valid_len, tile(G, D, q.dtype, k.dtype),
+        _slots(dev.index or 0, q.dtype, k.dtype, hg))
+    vec = int(D % dpl == 0 and all(s % dpl == 0 for s in strides)
               and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
     stream = torch.cuda.current_stream(dev).cuda_stream
     out = torch.empty_like(q)
     n_part = B * KVH * n_splits if n_splits > 1 else 0
     o_part = torch.empty(n_part * G * D, dtype=F32, device=dev)
     ml_part = torch.empty(n_part * G * 2, dtype=F32, device=dev)
+    quant = k_scale is not None
     rc = lib.decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         o_part.data_ptr(), ml_part.data_ptr(),
-        _counters(dev, stream, B * KVH).data_ptr(), _DTYPES[q.dtype],
-        B, H, KVH, D, hg, lanes(D), valid_len, split_len,
-        n_splits, vec, *strides, *strides, D ** -0.5, stream)
-    _build.check(lib, rc, "decode_attention")
-    _build.LAUNCHES["decode_attention"] += 1
+        _counters(dev, stream, B * KVH).data_ptr(),
+        k_scale.data_ptr() if quant else None,
+        v_scale.data_ptr() if quant else None, _DTYPES[q.dtype],
+        _cache_code(k.dtype), B, H, KVH, D, hg, lanes(D, dpl), valid_len,
+        split_len, n_splits, vec, k_scale.shape[2] if quant else 0,
+        *strides, *strides, D ** -0.5, stream)
+    name = "decode_attention_int8" if quant else "decode_attention"
+    _build.check(lib, rc, name)
+    _build.LAUNCHES[name] += 1
     return out
 
 
-def _check(q, k, v, valid_len, kvh_dim):
+def _check(q, k, v, valid_len, kvh_dim, k_scale, v_scale):
     if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"decode_attention: bad shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
@@ -166,12 +194,26 @@ def _check(q, k, v, valid_len, kvh_dim):
     if not 1 <= valid_len <= S:
         raise ValueError(f"decode_attention: valid_len {valid_len} not in "
                          f"[1, {S}]")
+    quant = k.dtype == torch.int8 or v.dtype == torch.int8
+    scales = [t for t in (k_scale, v_scale) if t is not None]
+    if len(scales) != (2 if quant else 0):
+        raise ValueError("decode_attention: an int8 cache takes both "
+                         "k_scale and v_scale, and scales only an int8 cache")
+    for name, t in zip(("k_scale", "v_scale"), scales):
+        if t.shape != (B, KVH, S) or t.dtype != F32:
+            raise ValueError(f"decode_attention: {name} must be float32 of "
+                             f"shape {(B, KVH, S)}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
     if q.device.type == "cpu":
         return S
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device or t.dtype != q.dtype:
+    cache_dtype = torch.int8 if quant else q.dtype
+    for name, t, want in (("q", q, q.dtype), ("k", k, cache_dtype),
+                          ("v", v, cache_dtype),
+                          *((n, t, F32) for n, t in zip(
+                              ("k_scale", "v_scale"), scales))):
+        if t.device != q.device or t.dtype != want:
             raise ValueError(f"decode_attention: {name} is {t.dtype} on "
                              f"{t.device}, q is {q.dtype} on {q.device}")
         if not t.is_contiguous():
@@ -188,22 +230,25 @@ def decode_attention(q, k_cache, v_cache, valid_len):
     """q: (B, H, D); caches: (B, S, KVH, D); valid_len: scalar int in
     [1, S].  -> (B, H, D) in q's dtype."""
     valid_len = int(valid_len)
-    S = _check(q, k_cache, v_cache, valid_len, kvh_dim=2)
+    S = _check(q, k_cache, v_cache, valid_len, 2, None, None)
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, valid_len)
     _, _, KVH, D = k_cache.shape
     return _cuda(q, k_cache, v_cache, valid_len, KVH,
-                 (S * KVH * D, D, KVH * D))
+                 (S * KVH * D, D, KVH * D), None, None)
 
 
-def decode_attention_head_major(q, k_cache, v_cache, valid_len):
-    """q: (B, H, D); caches: (B, KVH, S, D) (the model's decode cache);
+def decode_attention_head_major(q, k_cache, v_cache, valid_len,
+                                k_scale=None, v_scale=None):
+    """q: (B, H, D); caches: (B, KVH, S, D) (the model's decode cache), in
+    q's dtype or int8 with float32 `k_scale` / `v_scale` (B, KVH, S);
     valid_len: scalar int in [1, S].  -> (B, H, D) in q's dtype."""
     valid_len = int(valid_len)
-    S = _check(q, k_cache, v_cache, valid_len, kvh_dim=1)
+    S = _check(q, k_cache, v_cache, valid_len, 1, k_scale, v_scale)
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache.transpose(1, 2),
-                                    v_cache.transpose(1, 2), valid_len)
+                                    v_cache.transpose(1, 2), valid_len,
+                                    k_scale, v_scale)
     _, KVH, _, D = k_cache.shape
     return _cuda(q, k_cache, v_cache, valid_len, KVH,
-                 (KVH * S * D, S * D, D))
+                 (KVH * S * D, S * D, D), k_scale, v_scale)

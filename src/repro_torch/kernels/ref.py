@@ -35,16 +35,26 @@ def flash_attention_ref(q, k, v, *, causal=True, window=None):
     return o.reshape(B, Sq, H, D).to(q.dtype)
 
 
-def decode_attention_ref(q, k_cache, v_cache, valid_len):
+def decode_attention_ref(q, k_cache, v_cache, valid_len, k_scale=None,
+                         v_scale=None):
     """q: (B, H, D); caches: (B, S, KVH, D); valid_len: scalar int.
-    -> (B, H, D).  GQA: query head h reads KV head h // (H // KVH)."""
+    -> (B, H, D).  GQA: query head h reads KV head h // (H // KVH).
+    An int8 cache comes with float32 per-(token, head) `k_scale` and
+    `v_scale` (B, KVH, S), folded in as the reference's einsum does
+    (`repro/models/attention.py:146-166`): the scores times k_scale after
+    the dot, the probabilities times v_scale before the V product, all in
+    float32 from the int8 payload."""
     B, H, D = q.shape
     _, S, KVH, _ = k_cache.shape
     qg = q.reshape(B, KVH, H // KVH, D).to(F32)
     s = torch.einsum("bhgd,bshd->bhgs", qg, k_cache.to(F32)) * (D ** -0.5)
+    if k_scale is not None:
+        s = s * k_scale[:, :, None, :]
     mask = torch.arange(S, device=q.device) < valid_len
     s = torch.where(mask, s, NEG_INF)
     w = torch.softmax(s, dim=-1)
+    if v_scale is not None:
+        w = w * v_scale[:, :, None, :]
     o = torch.einsum("bhgs,bshd->bhgd", w, v_cache.to(F32))
     return o.reshape(B, H, D).to(q.dtype)
 

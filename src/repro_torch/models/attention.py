@@ -6,9 +6,12 @@ is the hand-written flash kernel.  The decode cache is head-major
 (B, KV, S_max, hd), the layout of the reference's `init_cache`; the
 decode core is the hand-written decode kernel
 (`kernels.ops.decode_attention_head_major`), which reads that layout in
-place.  Sliding-window and int8 decode are later slices and raise here.
-Both take an `mlp_fn` in place of the block's SwiGLU (the `moe` block's
-expert MLP, `models/moe.py`).
+place, and an int8 cache (`cfg.kv_quant`) with its per-(token, head)
+float32 scales.  A windowed layer's decode cache is a ring buffer of its
+window (`models/transformer.py:decode_step` passes the write slot and
+the valid length), so decode needs no window mask.  Both take an
+`mlp_fn` in place of the block's SwiGLU (the `moe` block's expert MLP,
+`models/moe.py`).
 """
 from __future__ import annotations
 
@@ -83,24 +86,41 @@ def attn_block(p, x, cfg, window: int | None = None, positions=None,
     return x + _mlp(p, h, mlp_fn), (k, v)
 
 
-def attn_decode(p, x, cache_k, cache_v, pos: int, cfg,
-                window: int | None = None, mlp_fn=None):
-    """Single-token decode.  x: (B, d); caches head-major (B, KV, S_max,
-    hd), updated in place at `pos`; attention covers positions
-    [0, pos].  Returns the block output (B, d)."""
-    if window is not None:
-        raise NotImplementedError("sliding-window decode is not ported yet")
-    if cache_k.dtype == torch.int8:
-        raise NotImplementedError("int8 KV decode is not ported yet")
+def quantize_kv(x):
+    """Per-(token, head) int8 quantization of a new token's k or v, in the
+    reference's order of operations (`repro/models/attention.py:123-130`):
+    the scale is max(|x|.max(-1), 1e-8) in x's dtype, then float32 / 127;
+    the payload round(x.float() / scale), half to even, clipped to +-127.
+    x: (B, KV, hd) -> (int8 payload (B, KV, hd), float32 scale (B, KV))."""
+    floor = torch.tensor(1e-8, dtype=x.dtype, device=x.device)
+    scale = torch.maximum(x.abs().amax(dim=-1), floor).to(F32) / 127
+    q = torch.round(x.to(F32) / scale[..., None])
+    return q.clamp(-127, 127).to(torch.int8), scale
+
+
+def attn_decode(p, x, cache_k, cache_v, pos: int, cfg, mlp_fn=None, *,
+                slot: int, valid_len: int, k_scale=None, v_scale=None):
+    """Single-token decode.  x: (B, d); caches head-major (B, KV, S, hd),
+    updated in place at `slot` (`pos`, or a windowed layer's ring slot);
+    attention covers the cache's first `valid_len` entries.  `pos` is the
+    token's position (RoPE).  An int8 cache takes float32 `k_scale` /
+    `v_scale` (B, KV, S), written at `slot` with the payload.  Returns
+    the block output (B, d)."""
     B, d = x.shape
     h = rms_norm(x, p["norm1"])
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q, k, v = (t[:, 0] for t in _qkv(p, h[:, None], positions, cfg))
+    if cache_k.dtype == torch.int8:
+        k, ks = quantize_kv(k)
+        v, vs = quantize_kv(v)
+        k_scale[:, :, slot] = ks
+        v_scale[:, :, slot] = vs
     # in-place write of the new token (replaces the reference's
     # dynamic_update_slice, which returns a new cache)
-    cache_k[:, :, pos] = k.to(cache_k.dtype)
-    cache_v[:, :, pos] = v.to(cache_v.dtype)
-    o = ops.decode_attention_head_major(q, cache_k, cache_v, pos + 1)
+    cache_k[:, :, slot] = k.to(cache_k.dtype)
+    cache_v[:, :, slot] = v.to(cache_v.dtype)
+    o = ops.decode_attention_head_major(q, cache_k, cache_v, valid_len,
+                                        k_scale=k_scale, v_scale=v_scale)
     x = x + o.reshape(B, -1) @ p["wo"].reshape(-1, d)
     h = rms_norm(x, p["norm2"])
     return x + _mlp(p, h, mlp_fn)

@@ -12,9 +12,9 @@ Block kinds:
     shared_attn — attention + MLP with weights *shared* across all
                   occurrences (zamba2)
 
-Ported so far: `attn` and `moe` blocks without a window, and `mamba2`
-blocks; the fields of the other kinds are kept so that the dataclasses
-stay equal to the reference's field for field.
+Ported: `attn` and `moe` blocks (windowed or not, float or int8 KV
+cache) and `mamba2` blocks; the fields of `shared_attn` are kept so that
+the dataclasses stay equal to the reference's field for field.
 """
 from __future__ import annotations
 

@@ -1,7 +1,9 @@
 """Model assembly (port of `repro/models/transformer.py`): parameters,
 the train/prefill forward and loss, the decode cache and one decode step,
-for architectures built of `attn` and `moe` blocks without a window and
-of `mamba2` blocks.
+for architectures built of `attn` and `moe` blocks (windowed or not, with
+a float or an int8 KV cache) and of `mamba2` blocks.  A windowed layer's
+decode cache is a ring buffer of min(window, s_max) slots, as the
+reference's (`_cache_len`).
 
 Parameters are a plain dict: ``embed`` (V, d), ``final_norm`` (d,),
 ``lm_head`` (d, V) unless embeddings are tied, and ``layers``, one dict
@@ -32,18 +34,13 @@ def padded_vocab(cfg: ModelConfig) -> int:
 
 
 def layer_blocks(cfg: ModelConfig) -> list:
-    """The blocks of every layer in execution order; raises for what the
-    port cannot run yet."""
-    if cfg.kv_quant:
-        raise NotImplementedError("int8 KV decode is not ported yet")
+    """The blocks of every layer in execution order; raises for a kind
+    the port cannot run yet (`shared_attn`)."""
     blocks = [b for repeat, bs in cfg.stages for _ in range(repeat)
               for b in bs]
     for b in blocks:
         if b.kind not in KINDS:
             raise NotImplementedError(f"{b.kind} blocks are not ported yet")
-        if b.window is not None:
-            raise NotImplementedError(
-                "sliding-window layers are not ported yet")
     return blocks
 
 
@@ -80,14 +77,15 @@ def _moe_mlp(p, cfg, dropless: bool = False):
     return lambda h: moe.moe_ffn(p["moe"], h, cfg, dropless=dropless)
 
 
-def _apply_block(kind, p, x, cfg):
+def _apply_block(block, p, x, cfg):
     """One layer's forward -> (y, its cache): {"k", "v"} (B, S, KV, hd)
-    for attention, {"ssm", "conv"} for mamba2."""
-    if kind == "mamba2":
+    for attention (masked to the block's window), {"ssm", "conv"} for
+    mamba2."""
+    if block.kind == "mamba2":
         y, (ssm, conv) = mamba2_mixer(p, x, cfg)
         return y, {"ssm": ssm, "conv": conv}
-    mlp_fn = _moe_mlp(p, cfg) if kind == "moe" else None
-    y, (k, v) = attn_block(p, x, cfg, mlp_fn=mlp_fn)
+    mlp_fn = _moe_mlp(p, cfg) if block.kind == "moe" else None
+    y, (k, v) = attn_block(p, x, cfg, window=block.window, mlp_fn=mlp_fn)
     return y, {"k": k, "v": v}
 
 
@@ -107,10 +105,10 @@ def forward_hidden(params, cfg: ModelConfig, tokens, *, frontend_emb=None,
     caches = []
     for b, p in zip(blocks, params["layers"]):
         if remat:
-            x, c = checkpoint(_apply_block, b.kind, p, x, cfg,
+            x, c = checkpoint(_apply_block, b, p, x, cfg,
                               use_reentrant=False)
         else:
-            x, c = _apply_block(b.kind, p, x, cfg)
+            x, c = _apply_block(b, p, x, cfg)
         if return_cache:
             caches.append(c)
     x = rms_norm(x, params["final_norm"])
@@ -139,29 +137,49 @@ def loss_fn(params, cfg: ModelConfig, tokens, labels, frontend_emb=None,
                                  chunk=ce_chunk)
 
 
+def _cache_len(block, s_max: int) -> int:
+    """Decode-cache length of an attention layer: a ring buffer of the
+    window for a windowed layer (the reference's `_cache_len`)."""
+    return min(block.window, s_max) if block.window else s_max
+
+
 def init_cache(cfg: ModelConfig, batch: int, s_max: int, device) -> list:
     """Zeroed decode cache, one entry per layer: attention {"k", "v"} of
-    shape (batch, n_kv_heads, s_max, head_dim) (head-major); mamba2
-    {"ssm" (batch, nh, ns, hp) float32, "conv" (batch, K-1, d_inner +
-    2 ns)} (no s_max: the state is O(1) per sequence)."""
+    shape (batch, n_kv_heads, S, head_dim) (head-major), S = s_max, or
+    min(window, s_max) for a windowed layer's ring buffer; with
+    `cfg.kv_quant` int8 "k"/"v" and float32 "k_scale"/"v_scale" (batch,
+    n_kv_heads, S); mamba2 {"ssm" (batch, nh, ns, hp) float32, "conv"
+    (batch, K-1, d_inner + 2 ns)} (no s_max: the state is O(1) per
+    sequence)."""
     dt = getattr(torch, cfg.dtype)
     nh, hp, ns = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-    kv = (batch, cfg.n_kv_heads, s_max, cfg.head_dim)
 
     def zeros(shape, dtype=dt):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    return [{"ssm": zeros((batch, nh, ns, hp), F32),
-             "conv": zeros((batch, cfg.ssm_conv - 1, cfg.d_inner + 2 * ns))}
-            if b.kind == "mamba2" else {"k": zeros(kv), "v": zeros(kv)}
-            for b in layer_blocks(cfg)]
+    def layer(b):
+        if b.kind == "mamba2":
+            return {"ssm": zeros((batch, nh, ns, hp), F32),
+                    "conv": zeros((batch, cfg.ssm_conv - 1,
+                                   cfg.d_inner + 2 * ns))}
+        kv = (batch, cfg.n_kv_heads, _cache_len(b, s_max), cfg.head_dim)
+        if cfg.kv_quant:
+            return {"k": zeros(kv, torch.int8), "v": zeros(kv, torch.int8),
+                    "k_scale": zeros(kv[:-1], F32),
+                    "v_scale": zeros(kv[:-1], F32)}
+        return {"k": zeros(kv), "v": zeros(kv)}
+
+    return [layer(b) for b in layer_blocks(cfg)]
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens, pos: int):
     """One decode step.  tokens: (B,) int; pos: the position being
     written (the current length).  Updates `cache` in place (the new
     token's K/V, or the mamba2 layer's ssm and conv state) and returns
-    logits (B, V_padded)."""
+    logits (B, V_padded).  A windowed layer writes ring slot pos % W and
+    attends its min(pos + 1, W) filled slots (the reference's
+    `decode_step`); keys enter the ring after RoPE, and the softmax does
+    not depend on their order."""
     x = params["embed"][tokens]                          # (B, d)
     for b, p, c in zip(layer_blocks(cfg), params["layers"], cache):
         if b.kind == "mamba2":
@@ -171,6 +189,11 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos: int):
         else:
             mlp_fn = _moe_mlp(p, cfg, dropless=True) if b.kind == "moe" \
                 else None
-            x = attn_decode(p, x, c["k"], c["v"], pos, cfg, mlp_fn=mlp_fn)
+            W = c["k"].shape[2]
+            x = attn_decode(p, x, c["k"], c["v"], pos, cfg, mlp_fn=mlp_fn,
+                            slot=pos % W if b.window else pos,
+                            valid_len=min(pos + 1, W),
+                            k_scale=c.get("k_scale"),
+                            v_scale=c.get("v_scale"))
     x = rms_norm(x, params["final_norm"])
     return x @ _head(params, cfg)

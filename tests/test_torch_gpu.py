@@ -2,8 +2,9 @@
 plain PyTorch version (which `tests/test_torch_kernels.py`,
 `tests/test_torch_training.py` and `tests/test_torch_ssd.py` hold to the
 JAX reference), and the decode step, tiered KV cache, training step,
-mamba2 mixer, prefill and decode, the MoE MLP and model, and the tiered
-embedding and expert cache on CUDA against the same code on the CPU.  Imports neither jax nor `repro`, so it runs on a GPU machine
+mamba2 mixer, prefill and decode, the MoE MLP and model, windowed (ring
+buffer) and int8-cache decode, and the tiered embedding and expert cache
+on CUDA against the same code on the CPU.  Imports neither jax nor `repro`, so it runs on a GPU machine
 without them:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -256,7 +257,7 @@ def test_decode_kernel_paths(cuda, B, S, H, KVH, D, valid, one_split,
     from repro_torch.kernels import decode_attention as tdecode
     dt = getattr(torch, dtype)
     G = H // KVH
-    slots = tdecode._slots(cuda.index or 0, dt, tdecode.head_slice(G))
+    slots = tdecode._slots(cuda.index or 0, dt, dt, tdecode.head_slice(G))
     _, n_splits = tdecode.plan_splits(B, KVH, valid,
                                       tdecode.tile(G, D, dt), slots)
     assert (n_splits == 1) == one_split
@@ -323,6 +324,139 @@ def test_decode_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="D <= 256"):
         big = torch.zeros(1, 32, 2, 320, device=cuda)
         ops.decode_attention(torch.zeros(1, 4, 320, device=cuda), big, big, 8)
+
+
+def int8_cache(cuda, B, S, KVH, D, dtype, seed):
+    """A (B, KVH, S, D) int8 cache and its (B, KVH, S) float32 scales, as
+    the model's decode step quantizes them (`attention.quantize_kv`)."""
+    from repro_torch.models.attention import quantize_kv
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(2):
+        x = torch.from_numpy(rng.standard_normal((B, S, KVH, D), np.float32))
+        x = x * torch.from_numpy(rng.uniform(0.1, 3.0, (B, S, KVH, 1)).astype(
+            np.float32))
+        payload, scale = quantize_kv(x.to(device=cuda, dtype=dtype))
+        out += [payload.transpose(1, 2).contiguous(),
+                scale.transpose(1, 2).contiguous()]
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,KVH,D,valid", [
+    (2, 300, 4, 4, 64, 257),            # G = 1 (musicgen), 16 dims a lane
+    (4, 1024, 8, 4, 256, 1000),         # G = 2, D = 256 (gemma3)
+    (4, 168, 32, 8, 128, 129),          # G = 4 (llama3's serving shape)
+    (2, 700, 48, 8, 128, 613),          # G = 6: 8 dims a lane (mixtral)
+    (2, 400, 64, 4, 128, 129),          # G = 16: two slices of 8 (qwen3)
+    (1, 8192, 8, 1, 128, 8000),         # many splits, the fused merge
+    (2, 500, 32, 32, 80, 457),          # D = 80: 5 of 8 lanes
+    (1, 100, 2, 2, 20, 77),             # D = 20: element loads
+    (3, 64, 8, 2, 16, 1)])              # valid_len 1, one lane a row
+def test_decode_int8_kernel_matches_plain(cuda, B, S, H, KVH, D, valid,
+                                          dtype):
+    """The int8-cache variant against the plain version at ragged
+    valid_len, two calls each (the second finds the merge's counters
+    reset)."""
+    dt = getattr(torch, dtype)
+    k, ks, v, vs = int8_cache(cuda, B, S, KVH, D, dt, seed=S + H)
+    rng = np.random.default_rng(H)
+    q = torch.from_numpy(rng.standard_normal((B, H, D), np.float32)).to(
+        device=cuda, dtype=dt)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    want = ref.decode_attention_ref(q, kt, vt, valid, ks,
+                                    vs).float().cpu().numpy()
+    before = dict(ops.LAUNCHES)
+    for _ in range(2):
+        out = ops.decode_attention_head_major(q, k, v, valid, k_scale=ks,
+                                              v_scale=vs)
+        torch.cuda.synchronize()
+        assert out.dtype == dt
+        np.testing.assert_allclose(out.float().cpu().numpy(), want,
+                                   **TOL[dtype])
+    assert ops.LAUNCHES["decode_attention_int8"] == \
+        before["decode_attention_int8"] + 2
+    assert ops.LAUNCHES["decode_attention"] == before["decode_attention"]
+
+
+def test_decode_int8_kernel_rejects_what_it_does_not_take(cuda):
+    k, ks, v, vs = int8_cache(cuda, 1, 32, 2, 64, torch.float32, seed=0)
+    q = torch.zeros(1, 4, 64, device=cuda)
+    with pytest.raises(ValueError, match="k_scale and v_scale"):
+        ops.decode_attention_head_major(q, k, v, 8, k_scale=ks)
+    with pytest.raises(ValueError, match="k_scale and v_scale"):
+        ops.decode_attention_head_major(q, k.float(), v.float(), 8,
+                                        k_scale=ks, v_scale=vs)
+    with pytest.raises(ValueError, match="float32 of shape"):
+        ops.decode_attention_head_major(q, k, v, 8, k_scale=ks.double(),
+                                        v_scale=vs)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.decode_attention_head_major(q, k, v, 8, k_scale=ks,
+                                        v_scale=vs.transpose(1, 2)
+                                        .contiguous().transpose(1, 2))
+    # the reference layout's entry point takes no int8 cache
+    with pytest.raises(ValueError, match="k_scale and v_scale"):
+        ops.decode_attention(q, k.transpose(1, 2).contiguous(),
+                             v.transpose(1, 2).contiguous(), 8)
+
+
+def test_int8_decode_step_on_card_matches_cpu(cuda):
+    """12 decode steps of the llama3 smoke model with `kv_quant`: logits
+    and the int8 caches on both devices, and one launch of the int8
+    variant per layer and step (none of the float kernel)."""
+    import dataclasses
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(smoke_config("llama3-8b"), kv_quant=True)
+    cpu = torch.device("cpu")
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                     cpu)
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    caches = (transformer.init_cache(cfg, 3, 16, cpu),
+              transformer.init_cache(cfg, 3, 16, cuda))
+    rng = np.random.default_rng(5)
+    before = dict(ops.LAUNCHES)
+    for pos in range(12):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, 3))
+        want = transformer.decode_step(params, cfg, caches[0], toks, pos)
+        got = transformer.decode_step(on_card, cfg, caches[1], toks.to(cuda),
+                                      pos)
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=1e-4, atol=1e-4)
+    assert ops.LAUNCHES["decode_attention_int8"] == \
+        before["decode_attention_int8"] + 12 * cfg.n_layers
+    assert ops.LAUNCHES["decode_attention"] == before["decode_attention"]
+    for c_cpu, c_card in zip(*caches):
+        for name in ("k_scale", "v_scale"):
+            np.testing.assert_allclose(c_card[name].cpu().numpy(),
+                                       c_cpu[name].numpy(), rtol=1e-5)
+
+
+def test_ring_decode_on_card_matches_cpu(cuda):
+    """The gemma3 smoke model (windows of 16 before every global layer)
+    over 40 decode steps into a 64-token cache, past the rings' wrap:
+    logits and every layer's cache on both devices."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_config("gemma3-4b")
+    cpu = torch.device("cpu")
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                     cpu)
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    caches = (transformer.init_cache(cfg, 3, 64, cpu),
+              transformer.init_cache(cfg, 3, 64, cuda))
+    assert {c["k"].shape[2] for c in caches[0]} == {16, 64}
+    rng = np.random.default_rng(6)
+    for pos in range(40):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, 3))
+        want = transformer.decode_step(params, cfg, caches[0], toks, pos)
+        got = transformer.decode_step(on_card, cfg, caches[1], toks.to(cuda),
+                                      pos)
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=1e-4, atol=1e-4)
+    for c_cpu, c_card in zip(*caches):
+        for name in ("k", "v"):
+            np.testing.assert_allclose(c_card[name].cpu().numpy(),
+                                       c_cpu[name].numpy(), rtol=1e-4,
+                                       atol=1e-4)
 
 
 def test_decode_step_on_card_matches_cpu(cuda):

@@ -92,7 +92,9 @@ def test_decode_attention_rejects_valid_len_out_of_range(valid):
     (4, 8, 4, 128, 1, torch.bfloat16), (4, 8, 4, 128, 129, torch.bfloat16),
     (4, 8, 4, 128, 160, torch.float32), (8, 8, 4, 128, 30001, torch.bfloat16),
     (4, 32, 1, 80, 3001, torch.bfloat16), (4, 2, 7, 64, 3001, torch.bfloat16),
-    (1, 1, 16, 256, 17, torch.float32), (1, 4, 2, 16, 700, torch.float32)])
+    (1, 1, 16, 256, 17, torch.float32), (1, 4, 2, 16, 700, torch.float32),
+    # an int8 cache (the tile counts the cache's element type)
+    (8, 8, 4, 128, 30001, torch.int8), (4, 8, 6, 128, 129, torch.int8)])
 def test_plan_splits_covers_valid_len(B, KVH, G, D, valid, dtype):
     """Splits are whole tiles of the kernel's loop, cover [0, valid_len)
     and none starts at or past it, whatever the card holds at once; the
@@ -111,31 +113,42 @@ def test_plan_splits_covers_valid_len(B, KVH, G, D, valid, dtype):
 
 
 @pytest.mark.parametrize("G,D", [(1, 64), (4, 128), (16, 128), (1, 256),
-                                 (16, 256), (1, 80), (7, 64), (2, 16)])
+                                 (16, 256), (1, 80), (7, 64), (2, 16),
+                                 (6, 128), (2, 256)])
 def test_decode_tile_fits_static_shared_memory(G, D):
     """The block's merge buffers fit the 48 KB of static shared memory; a
-    power-of-two lane group of 8 dims a lane covers D; at most two head
-    slices cover G; the constants agree with the CUDA source."""
+    power-of-two lane group of the dims a lane holds (8, or 16 of an int8
+    cache at up to 4 heads a slice) covers D; at most two head slices
+    cover G; the constants agree with the CUDA source."""
     assert tdecode.smem_bytes(G) <= tdecode._SMEM_LIMIT
-    n = tdecode.lanes(D)
-    assert n & (n - 1) == 0 and n <= 32
-    assert n * tdecode._DPL >= D > n * tdecode._DPL // 2
     hg = tdecode.head_slice(G)
     assert hg in (1, 2, 4, 8) and hg >= min(G, 8) and -(-G // hg) <= 2
-    for dtype in (torch.float32, torch.bfloat16):
-        tile = tdecode.tile(G, D, dtype)
-        assert tile >= 1 and tile & (tile - 1) == 0
+    for cache in (torch.float32, torch.bfloat16, torch.int8):
+        dpl = tdecode.dims_per_lane(cache, hg)
+        assert dpl == (16 if cache == torch.int8 and hg <= 4 else 8)
+        n = tdecode.lanes(D, dpl)
+        assert n & (n - 1) == 0 and n <= 32
+        assert n * dpl >= D > n * dpl // 2
+        for dtype in (torch.float32, torch.bfloat16):
+            tile = tdecode.tile(G, D, dtype, cache if cache == torch.int8
+                                else dtype)
+            assert tile >= 1 and tile & (tile - 1) == 0
     src = (_build.CSRC / "decode_attention.cu").read_text()
     for name, want in (("NT", 32 * tdecode._NW), ("MAXG", tdecode._MAX_G),
                        ("MAXD", tdecode._MAX_D), ("DPL", tdecode._DPL),
+                       ("DPL_INT8", tdecode._DPL_INT8),
                        ("MAX_SPLITS", tdecode._MAX_SPLITS)):
         got = re.search(rf"constexpr int {name} = (\d+);", src).group(1)
         assert int(got) == want, name
     assert "merge_kernel" not in src     # the merge is fused: one launch
     # the last block's merge weights (MAX_SPLITS x G) fit in red_o
     assert tdecode._MAX_SPLITS * G <= tdecode._NW * hg * tdecode._MAX_D
+    # dims a lane holds, as the wrapper's dims_per_lane counts them
+    assert re.search(r"return sizeof\(C\) == 1 && HG <= 4 \? DPL_INT8 : "
+                     r"DPL;", src)
     # tokens a lane loads at once, as the wrapper's tile counts them
-    assert re.search(r"return sizeof\(T\) == 2 \? \(HG >= 8 \? 2 : 4\) "
+    assert re.search(r"if \(sizeof\(C\) == 1\) return HG == 4 \? 2 : 4;\s+"
+                     r"return sizeof\(C\) == 2 \? \(HG >= 8 \? 2 : 4\) "
                      r": \(HG >= 4 \? 1 : 2\);", src)
 
 

@@ -28,7 +28,7 @@ from repro.optim import adamw_init as jadamw_init
 from repro.optim import adamw_update as jadamw_update
 from repro.optim import cosine_schedule as jcosine_schedule
 from repro_torch.configs import PORTED, smoke_config
-from repro_torch.convert import params_from_reference
+from repro_torch.convert import _layer_index, params_from_reference
 from repro_torch.data.lm_pipeline import DataConfig, LMPipeline
 from repro_torch.kernels import ops, ref
 from repro_torch.launch import steps
@@ -301,6 +301,7 @@ def test_prefill_step_matches_reference(arch):
                                atol=1e-4)
     assert len(cache) == cfg.n_layers
     mamba = cfg.stages[0][1][0].kind == "mamba2"
+    where = _layer_index(cfg)            # layer -> (stage, block, repeat)
     if mamba:
         dcache = jtransformer.init_cache(jcfg, 2, 64)
         step = jax.jit(lambda c, x, p: jtransformer.decode_step(tree, jcfg,
@@ -308,9 +309,10 @@ def test_prefill_step_matches_reference(arch):
         for i in range(64):
             _, dcache = step(dcache, batch["tokens"][:, i], jnp.int32(i))
     for i, layer in enumerate(cache):
+        si, bi, r, _ = where[i]
         want = {"ssm": jcache[0]["b0"]["ssm"][i],
                 "conv": dcache[0]["b0"]["conv"][i]} if mamba \
-            else {n: jcache[0]["b0"][n][i] for n in ("k", "v")}
+            else {n: jcache[si][f"b{bi}"][n][r] for n in ("k", "v")}
         assert layer.keys() == want.keys()
         for name, w in want.items():
             np.testing.assert_allclose(layer[name].numpy(), np.asarray(w),
