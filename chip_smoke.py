@@ -11,11 +11,11 @@ fifteen phases, each printing one JSON line:
            int8-cache) and ssd kernels (every pass of the ssd scan);
   kernels  each kernel against its plain PyTorch version on the card, at
            the shapes the serving and training paths give it and at
-           others (the decode kernel's int8-cache variant as a kernel of
-           its own), with its time, the plain version's time, one PyTorch
-           call's time where one computes the same function, its bound,
-           the share of the bound it reaches and its time over the
-           PyTorch call's;
+           others (the int8-cache decode kernel with the appended token
+           held bit for bit), with its time, the plain version's time,
+           one PyTorch call's time where one computes the same function,
+           its bound, the share of the bound it reaches and its time over
+           the PyTorch call's;
   serve    llama3-8b at full width (32 layers, random bf16 weights from a
            seed) answering 8 requests through `ServeEngine`, after a check
            of the CUDA decode path's logits against the CPU path's;
@@ -81,8 +81,10 @@ fifteen phases, each printing one JSON line:
   int8     llama3-8b with the int8 KV cache (`kv_quant`): the CUDA int8
            decode path's smoke logits against the CPU path's, then the
            `serve` phase's 8 requests on the same weights through the
-           decode kernel's int8 variant, with the cache's bytes against
-           the bf16 cache's and the greedy tokens' agreement with the
+           int8 decode kernel (one launch a layer and step appends the
+           token and attends; no other decode kernel launched), with the
+           cache's bytes against the bf16 cache's, the greedy tokens'
+           agreement with the `serve` run's and the ms a step over the
            `serve` run's.
 
 Kernel launches are counted from zero in each of the serve, tiered,
@@ -334,34 +336,65 @@ def decode_case(ops, ref, dev, g, flush, B, H, KVH, D, S, valid,
 
 
 def decode_int8_case(ops, ref, quantize_kv, dev, g, flush, B, H, KVH, D, S,
-                     valid) -> dict:
-    """The decode kernel's int8-cache variant against the plain version:
-    bf16 q, the cache quantized from bf16 rows as the model's decode step
-    does (`attention.quantize_kv`).  No single PyTorch call attends over
-    an int8 cache with per-token scales."""
+                     valid, slot=None) -> dict:
+    """The int8-cache decode kernel against the plain version: bf16 q, the
+    cache quantized from bf16 rows as the model's decode step does
+    (`attention.quantize_kv`).  With `slot`, the model's call: one launch
+    quantizes a new token's k and v, writes them at `slot` and attends;
+    the written payload and scales are held bit for bit against
+    `quantize_kv`, the output against the plain version over the cache
+    that `quantize_kv` and the writes leave.  No single PyTorch call
+    attends over an int8 cache with per-token scales."""
     bf16 = torch.bfloat16
     q = torch.randn(B, H, D, generator=g, device=dev).to(bf16)
     k, ks = quantize_kv(torch.randn(B, KVH, S, D, generator=g,
                                     device=dev).to(bf16))
     v, vs = quantize_kv(torch.randn(B, KVH, S, D, generator=g,
                                     device=dev).to(bf16))
-    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
     scales = dict(k_scale=ks, v_scale=vs)
-    outs = [ops.decode_attention_head_major(q, k, v, valid, **scales)]
+    appended = {}
+    if slot is None:
+        def kernel():
+            return ops.decode_attention_head_major(q, k, v, valid, **scales)
+    else:
+        k_new, v_new = (torch.randn(B, KVH, D, generator=g, device=dev).to(
+            bf16) for _ in range(2))
+        (k8, s8), (v8, sv) = quantize_kv(k_new), quantize_kv(v_new)
+        want_rows = (k8, v8, s8, sv)
+        caches = [t.clone() for t in (k, v, ks, vs)]
+
+        def kernel():
+            return ops.decode_attention_int8_append(
+                q, k_new, v_new, *caches, slot, valid)
+    outs = [kernel()]
+    if slot is not None:
+        torch.cuda.synchronize()
+        appended = dict(slot=slot, appended_bit_for_bit=all(
+            torch.equal(c[:, :, slot].contiguous().view(torch.uint8),
+                        w.contiguous().view(torch.uint8))
+            for c, w in zip(caches, want_rows)))
+        for t, w in zip((k, v, ks, vs), want_rows):
+            t[:, :, slot] = w
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
     want = ref.decode_attention_ref(q, kt, vt, valid, ks, vs)
     agree = decode_agrees(outs, want, TOL[bf16])
-    ms = device_ms(lambda: ops.decode_attention_head_major(q, k, v, valid,
-                                                           **scales), flush)
+    if slot is not None:
+        agree["ok"] = agree["ok"] and appended["appended_bit_for_bit"]
+    ms = device_ms(kernel, flush)
     plain_ms = device_ms(lambda: ref.decode_attention_ref(q, kt, vt, valid,
                                                           ks, vs), flush)
-    # int8 K and V rows and their two float32 scales, q and out in bf16
+    # int8 K and V rows and their two float32 scales, q and out in bf16;
+    # with the append its k and v read, one row and two scales written
     n_bytes = 2 * B * KVH * valid * (D + 4) + 2 * B * H * D * 2
+    if slot is not None:
+        n_bytes += 2 * B * KVH * (2 * D + D + 4)
     b_ms, b_by = bound(n_bytes, 4 * B * H * valid * D + 7 * B * H * valid,
                        bf16)
     return dict(shape=dict(B=B, H=H, KVH=KVH, D=D, S=S, valid_len=valid),
-                dtype="bfloat16", cache="int8", **agree, tol=TOL[bf16],
-                kernel_ms=ms, plain_ms=plain_ms, library_ms=None,
-                bound_ms=b_ms, bound_by=b_by, **shares(ms, b_ms, None))
+                dtype="bfloat16", cache="int8", **appended, **agree,
+                tol=TOL[bf16], kernel_ms=ms, plain_ms=plain_ms,
+                library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                **shares(ms, b_ms, None))
 
 
 def visible_pairs(Sq: int, Skv: int, window) -> int:
@@ -521,10 +554,14 @@ def kernels_phase(dev, flush, power: str) -> dict:
                   (BATCH, 8, 4, 256, 1024, 1024, bf16),
                   (BATCH, 48, 8, 128, MAX_LEN, PROMPT + 1, bf16),
                   (BATCH, 32, 32, 64, MAX_LEN, PROMPT + 1, bf16))]
-    # the int8 cache at llama3's serving shape and on a long cache
+    # the int8 cache: llama3's serving shape with the appended token (the
+    # model's call), the long cache, qwen3's G 16 and gemma3's full D 256
+    # ring with a wrapped slot (position 1,061)
     decode8 = [decode_int8_case(ops, ref, quantize_kv, dev, g, flush, *shape)
-               for shape in ((BATCH, 32, 8, 128, MAX_LEN, PROMPT + 1),
-                             (8, 32, 8, 128, 32_768, 30_001))]
+               for shape in ((BATCH, 32, 8, 128, MAX_LEN, PROMPT + 1, PROMPT),
+                             (8, 32, 8, 128, 32_768, 30_001),
+                             (BATCH, 64, 4, 128, MAX_LEN, PROMPT + 1, PROMPT),
+                             (BATCH, 8, 4, 256, 1024, 1024, 1061 % 1024))]
     flash = [flash_case(ops, fa, dev, g, flush, *shape)
              for shape in (
                  # the training path's shapes: stablelm-3b (D = 80, MHA)
@@ -653,8 +690,8 @@ def serve_run(eng, cfg, dev, requests: int = REQUESTS, prompt: int = PROMPT,
     finally:
         engine.decode_step = decode_step
     tokens = sum(len(r.out) for r in done)
-    other = {"decode_attention": "decode_attention_int8",
-             "decode_attention_int8": "decode_attention"}[decode_op]
+    others = [op for op in ("decode_attention", "decode_attention_int8",
+                            "decode_attention_int8_f32") if op != decode_op]
     out = dict(model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
                dtype=cfg.dtype, params=cfg.param_count(), batch=eng.batch,
                requests=requests, prompt_tokens=prompt, new_tokens=NEW,
@@ -675,12 +712,13 @@ def serve_run(eng, cfg, dev, requests: int = REQUESTS, prompt: int = PROMPT,
         "no NaN logits": not bool(nan_seen),
         "decode kernel once per layer and step":
             launches[decode_op] == cfg.n_layers * eng.steps_used,
-        "no launch of the other decode variant": launches[other] == 0,
+        "no launch of another decode kernel": not any(launches[op]
+                                                      for op in others),
     }
     return out, checks, launches, {r.rid: r.out for r in done}
 
 
-def serve_phase(dev, power: str) -> tuple[dict, dict]:
+def serve_phase(dev, power: str) -> tuple[dict, dict, float]:
     from repro_torch.configs import get_config
     from repro_torch.serving import engine
 
@@ -699,7 +737,7 @@ def serve_phase(dev, power: str) -> tuple[dict, dict]:
     emit("serve", **out, init_s=init_s,
          cuda_vs_cpu_logits_max_abs_err=ref_err, power_limit=power)
     fail_on("serve", checks)
-    return launches, tokens
+    return launches, tokens, out["ms_per_step"]
 
 
 # ----------------------------------------------------------------------
@@ -1631,12 +1669,15 @@ def dense_phase(dev, power: str) -> None:
 # ----------------------------------------------------------------------
 # int8
 # ----------------------------------------------------------------------
-def int8_phase(dev, power: str, bf16_tokens: dict) -> dict:
+def int8_phase(dev, power: str, bf16_tokens: dict, bf16_ms: float) -> dict:
     """llama3-8b at full width with the int8 KV cache (`kv_quant`): the
-    CUDA int8 decode path's smoke logits against the CPU path's, then the
-    `serve` phase's REQUESTS requests on the same seeded weights, whose
-    greedy tokens are compared with the bf16 cache's (`bf16_tokens`;
-    reported, not gated: the weights are random)."""
+    CUDA int8 decode path's smoke logits against the CPU path's (float32:
+    the float kernel's int8 instantiation), then the `serve` phase's
+    REQUESTS requests on the same seeded weights through the int8 kernel,
+    one launch a layer and step (append and attention), whose greedy
+    tokens are compared with the bf16 cache's (`bf16_tokens`; reported,
+    not gated: the weights are random) and whose ms a step is set beside
+    the `serve` phase's (`bf16_ms`, the same call)."""
     from repro_torch.configs import get_config
     from repro_torch.serving import engine
 
@@ -1657,6 +1698,8 @@ def int8_phase(dev, power: str, bf16_tokens: dict) -> dict:
     emit("int8", **serve, cache_bytes=cache_bytes, bf16_cache_bytes=bf16_bytes,
          cache_share_of_bf16=cache_bytes / bf16_bytes,
          greedy_agreement_with_bf16=agree,
+         bf16_ms_per_step=bf16_ms,
+         int8_over_bf16_step=serve["ms_per_step"] / bf16_ms,
          cuda_vs_cpu_smoke_logits_max_abs_err=ref_err, power_limit=power)
     fail_on("int8", {
         **checks,
@@ -1692,13 +1735,13 @@ def main() -> int:
     # registers and spills of the kernels redesigned for Hopper
     emit("ptxas", **{name: _build.ptxas_report(name)
                      for name in ("flash_attention", "decode_attention",
-                                  "ssd_scan")})
+                                  "decode_attention_int8", "ssd_scan")})
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     main_shapes = kernels_phase(dev, flush, power)
     del flush
     # each phase's model is freed when its function returns; each
     # kernel's launches are those of the phase that is its main path
-    serve_launches, bf16_tokens = serve_phase(dev, power)
+    serve_launches, bf16_tokens, bf16_ms = serve_phase(dev, power)
     launches = {"decode_attention": serve_launches["decode_attention"],
                 "ralt_record": tiered_phase(dev, power)["ralt_record"],
                 "ralt_update": tracker_phase(dev, power)["ralt_update"]}
@@ -1720,8 +1763,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     dense_phase(dev, power)
     torch.cuda.empty_cache()
-    launches["decode_attention_int8"] = int8_phase(dev, power, bf16_tokens)[
-        "decode_attention_int8"]
+    launches["decode_attention_int8"] = int8_phase(
+        dev, power, bf16_tokens, bf16_ms)["decode_attention_int8"]
     sources = {
         "ralt_update": ("src/repro_torch/csrc/ralt_score.cu",
                         "src/repro/kernels/ralt_score.py:78"),
@@ -1729,8 +1772,9 @@ def main() -> int:
                         "src/repro/kernels/ralt_score.py:78"),
         "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                              "src/repro/kernels/decode_attention.py:106"),
-        "decode_attention_int8": ("src/repro_torch/csrc/decode_attention.cu",
-                                  "src/repro/kernels/decode_attention.py:106"),
+        "decode_attention_int8": (
+            "src/repro_torch/csrc/decode_attention_int8.cu",
+            "src/repro/kernels/decode_attention.py:106"),
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:111"),
         "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",

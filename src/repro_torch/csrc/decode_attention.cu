@@ -35,9 +35,10 @@
 //     to arrive merges the splits with the log-sum-exp algebra of
 //     repro/models/common.py:merge_partials, writes the output and resets
 //     the counter.  One launch either way.
-// The int8 cache (the model's `kv_quant`): payloads int8 in the same
-// layout and strides, with float32 scales of each (batch, kv head, token)
-// in contiguous (B, KVH, S) arrays; q and out stay in the model's dtype.
+// The int8 cache (the model's `kv_quant`) under a float32 q (a bf16 q
+// takes decode_attention_int8.cu): payloads int8 in the same layout and
+// strides, with float32 scales of each (batch, kv head, token) in
+// contiguous (B, KVH, S) arrays; q and out stay float32.
 // A lane then holds 16 dims of a row (one 16-byte load) while its heads'
 // q and accumulators leave the registers (HG <= 4), else 8 (an 8-byte
 // load).  Rows are widened to float32 in registers; the score is
@@ -450,7 +451,6 @@ template <typename F>
 int with_types(int dtype, int cache_dtype, F&& f) {
   if (dtype == 1 && cache_dtype == 1) return f(__nv_bfloat16{}, __nv_bfloat16{});
   if (dtype == 0 && cache_dtype == 0) return f(float{}, float{});
-  if (dtype == 1 && cache_dtype == 2) return f(__nv_bfloat16{}, int8_t{});
   if (dtype == 0 && cache_dtype == 2) return f(float{}, int8_t{});
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -469,8 +469,8 @@ extern "C" int decode_blocks_per_sm(int dtype, int cache_dtype, int hg) {
 }
 
 // dtype (q and out): 0 float32, 1 bfloat16; cache_dtype: dtype's code, or
-// 2 for int8 with float32 k_scale / v_scale of shape (B, KVH, scale_len),
-// contiguous (null otherwise).  q and out are (B, H, D) contiguous; the
+// (float32 q only) 2 for int8 with float32 k_scale / v_scale of shape
+// (B, KVH, scale_len), contiguous (null otherwise).  q and out are (B, H, D) contiguous; the
 // caches are addressed as base + b*sb + kvh*sh + s*ss + d.  hg: query
 // heads a thread holds (1, 2, 4 or 8, at least min(G, 8)); lanes: a power
 // of two >= D / (dims a lane holds: 16 for int8 at hg <= 4, else 8); vec:

@@ -27,10 +27,12 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-KERNELS = ("ralt_score", "decode_attention", "flash_attention", "ssd_scan")
+KERNELS = ("ralt_score", "decode_attention", "decode_attention_int8",
+           "flash_attention", "ssd_scan")
 
 LAUNCHES = {"ralt_update": 0, "ralt_record": 0, "decode_attention": 0,
-            "decode_attention_int8": 0, "flash_attention": 0, "ssd_scan": 0}
+            "decode_attention_int8": 0, "decode_attention_int8_f32": 0,
+            "flash_attention": 0, "ssd_scan": 0}
 
 
 def reset_launches() -> None:

@@ -12,18 +12,26 @@ per-split partials (o, l, m) with the log-sum-exp algebra of
 `models/common.py:merge_partials`, in the same launch; with one split the
 block writes the output itself.
 
-Two entry points share the kernel:
+Three entry points:
   * `decode_attention`              caches (B, S, KVH, D) — the reference's
                                     signature;
   * `decode_attention_head_major`   caches (B, KVH, S, D) — the layout of
-                                    the model's decode cache.
-The kernel takes the caches' strides, so neither layout is copied.  The
-head-major entry point also takes the model's int8 cache (`kv_quant`)
-with its float32 `k_scale` and `v_scale` of shape (B, KVH, S), read in
-place by the kernel's int8 variant (counted as `decode_attention_int8`),
-where the reference upcasts the whole cache in einsum
-(`repro/models/attention.py:146-166`).
-A CPU tensor runs the plain version `ref.decode_attention_ref`.
+                                    the model's decode cache;
+  * `decode_attention_int8_append`  the model's int8 cache (`kv_quant`):
+                                    quantizes the new token's k and v,
+                                    writes them at `slot` and attends, in
+                                    one launch.
+The float kernel takes the caches' strides, so neither layout is copied.
+The head-major entry point also takes the int8 cache with its float32
+`k_scale` and `v_scale` of shape (B, KVH, S), read in place where the
+reference upcasts the whole cache in einsum
+(`repro/models/attention.py:146-166`), by one of two kernels chosen by
+q's dtype: bf16 q (every serving config) takes
+`csrc/decode_attention_int8.cu` (tensor cores, a ring of bulk copies;
+counted as `decode_attention_int8`), float32 q the float kernel's int8
+instantiation on the CUDA cores (`decode_attention_int8_f32`).
+A CPU tensor runs the plain version `ref.decode_attention_ref` (after
+`ref.quantize_kv` and the writes, for the append).
 """
 from __future__ import annotations
 
@@ -33,7 +41,7 @@ import functools
 import torch
 
 from . import _build
-from .ref import decode_attention_ref
+from .ref import decode_attention_ref, quantize_kv
 
 F32 = torch.float32
 _DTYPES = {F32: 0, torch.bfloat16: 1}      # q, out and a float cache
@@ -45,6 +53,16 @@ _DPL = 8                # dims a lane holds (csrc DPL)
 _DPL_INT8 = 16          # ... of an int8 cache at hg <= 4 (csrc DPL_INT8)
 _SMEM_LIMIT = 48 * 1024  # static limit without an opt-in attribute
 _MAX_SPLITS = 256       # csrc MAX_SPLITS
+# csrc/decode_attention_int8.cu: consumer warps, tokens a warp takes of a
+# stage (TILE = NCW * WT), the ring's stages, shared memory a block may
+# opt into; an SM has 228 KB, of which the card reserves 1 KB a block
+_INT8_NCW, _INT8_WT = 4, 16
+INT8_TILE = _INT8_NCW * _INT8_WT
+_INT8_STAGES = (2, 4)
+_INT8_SMEM_LIMIT = 232448
+_SM_SMEM, _SMEM_RESERVED = 233472, 1024
+# the quantizer's 1e-8 floor in bf16, the dtype the int8 kernel's q takes
+_BF16_FLOOR = float(torch.tensor(1e-8, dtype=torch.bfloat16))
 # (device, stream) -> int32 arrival counters of the fused merge.  The
 # last block of each (batch, kv head) resets its counter, so one zeroed
 # buffer serves every launch on that stream without a memset launch;
@@ -62,6 +80,18 @@ def _lib():
         lib.decode_attention.restype = ctypes.c_int
         lib.decode_blocks_per_sm.argtypes = [I, I, I]
         lib.decode_blocks_per_sm.restype = I
+    return lib
+
+
+def _lib_int8():
+    lib = _build.load("decode_attention_int8")
+    if lib.decode_attention_int8.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.decode_attention_int8.argtypes = [P] * 11 + [I] * 11 + [
+            ctypes.c_float, ctypes.c_float, P]
+        lib.decode_attention_int8.restype = I
+        lib.decode_int8_blocks_per_sm.argtypes = [I, I]
+        lib.decode_int8_blocks_per_sm.restype = I
     return lib
 
 
@@ -121,6 +151,39 @@ def plan_splits(B: int, KVH: int, valid_len: int, tile: int,
     return split_len, -(-valid_len // split_len)
 
 
+def int8_smem_bytes(D: int, G: int, stages: int) -> int:
+    """Dynamic shared memory of one block of the int8 kernel (csrc
+    `layout`): the ring of `stages` stages (K and V tiles of INT8_TILE rows
+    padded to 16 bytes, two scales a row), which is also the merges'
+    scratch; the warps' bf16 V tiles (rows padded by 16 bytes); Q's
+    fragments; the appended rows; the barriers and a flag."""
+    pd = -(-D // 16) * 16
+    stage = 2 * INT8_TILE * pd + 2 * INT8_TILE * 4
+    ring = max(stages * stage, _INT8_NCW * G * pd * 4 + 2 * _INT8_NCW * G * 4,
+               _MAX_SPLITS * G * 4)
+    return (ring + _INT8_NCW * _INT8_WT * (2 * pd + 16) + -(-D // 64) * 2048
+            + 2 * pd + 16 + 2 * stages * 8 + 16)
+
+
+def int8_blocks(D: int) -> int:
+    """Blocks an SM the int8 kernel's registers are bounded for at head_dim
+    D (csrc `min_blocks`): three at D 64 and 128, two at other D up to
+    128, one above."""
+    return 1 if -(-D // 16) * 16 > 128 else 3 if D in (64, 128) else 2
+
+
+def int8_stages(D: int, G: int) -> int:
+    """Stages of the int8 kernel's ring: the most that leave room for
+    `int8_blocks(D)` blocks an SM."""
+    lo, hi = _INT8_STAGES
+    blocks = int8_blocks(D)
+    for n in range(hi, lo - 1, -1):
+        if blocks * (int8_smem_bytes(D, G, n) + _SMEM_RESERVED) <= _SM_SMEM:
+            return n
+    raise ValueError(f"decode_attention_int8: D {D}, G {G} leave no room for "
+                     f"{blocks} blocks an SM")
+
+
 def _cache_code(cache_dtype) -> int:
     return _INT8 if cache_dtype == torch.int8 else _DTYPES[cache_dtype]
 
@@ -133,6 +196,16 @@ def _slots(index: int, dtype, cache_dtype, hg: int) -> int:
                                     hg)
     if n < 1:
         raise RuntimeError(f"decode_attention: occupancy query failed ({n})")
+    return n * torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.cache
+def _int8_slots(index: int, D: int, smem: int) -> int:
+    """Blocks of the int8 kernel the card holds at once."""
+    n = _lib_int8().decode_int8_blocks_per_sm(D, smem)
+    if n < 1:
+        raise RuntimeError(f"decode_attention_int8: occupancy query failed "
+                           f"({n})")
     return n * torch.cuda.get_device_properties(index).multi_processor_count
 
 
@@ -175,9 +248,47 @@ def _cuda(q, k, v, valid_len, KVH, strides, k_scale, v_scale):
         _cache_code(k.dtype), B, H, KVH, D, hg, lanes(D, dpl), valid_len,
         split_len, n_splits, vec, k_scale.shape[2] if quant else 0,
         *strides, *strides, D ** -0.5, stream)
-    name = "decode_attention_int8" if quant else "decode_attention"
+    name = "decode_attention_int8_f32" if quant else "decode_attention"
     _build.check(lib, rc, name)
     _build.LAUNCHES[name] += 1
+    return out
+
+
+def _cuda_int8(q, k, v, valid_len, k_scale, v_scale, k_new=None, v_new=None,
+               slot=-1):
+    """The int8 kernel over the head-major (B, KVH, S, D) cache, bf16 q;
+    with `slot` >= 0 it first writes the quantized `k_new` / `v_new` at
+    `slot`."""
+    B, H, D = q.shape
+    _, KVH, S, _ = k.shape
+    G = H // KVH
+    dev = q.device
+    lib = _lib_int8()
+    stages = int8_stages(D, G)
+    smem = int8_smem_bytes(D, G, stages)
+    split_len, n_splits = plan_splits(
+        B, KVH, valid_len, INT8_TILE, _int8_slots(dev.index or 0, D, smem))
+    caches = (k, v, k_scale, v_scale)
+    bulk = int(D % 16 == 0 and S % 4 == 0
+               and all(t.data_ptr() % 16 == 0 for t in caches))
+    if D % 4 or any(t.data_ptr() % 4 for t in caches):
+        raise ValueError(f"decode_attention_int8: needs D % 4 == 0 and "
+                         f"4-byte aligned caches, got D {D}")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = torch.empty_like(q)
+    n_part = B * KVH * n_splits if n_splits > 1 else 0
+    o_part = torch.empty(n_part * G * D, dtype=F32, device=dev)
+    ml_part = torch.empty(n_part * G * 2, dtype=F32, device=dev)
+    rc = lib.decode_attention_int8(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
+        v_scale.data_ptr(), out.data_ptr(), o_part.data_ptr(),
+        ml_part.data_ptr(), _counters(dev, stream, B * KVH).data_ptr(),
+        None if k_new is None else k_new.data_ptr(),
+        None if v_new is None else v_new.data_ptr(), B, H, KVH, D, S,
+        valid_len, split_len, n_splits, stages, bulk, slot, _BF16_FLOOR,
+        D ** -0.5, stream)
+    _build.check(lib, rc, "decode_attention_int8")
+    _build.LAUNCHES["decode_attention_int8"] += 1
     return out
 
 
@@ -242,13 +353,58 @@ def decode_attention_head_major(q, k_cache, v_cache, valid_len,
                                 k_scale=None, v_scale=None):
     """q: (B, H, D); caches: (B, KVH, S, D) (the model's decode cache), in
     q's dtype or int8 with float32 `k_scale` / `v_scale` (B, KVH, S);
-    valid_len: scalar int in [1, S].  -> (B, H, D) in q's dtype."""
+    valid_len: scalar int in [1, S].  -> (B, H, D) in q's dtype.  On the
+    card an int8 cache goes by q's dtype: bf16 q to the int8 kernel,
+    float32 q to the float kernel's int8 instantiation."""
     valid_len = int(valid_len)
     S = _check(q, k_cache, v_cache, valid_len, 1, k_scale, v_scale)
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache.transpose(1, 2),
                                     v_cache.transpose(1, 2), valid_len,
                                     k_scale, v_scale)
+    if k_scale is not None and q.dtype == torch.bfloat16:
+        return _cuda_int8(q, k_cache, v_cache, valid_len, k_scale, v_scale)
     _, KVH, _, D = k_cache.shape
     return _cuda(q, k_cache, v_cache, valid_len, KVH,
                  (KVH * S * D, S * D, D), k_scale, v_scale)
+
+
+def decode_attention_int8_append(q, k_new, v_new, cache_k, cache_v, k_scale,
+                                 v_scale, slot, valid_len):
+    """The model's int8 decode step: quantizes the new token's `k_new` /
+    `v_new` ((B, KVH, D) in q's dtype, after RoPE) as `ref.quantize_kv`
+    does, writes payloads and float32 scales at cache row `slot` (in
+    place), then attends q (B, H, D) over the first `valid_len` rows of
+    the head-major int8 caches (B, KVH, S, D) with their `k_scale` /
+    `v_scale` (B, KVH, S); `slot` in [0, valid_len).  -> (B, H, D) in q's
+    dtype.  On the card one launch of the int8 kernel (bf16 q only); on
+    the CPU the quantizer, the four writes and the plain version."""
+    slot, valid_len = int(slot), int(valid_len)
+    if cache_k.dtype != torch.int8:
+        raise ValueError("decode_attention_int8_append: takes an int8 cache")
+    _check(q, cache_k, cache_v, valid_len, 1, k_scale, v_scale)
+    B, KVH, _, D = cache_k.shape
+    for name, t in (("k_new", k_new), ("v_new", v_new)):
+        if t.shape != (B, KVH, D) or t.dtype != q.dtype \
+                or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"decode_attention_int8_append: {name} must be "
+                             f"contiguous {q.dtype} of shape {(B, KVH, D)} on "
+                             f"{q.device}, got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+    if not 0 <= slot < valid_len:
+        raise ValueError(f"decode_attention_int8_append: slot {slot} not in "
+                         f"[0, {valid_len})")
+    if q.device.type == "cpu":
+        k8, ks = quantize_kv(k_new)
+        v8, vs = quantize_kv(v_new)
+        k_scale[:, :, slot] = ks
+        v_scale[:, :, slot] = vs
+        cache_k[:, :, slot] = k8
+        cache_v[:, :, slot] = v8
+        return decode_attention_head_major(q, cache_k, cache_v, valid_len,
+                                           k_scale, v_scale)
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"decode_attention_int8_append: the card's kernel "
+                         f"takes a bfloat16 q, got {q.dtype}")
+    return _cuda_int8(q, cache_k, cache_v, valid_len, k_scale, v_scale,
+                      k_new, v_new, slot)

@@ -1,5 +1,6 @@
 """Plain PyTorch oracles of the ported kernels (counterparts of
-`repro/kernels/ref.py:15,37,52,66`).
+`repro/kernels/ref.py:15,37,52,66`), and the int8 KV quantizer that
+the reference computes in its attention block.
 
 Deliberately naive — the semantics contract, not the fast path.  The
 decode oracle is also the CPU path of `ops.decode_attention` and the
@@ -57,6 +58,22 @@ def decode_attention_ref(q, k_cache, v_cache, valid_len, k_scale=None,
         w = w * v_scale[:, :, None, :]
     o = torch.einsum("bhgs,bshd->bhgd", w, v_cache.to(F32))
     return o.reshape(B, H, D).to(q.dtype)
+
+
+def quantize_kv(x):
+    """Per-(token, head) int8 quantization of a new token's k or v, in the
+    reference's order of operations (`repro/models/attention.py:123-130`):
+    the scale is max(|x|.max(-1), 1e-8) in x's dtype, then float32 / 127;
+    the payload round(x.float() / scale), half to even, clipped to +-127.
+    x: (..., hd) -> (int8 payload (..., hd), float32 scale (...)).  The
+    plain version of the int8 decode kernel's append.  The 127 is a
+    tensor: PyTorch's CUDA division by a Python number multiplies by its
+    rounded reciprocal, one bit off the reference's division."""
+    floor = torch.full((), 1e-8, dtype=x.dtype, device=x.device)
+    d127 = torch.full((), 127.0, dtype=F32, device=x.device)
+    scale = torch.maximum(x.abs().amax(dim=-1), floor).to(F32) / d127
+    q = torch.round(x.to(F32) / scale[..., None])
+    return q.clamp(-127, 127).to(torch.int8), scale
 
 
 def ralt_update_ref(ticks, scores, hits, now, alpha):

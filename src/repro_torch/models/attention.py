@@ -7,9 +7,12 @@ is the hand-written flash kernel.  The decode cache is head-major
 decode core is the hand-written decode kernel
 (`kernels.ops.decode_attention_head_major`), which reads that layout in
 place, and an int8 cache (`cfg.kv_quant`) with its per-(token, head)
-float32 scales.  A windowed layer's decode cache is a ring buffer of its
-window (`models/transformer.py:decode_step` passes the write slot and
-the valid length), so decode needs no window mask.  Both take an
+float32 scales: with a bf16 model one call
+(`kernels.ops.decode_attention_int8_append`) quantizes the new token
+(`quantize_kv`, kept in `kernels/ref.py`), writes it and attends.  A
+windowed layer's decode cache is a ring buffer of its window
+(`models/transformer.py:decode_step` passes the write slot and the valid
+length), so decode needs no window mask.  Both take an
 `mlp_fn` in place of the block's SwiGLU (the `moe` block's expert MLP,
 `models/moe.py`).
 """
@@ -18,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import ops
+from ..kernels.ref import quantize_kv
 from .common import F32, flash_attention, rms_norm, rope, swiglu
 
 
@@ -86,18 +90,6 @@ def attn_block(p, x, cfg, window: int | None = None, positions=None,
     return x + _mlp(p, h, mlp_fn), (k, v)
 
 
-def quantize_kv(x):
-    """Per-(token, head) int8 quantization of a new token's k or v, in the
-    reference's order of operations (`repro/models/attention.py:123-130`):
-    the scale is max(|x|.max(-1), 1e-8) in x's dtype, then float32 / 127;
-    the payload round(x.float() / scale), half to even, clipped to +-127.
-    x: (B, KV, hd) -> (int8 payload (B, KV, hd), float32 scale (B, KV))."""
-    floor = torch.tensor(1e-8, dtype=x.dtype, device=x.device)
-    scale = torch.maximum(x.abs().amax(dim=-1), floor).to(F32) / 127
-    q = torch.round(x.to(F32) / scale[..., None])
-    return q.clamp(-127, 127).to(torch.int8), scale
-
-
 def attn_decode(p, x, cache_k, cache_v, pos: int, cfg, mlp_fn=None, *,
                 slot: int, valid_len: int, k_scale=None, v_scale=None):
     """Single-token decode.  x: (B, d); caches head-major (B, KV, S, hd),
@@ -110,17 +102,23 @@ def attn_decode(p, x, cache_k, cache_v, pos: int, cfg, mlp_fn=None, *,
     h = rms_norm(x, p["norm1"])
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q, k, v = (t[:, 0] for t in _qkv(p, h[:, None], positions, cfg))
-    if cache_k.dtype == torch.int8:
-        k, ks = quantize_kv(k)
-        v, vs = quantize_kv(v)
-        k_scale[:, :, slot] = ks
-        v_scale[:, :, slot] = vs
-    # in-place write of the new token (replaces the reference's
-    # dynamic_update_slice, which returns a new cache)
-    cache_k[:, :, slot] = k.to(cache_k.dtype)
-    cache_v[:, :, slot] = v.to(cache_v.dtype)
-    o = ops.decode_attention_head_major(q, cache_k, cache_v, valid_len,
-                                        k_scale=k_scale, v_scale=v_scale)
+    if cache_k.dtype == torch.int8 and q.dtype == torch.bfloat16:
+        # quantize, write at `slot` and attend: one launch on the card
+        o = ops.decode_attention_int8_append(q, k, v, cache_k, cache_v,
+                                             k_scale, v_scale, slot,
+                                             valid_len)
+    else:
+        if cache_k.dtype == torch.int8:
+            k, ks = quantize_kv(k)
+            v, vs = quantize_kv(v)
+            k_scale[:, :, slot] = ks
+            v_scale[:, :, slot] = vs
+        # in-place write of the new token (replaces the reference's
+        # dynamic_update_slice, which returns a new cache)
+        cache_k[:, :, slot] = k.to(cache_k.dtype)
+        cache_v[:, :, slot] = v.to(cache_v.dtype)
+        o = ops.decode_attention_head_major(q, cache_k, cache_v, valid_len,
+                                            k_scale=k_scale, v_scale=v_scale)
     x = x + o.reshape(B, -1) @ p["wo"].reshape(-1, d)
     h = rms_norm(x, p["norm2"])
     return x + _mlp(p, h, mlp_fn)
