@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from `src/repro_torch/csrc` and runs
-fifteen phases, each printing one JSON line:
+sixteen phases, each printing one JSON line:
 
   device   the card's name and power limit, and the kernels' build time;
   ptxas    registers and spill bytes of the flash, decode (float and
@@ -85,12 +85,28 @@ fifteen phases, each printing one JSON line:
            token and attends; no other decode kernel launched), with the
            cache's bytes against the bf16 cache's, the greedy tokens'
            agreement with the `serve` run's and the ms a step over the
-           `serve` run's.
+           `serve` run's;
+  zamba2   zamba2-7b at full width (32 heads of 112, the flash kernel's
+           64 + 32 + 16-column cut; SSM 112 heads of 64, state 64): the
+           CUDA decode path's smoke logits against the CPU path's; a
+           2 x 512-token prefill against 512 teacher-forced decode steps
+           at 15 of 81 layers (the shared block twice) in float32, every
+           mamba2 state and every shared occurrence's k/v; at full depth
+           (81 layers, the shared block's one set of weights at 13, each
+           occurrence with its own KV cache) 8 requests through
+           `ServeEngine`, one timed 4096-token prefill, one 32,768-token
+           prefill and 32 greedy decode steps from its cache; 4 train
+           steps at the 15 layers, the flash kernel against the plain
+           attention core on step 0, AdamW's leaves counted against the
+           reference's per-layer count.
 
 Kernel launches are counted from zero in each of the serve, tiered,
 tracker, prefill, train and int8 runs, in each part of the mamba2, moe,
-window and mixtral runs, in each dense model's serve run and in each
-cache's replay.
+window, mixtral and zamba2 runs, in each dense model's serve run and in
+each cache's replay.  The summary line's launches of the flash, decode
+and ssd kernels add zamba2's main-path runs to those of the train, serve
+and mamba2 runs, and their rows carry the numbers of zamba2's shape
+beside their first shape's.
 Then come the kernel summary line, the `nvidia-smi` line and the result
 line.
 Exits nonzero without CUDA, outside a checkout of the repository, and
@@ -147,6 +163,12 @@ WINDOW_ARCH, WINDOW_PROMPT, WINDOW_CHECK_LEN = "gemma3-4b", 1024, 1088
 MIXTRAL_ARCH, MIXTRAL_LAYERS, MIXTRAL_PREFILL = "mixtral-8x22b", 8, 8192
 # dense run: musicgen's audio stub, the reference's FRONTEND_LEN["audio"]
 DENSE_ARCHS, AUDIO_FRAMES = ("minitron-8b", "musicgen-large"), 64
+# zamba2 run: full width and depth (81 layers, the shared attention block
+# at 13 of them); a 32,768-token prefill (the reference's decode_32k
+# length at batch 1, not 128) and DECODE_STEPS decode steps from it; the
+# hand-off check and the train steps at 15 layers: stages
+# ((2, 5 x mamba2 + shared_attn), (1, 3 x mamba2)), the shared block twice
+ZAMBA_ARCH, ZAMBA_LONG, ZAMBA_REPEATS = "zamba2-7b", 32_768, (2, 1)
 
 
 def emit(phase: str, **fields) -> None:
@@ -553,7 +575,15 @@ def kernels_phase(dev, flush, power: str) -> dict:
                   # serving shape (G 6), musicgen's (MHA, D 64)
                   (BATCH, 8, 4, 256, 1024, 1024, bf16),
                   (BATCH, 48, 8, 128, MAX_LEN, PROMPT + 1, bf16),
-                  (BATCH, 32, 32, 64, MAX_LEN, PROMPT + 1, bf16))]
+                  (BATCH, 32, 32, 64, MAX_LEN, PROMPT + 1, bf16),
+                  # zamba2 (G 1, D 112): its serving shape, the step after
+                  # the long prefill (the split path over 32,769 tokens)
+                  # and the float32 hand-off check's first decoded token
+                  (BATCH, 32, 32, 112, MAX_LEN, PROMPT + 1, bf16),
+                  (1, 32, 32, 112, ZAMBA_LONG + DECODE_STEPS, ZAMBA_LONG + 1,
+                   bf16),
+                  (HANDOFF_BATCH, 32, 32, 112, HANDOFF_LEN + 1,
+                   HANDOFF_LEN + 1, f32))]
     # the int8 cache: llama3's serving shape with the appended token (the
     # model's call), the long cache, qwen3's G 16 and gemma3's full D 256
     # ring with a wrapped slot (position 1,061)
@@ -561,7 +591,10 @@ def kernels_phase(dev, flush, power: str) -> dict:
                for shape in ((BATCH, 32, 8, 128, MAX_LEN, PROMPT + 1, PROMPT),
                              (8, 32, 8, 128, 32_768, 30_001),
                              (BATCH, 64, 4, 128, MAX_LEN, PROMPT + 1, PROMPT),
-                             (BATCH, 8, 4, 256, 1024, 1024, 1061 % 1024))]
+                             (BATCH, 8, 4, 256, 1024, 1024, 1061 % 1024),
+                             # zamba2's serving shape, D 112
+                             (BATCH, 32, 32, 112, MAX_LEN, PROMPT + 1,
+                              PROMPT))]
     flash = [flash_case(ops, fa, dev, g, flush, *shape)
              for shape in (
                  # the training path's shapes: stablelm-3b (D = 80, MHA)
@@ -577,7 +610,13 @@ def kernels_phase(dev, flush, power: str) -> dict:
                  # gemma3's windowed prefill (D 256, window 1024) and
                  # mixtral's (G 6, window 4096)
                  (1, PREFILL_LEN, 8, 4, 256, 1024, bf16),
-                 (1, MIXTRAL_PREFILL, 48, 8, 128, 4096, bf16))]
+                 (1, MIXTRAL_PREFILL, 48, 8, 128, 4096, bf16),
+                 # zamba2's prefill (D 112 = 64 + 32 + 16 columns, G 1);
+                 # D 112 at G 4 with a window over a ragged S; the float32
+                 # hand-off check's prefill
+                 (1, PREFILL_LEN, 32, 32, 112, None, bf16),
+                 (1, 3001, 32, 8, 112, 512, bf16),
+                 (HANDOFF_BATCH, HANDOFF_LEN, 32, 32, 112, None, f32))]
     ssd_cases = [ssd_case(ops, ssd, dev, g, flush, *shape)
                  for shape in (
                      # mamba2-1.3b's prefill and training shape (4096
@@ -589,7 +628,11 @@ def kernels_phase(dev, flush, power: str) -> dict:
                      (1, 16, 256, 64, 64, 128, f32),
                      (HANDOFF_BATCH, 2, 256, 64, 64, 128, f32),
                      (HANDOFF_BATCH, 2, 256, 64, 64, 128, bf16),
-                     (1, 16, 256, 64, 64, 128, bf16, 40.0))]
+                     (1, 16, 256, 64, 64, 128, bf16, 40.0),
+                     # zamba2's prefill (nh 112, hp 64, ns 64) and its
+                     # float32 hand-off check
+                     (1, 16, 256, 112, 64, 64, bf16),
+                     (HANDOFF_BATCH, 2, 256, 112, 64, 64, f32))]
     torch.cuda.synchronize()
     emit("kernels", ralt_update=dict(
         tpu_counterpart="src/repro/kernels/ralt_score.py:78", cases=ralt),
@@ -615,10 +658,14 @@ def kernels_phase(dev, flush, power: str) -> dict:
     # the main path's shapes: the tracker's page table (one page a
     # record), the first generated token's decode step (bf16 and int8
     # caches), stablelm-3b's training attention, mamba2-1.3b's prefill
-    # and training scan
+    # and training scan; and zamba2's: its prefill's attention and scan
+    # and its serving decode step
     return {"ralt_update": ralt[0], "ralt_record": record[0],
             "decode_attention": decode[1], "decode_attention_int8": decode8[0],
-            "flash_attention": flash[0], "ssd_scan": ssd_cases[0]}
+            "flash_attention": flash[0], "ssd_scan": ssd_cases[0],
+            "zamba2": {"flash_attention": flash[8],
+                       "decode_attention": decode[11],
+                       "ssd_scan": ssd_cases[5]}}
 
 
 # ----------------------------------------------------------------------
@@ -661,9 +708,11 @@ def serve_run(eng, cfg, dev, requests: int = REQUESTS, prompt: int = PROMPT,
     checked for NaN; `decode_op` names the decode kernel the cache's
     dtype takes.  -> (results, checks, launches, {rid: tokens})."""
     from repro_torch.kernels import ops
-    from repro_torch.models.transformer import padded_vocab
+    from repro_torch.models.transformer import layer_blocks, padded_vocab
     from repro_torch.serving import engine
 
+    # layers with a KV cache: every layer but zamba2's mamba2 layers
+    attn_layers = sum(b.kind != "mamba2" for b in layer_blocks(cfg))
     rng = np.random.default_rng(0)
     for rid in range(requests):
         eng.submit(engine.Request(
@@ -711,7 +760,7 @@ def serve_run(eng, cfg, dev, requests: int = REQUESTS, prompt: int = PROMPT,
                                      for t in r.out),
         "no NaN logits": not bool(nan_seen),
         "decode kernel once per layer and step":
-            launches[decode_op] == cfg.n_layers * eng.steps_used,
+            launches[decode_op] == attn_layers * eng.steps_used,
         "no launch of another decode kernel": not any(launches[op]
                                                       for op in others),
     }
@@ -1098,11 +1147,30 @@ def train_phase(dev, power: str) -> dict:
 # ----------------------------------------------------------------------
 # mamba2
 # ----------------------------------------------------------------------
+def decode_cache_from(cfg, cache, s_max: int, dev) -> list:
+    """The decode cache that continues from a prefill step's `cache`:
+    mamba2 states as they are, attention k/v (B, S, KV, hd) written
+    head-major into the first S of `s_max` slots."""
+    from repro_torch.models import transformer
+
+    batch = next(iter(cache[0].values())).shape[0]
+    out = transformer.init_cache(cfg, batch, s_max, dev)
+    for o, c in zip(out, cache):
+        for name, t in c.items():
+            if name in ("k", "v"):
+                o[name][:, :, :t.shape[1]] = t.transpose(1, 2)
+            else:
+                o[name].copy_(t)
+    return out
+
+
 def mamba2_handoff(cfg, params, prompt, dev) -> dict:
     """The prefill step over prompt[:, :-1] against teacher-forced decode
-    steps over the same tokens: last logits and every layer's ssm and
-    conv state, then the logits of the last token decoded from each
-    cache; as err/tol (at most 1 inside allclose 2e-2)."""
+    steps over the same tokens: last logits and every layer's cache (a
+    mamba2 layer's ssm and conv state, an attention layer's k/v), then
+    the logits of the last token decoded from each cache; as err/tol (at
+    most 1 inside allclose 2e-2).  Launches of the prefill counted from
+    zero."""
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import transformer
@@ -1110,24 +1178,32 @@ def mamba2_handoff(cfg, params, prompt, dev) -> dict:
     B, T = prompt.shape[0], prompt.shape[1] - 1
     ops.reset_launches()
     last, cache = make_prefill_step(cfg)(params, {"tokens": prompt[:, :T]})
-    launches = ops.LAUNCHES["ssd_scan"]
+    launches = dict(ops.LAUNCHES)
     dcache = transformer.init_cache(cfg, B, T + 1, dev)
     tol = TOL[torch.bfloat16]
+
+    def layer_over(c, d):
+        if "ssm" in c:
+            return max(excess(c[n], d[n], tol, tol) for n in ("ssm", "conv"))
+        return max(excess(c[n], d[n][:, :, :T].transpose(1, 2), tol, tol)
+                   for n in ("k", "v"))
+
     with torch.no_grad():
         for pos in range(T):
             logits = transformer.decode_step(params, cfg, dcache,
                                              prompt[:, pos], pos)
-        by_layer = [max(excess(c[n], d[n], tol, tol) for n in ("ssm", "conv"))
-                    for c, d in zip(cache, dcache)]
+        by_layer = [layer_over(c, d) for c, d in zip(cache, dcache)]
         logits_over = excess(last, logits, tol, tol)
         nxt = [transformer.decode_step(params, cfg, c, prompt[:, T], T)
-               for c in (cache, dcache)]
+               for c in (decode_cache_from(cfg, cache, T + 1, dev), dcache)]
     next_over = excess(nxt[0], nxt[1], tol, tol)
     return dict(err_over_tol=max(by_layer + [logits_over, next_over]),
                 logits_err_over_tol=logits_over,
                 next_logits_err_over_tol=next_over,
                 next_logits_max_abs_err=float((nxt[0] - nxt[1]).abs().max()),
-                state_err_over_tol_by_layer=by_layer, ssd_launches=launches,
+                state_err_over_tol_by_layer=by_layer,
+                ssd_launches=launches["ssd_scan"],
+                flash_launches=launches["flash_attention"],
                 finite=bool(torch.isfinite(last).all()
                             and torch.isfinite(nxt[0]).all()))
 
@@ -1512,7 +1588,7 @@ def caches_phase(dev, power: str) -> dict:
 def timed_prefill(cfg, params, dev, tokens, frontend_emb=None) -> dict:
     """One timed prefill of `tokens` after an untimed warm-up of the same
     shape, launches counted from zero: seconds, tokens/s, peak memory,
-    flash launches, finite logits."""
+    flash and ssd launches, finite logits."""
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import make_prefill_step
 
@@ -1532,6 +1608,7 @@ def timed_prefill(cfg, params, dev, tokens, frontend_emb=None) -> dict:
                 tokens_per_s=tokens.shape[1] / wall,
                 max_memory_allocated=torch.cuda.max_memory_allocated(dev),
                 flash_launches=ops.LAUNCHES["flash_attention"],
+                ssd_launches=ops.LAUNCHES["ssd_scan"],
                 finite=bool(torch.isfinite(last).all()))
 
 
@@ -1712,6 +1789,220 @@ def int8_phase(dev, power: str, bf16_tokens: dict, bf16_ms: float) -> dict:
 
 
 # ----------------------------------------------------------------------
+# zamba2
+# ----------------------------------------------------------------------
+def zamba2_cut(cfg):
+    """zamba2's stages with their repeats cut to ZAMBA_REPEATS: the
+    hybrid pattern and the shared block's reuse kept, 15 of 81 layers."""
+    return dataclasses.replace(cfg, stages=tuple(
+        (r, blocks) for r, (_, blocks) in zip(ZAMBA_REPEATS, cfg.stages)))
+
+
+def reference_leaf_count(tree) -> int:
+    """Leaves of a tree in the reference's layout (`convert.
+    params_to_reference`), a stage's stacked leaf counted once per layer
+    it holds and each ``shared`` leaf once: the tensors a layer-by-layer
+    tree of the same model must have."""
+    from repro_torch.tree import named_leaves
+
+    return sum(leaf.shape[0] if name.startswith("stages/") else 1
+               for name, leaf in named_leaves(tree))
+
+
+def zamba2_phase(dev, power: str) -> dict:
+    """zamba2-7b at full width (d_model 3584, 32 heads of 112, SSM 112 x
+    64 heads with state 64): (a) the CUDA decode path's smoke logits
+    against the CPU path's; (b) a 2 x 512-token prefill against 512
+    teacher-forced decode steps at the cut depth in float32: last logits,
+    every mamba2 layer's ssm and conv state, every shared occurrence's
+    k/v; at full depth, from seeded bf16 weights: (c) REQUESTS requests
+    through `ServeEngine`; (d) one timed PREFILL_LEN-token prefill; (e)
+    one ZAMBA_LONG-token prefill and DECODE_STEPS greedy decode steps
+    from its cache; then (f) training at the cut depth as `train_run`
+    runs it, the flash kernel against the plain attention core on step
+    0, AdamW's leaves counted against the reference's."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_to_reference
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import attention, transformer
+    from repro_torch.serving import engine
+    from repro_torch.tree import tree_leaves, tree_map
+
+    ref_err = reference_check(dev, ZAMBA_ARCH)
+    cfg = get_config(ZAMBA_ARCH)
+    cut = zamba2_cut(cfg)
+
+    def shared_count(c):
+        return sum(b.kind == "shared_attn"
+                   for b in transformer.layer_blocks(c))
+
+    n_shared, n_cut_shared = shared_count(cfg), shared_count(cut)
+    n_mamba, n_cut_mamba = (c.n_layers - n for c, n in
+                            ((cfg, n_shared), (cut, n_cut_shared)))
+    rng = np.random.default_rng(6)
+    # (b) the hand-off at the cut depth, the seeded bf16 weights computed
+    # in float32 (exact copies), as the mamba2 phase checks it
+    g = torch.Generator(device=dev).manual_seed(0)
+    params32 = tree_map(lambda t: t.float(),
+                        transformer.init_params(cut, g, dev))
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (HANDOFF_BATCH, HANDOFF_LEN + 1))).to(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    handoff = mamba2_handoff(dataclasses.replace(cut, dtype="float32"),
+                             params32, prompt, dev)
+    handoff_mem = torch.cuda.max_memory_allocated(dev)
+    del params32
+    torch.cuda.empty_cache()
+    # (c) serve at full depth
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    eng = engine.ServeEngine(cfg, batch=BATCH, max_len=MAX_LEN, seed=0,
+                             device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = eng.params
+    serve, serve_checks, serve_launches, _ = serve_run(eng, cfg, dev)
+    del eng
+    # (d) prefill at full depth
+    prefill = timed_prefill(cfg, params, dev, torch.from_numpy(
+        rng.integers(0, cfg.vocab, (1, PREFILL_LEN))).to(dev))
+    # (e) the long prefill, then greedy decode from its cache
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                           (1, ZAMBA_LONG))).to(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last, cache = make_prefill_step(cfg)(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    long_s = time.perf_counter() - t0
+    long_launches = dict(ops.LAUNCHES)
+    dcache = decode_cache_from(cfg, cache, ZAMBA_LONG + DECODE_STEPS, dev)
+    del cache
+    cache_bytes = sum(t.numel() * t.element_size() for c in dcache
+                      for n, t in c.items() if n in ("k", "v"))
+    tok = last.argmax(dim=-1)
+    finite = bool(torch.isfinite(last).all())
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for i in range(DECODE_STEPS):
+            logits = transformer.decode_step(params, cfg, dcache, tok,
+                                             ZAMBA_LONG + i)
+            tok = logits.argmax(dim=-1)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / DECODE_STEPS
+    decode_launches = dict(ops.LAUNCHES)
+    finite = finite and bool(torch.isfinite(logits).all())
+    long_mem = torch.cuda.max_memory_allocated(dev)
+    del params, dcache, last, logits
+    torch.cuda.empty_cache()
+    # (f) training at the cut depth; AdamW's leaves counted as it runs
+    updates = []
+    adamw_update = steps.adamw_update
+
+    def counting(params, grads, state, *args, **kw):
+        leaves = tree_leaves(params)
+        updates.append(dict(
+            leaves=len(leaves), distinct=len({id(x) for x in leaves}),
+            grad_leaves=len(tree_leaves(grads)),
+            shared_grad_leaves=len(tree_leaves(grads.get("shared"))),
+            shared_layers_empty=sum(grads["layers"][i] is None
+                                    for i, b in enumerate(
+                                        transformer.layer_blocks(cut))
+                                    if b.kind == "shared_attn")))
+        if len(updates) == 1:
+            updates[0]["params"] = params
+        return adamw_update(params, grads, state, *args, **kw)
+
+    steps.adamw_update = counting
+    try:
+        train, train_launches = train_run(cut, dev, "flash_attention_fwd",
+                                          fa.flash_attention_plain)
+    finally:
+        steps.adamw_update = adamw_update
+    ref_leaves = reference_leaf_count(params_to_reference(
+        updates[0].pop("params"), cut))
+    torch.cuda.empty_cache()
+    res = dict(
+        model=cfg.name, layers=cfg.n_layers, shared_occurrences=n_shared,
+        d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.head_dim, ssm_heads=cfg.ssm_heads,
+        ssm_head_dim=cfg.ssm_head_dim, ssm_state=cfg.ssm_state,
+        dtype=cfg.dtype, params=cfg.param_count(),
+        cut=dict(stages="((2, 5 x mamba2 + shared_attn), (1, 3 x mamba2))",
+                 layers=cut.n_layers, shared_occurrences=n_cut_shared,
+                 params=cut.param_count(), used_by=["handoff", "train"]),
+        cuda_vs_cpu_smoke_logits_max_abs_err=ref_err,
+        handoff=dict(batch=HANDOFF_BATCH, tokens=HANDOFF_LEN,
+                     compute="float32", tol=TOL[torch.bfloat16],
+                     max_memory_allocated=handoff_mem, **handoff),
+        serve=dict(**serve, init_s=init_s), prefill=prefill,
+        long=dict(tokens=ZAMBA_LONG, batch=1, prefill_s=long_s,
+                  tokens_per_s=ZAMBA_LONG / long_s,
+                  flash_launches=long_launches["flash_attention"],
+                  ssd_launches=long_launches["ssd_scan"],
+                  kv_cache_bytes=cache_bytes, decode_steps=DECODE_STEPS,
+                  decode_ms_per_step=decode_ms,
+                  decode_launches=decode_launches["decode_attention"],
+                  max_memory_allocated=long_mem),
+        train=dict(**train, flash_launches=train_launches["flash_attention"],
+                   ssd_launches=train_launches["ssd_scan"],
+                   adamw_updates=updates, reference_leaves=ref_leaves),
+        power_limit=power)
+    emit("zamba2", **res)
+    per_step = 2 * TRAIN_MICRO * TRAIN_STEPS   # forward and remat
+    fail_on("zamba2", {
+        "CUDA decode logits match the CPU path's (smoke, 1e-4)":
+            ref_err <= 1e-4,
+        "prefill hands decode its cache, every shared occurrence's k/v "
+        "(float32, 2e-2)": handoff["err_over_tol"] <= 1.0,
+        "hand-off: flash once per shared occurrence, ssd once per mamba2 "
+        "layer": handoff["flash_launches"] == n_cut_shared
+        and handoff["ssd_launches"] == n_cut_mamba,
+        **serve_checks,
+        "flash launches = 13 a full-depth prefill":
+            prefill["flash_launches"] == long_launches["flash_attention"]
+            == n_shared == 13,
+        "ssd op calls = 68 a prefill":
+            prefill["ssd_launches"] == long_launches["ssd_scan"]
+            == n_mamba == 68,
+        "decode launches = 13 x steps":
+            decode_launches["decode_attention"] == n_shared * DECODE_STEPS,
+        "finite logits": finite and prefill["finite"] and handoff["finite"],
+        "finite losses": all(np.isfinite(train["losses"])),
+        "train step 0 with the kernel within 2e-2 of the plain core":
+            max(train["check_rel_err"].values()) <= 2e-2,
+        "train: flash once per shared occurrence, pass, microbatch and "
+        "step": train_launches["flash_attention"] == n_cut_shared * per_step,
+        "train: ssd once per mamba2 layer, pass, microbatch and step":
+            train_launches["ssd_scan"] == n_cut_mamba * per_step,
+        "the shared block's gradient is one tensor, updated once a step":
+            len(updates) == TRAIN_STEPS and all(
+                u["leaves"] == u["distinct"] == u["grad_leaves"] == ref_leaves
+                and u["shared_grad_leaves"] == len(attention.WEIGHTS)
+                and u["shared_layers_empty"] == n_cut_shared
+                for u in updates),
+        "under 80 GB": max(handoff_mem, serve["max_memory_allocated"],
+                           prefill["max_memory_allocated"], long_mem,
+                           train["max_memory_allocated"]) < 80e9,
+    })
+    # the launches of the phase's main-path runs, each counted from zero
+    return {"flash_attention": prefill["flash_launches"]
+            + long_launches["flash_attention"]
+            + train_launches["flash_attention"],
+            "decode_attention": serve_launches["decode_attention"]
+            + decode_launches["decode_attention"],
+            "ssd_scan": prefill["ssd_launches"] + long_launches["ssd_scan"]
+            + train_launches["ssd_scan"]}
+
+
+# ----------------------------------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1765,6 +2056,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches["decode_attention_int8"] = int8_phase(
         dev, power, bf16_tokens, bf16_ms)["decode_attention_int8"]
+    torch.cuda.empty_cache()
+    for name, n in zamba2_phase(dev, power).items():
+        launches[name] += n
     sources = {
         "ralt_update": ("src/repro_torch/csrc/ralt_score.cu",
                         "src/repro/kernels/ralt_score.py:78"),
@@ -1779,18 +2073,23 @@ def main() -> int:
                             "src/repro/kernels/flash_attention.py:111"),
         "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan.py:89")}
+    def numbers(case):
+        return {"max_abs_err": case["max_abs_err"], "ms": case["kernel_ms"],
+                "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
+                "bound_by": case["bound_by"],
+                "library_ms": case["library_ms"],
+                **shares(case["kernel_ms"], case["bound_ms"],
+                         case["library_ms"])}
+
+    # a kernel that zamba2's path runs at another shape carries that
+    # shape's numbers too
+    zamba = main_shapes["zamba2"]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
-         "launches": launches[name],
-         "max_abs_err": main_shapes[name]["max_abs_err"],
-         "ms": main_shapes[name]["kernel_ms"],
-         "plain_ms": main_shapes[name]["plain_ms"],
-         "bound_ms": main_shapes[name]["bound_ms"],
-         "bound_by": main_shapes[name]["bound_by"],
-         "library_ms": main_shapes[name]["library_ms"],
-         **shares(main_shapes[name]["kernel_ms"],
-                  main_shapes[name]["bound_ms"],
-                  main_shapes[name]["library_ms"])}
+         "launches": launches[name], **numbers(main_shapes[name]),
+         **({"zamba2": dict(shape=zamba[name]["shape"],
+                            **numbers(zamba[name]))}
+            if name in zamba else {})}
         for name, (src, tpu) in sources.items()]}), flush=True)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

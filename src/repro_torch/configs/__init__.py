@@ -2,9 +2,9 @@
 
 One module per architecture, each exporting ``CONFIG: ModelConfig`` and
 ``smoke()`` exactly as the reference's `repro.configs.<id>`.  Ported:
-every architecture but zamba2-7b (its `shared_attn` block), windowed
-ones (gemma3-4b, mixtral-8x22b) and the int8 KV cache (``kv_quant``)
-included; zamba2-7b raises ``KeyError`` with "not ported yet".
+all ten of the reference's architectures, windowed ones (gemma3-4b,
+mixtral-8x22b), the int8 KV cache (``kv_quant``) and zamba2-7b's shared
+attention block included.  An unknown id raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -24,17 +24,12 @@ ARCH_IDS = (
     "qwen3-moe-235b-a22b",
     "mixtral-8x22b",
 )
-PORTED = ("llama3-8b", "internvl2-1b", "stablelm-3b", "mamba2-1.3b",
-          "qwen3-moe-235b-a22b", "minitron-8b", "musicgen-large",
-          "gemma3-4b", "mixtral-8x22b")
+PORTED = ARCH_IDS               # every architecture of the reference
 
 
 def _module(arch_id: str):
     if arch_id not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
-    if arch_id not in PORTED:
-        raise KeyError(f"arch {arch_id!r} is not ported yet; "
-                       f"ported: {PORTED}")
     name = arch_id.replace("-", "_").replace(".", "_")
     return importlib.import_module(f".{name}", __package__)
 

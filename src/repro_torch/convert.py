@@ -5,7 +5,11 @@ torch cannot reproduce `jax.random`, so tests that compare the two
 packages initialise the reference (`repro.models.transformer.init_params`),
 turn its tree into numpy, and load it here.  The reference stacks each
 stage's layers along a leading repeat axis (`stages[i]["b<j>"][w]`); the
-port keeps one dict per layer in execution order.  The `_to_reference`
+port keeps one dict per layer in execution order.  zamba2's shared
+attention block is ``shared`` in both layouts, held once; its stage
+entries have no ``b<j>`` for it and its layers are None in the port's
+(`models.transformer`), so each shared tensor, and each optimizer moment
+of one, is a single leaf on both sides.  The `_to_reference`
 functions give the reference's layout back (torch CPU tensors, dtypes
 kept), which is also the layout the port's checkpoints are written in,
 so a checkpoint written by either package restores in the other.  Each
@@ -33,7 +37,10 @@ def _tensor(arr, dtype, device):
 
 
 def _weights(block) -> list[tuple]:
-    """The paths of one layer's leaves in its dict."""
+    """The paths of one layer's leaves in its dict (none for a
+    `shared_attn` layer, whose leaves are ``shared``'s)."""
+    if block.kind == "shared_attn":
+        return []
     if block.kind == "mamba2":
         return [(w,) for w in mamba2.WEIGHTS]
     if block.kind == "moe":
@@ -77,21 +84,20 @@ def params_from_reference(np_tree, cfg, device, dtype=None) -> dict:
     `cfg.dtype`, except the mamba2 leaves that the reference keeps in
     float32 (`mamba2.F32_WEIGHTS`).  Raises if any leaf is left unused."""
     dt = getattr(torch, dtype or cfg.dtype)
-    layer_blocks(cfg)                       # raises for unported kinds
+    every = layer_blocks(cfg)               # raises for unknown kinds
     left = {}
     for name in ("embed", "final_norm", "lm_head"):
         if np_tree.get(name) is not None:
             left[(name,)] = np_tree[name]
-    if np_tree.get("shared") is not None:
-        left[("shared",)] = np_tree["shared"]
 
     def walk(prefix, node):
         if isinstance(node, dict):
             for k, sub in node.items():
                 walk(prefix + (k,), sub)
-        else:
+        elif node is not None:
             left[prefix] = node
 
+    walk(("shared",), np_tree.get("shared"))
     for si, stage in enumerate(np_tree["stages"]):
         walk(("stages", si), stage)
 
@@ -110,6 +116,9 @@ def params_from_reference(np_tree, cfg, device, dtype=None) -> dict:
               "final_norm": take(("final_norm",))}
     if not cfg.tie_embeddings:
         params["lm_head"] = take(("lm_head",))
+    if any(b.kind == "shared_attn" for b in every):
+        params["shared"] = {w: take(("shared", w))
+                            for w in attention.WEIGHTS}
     stacked = {}
     for si, (_, blocks) in enumerate(cfg.stages):
         for bi, block in enumerate(blocks):
@@ -119,8 +128,9 @@ def params_from_reference(np_tree, cfg, device, dtype=None) -> dict:
     # each layer its own tensor (not a view of the stack), so it can be
     # updated in place and freed on its own
     params["layers"] = [
+        None if b.kind == "shared_attn" else
         _nest({path: t[r].clone() for path, t in stacked[si, bi].items()})
-        for si, bi, r, _ in _layer_index(cfg)]
+        for b, (si, bi, r, _) in zip(every, _layer_index(cfg))]
     if left:
         raise ValueError(f"unconsumed reference leaves: {sorted(left)}")
     return params
@@ -129,7 +139,8 @@ def params_from_reference(np_tree, cfg, device, dtype=None) -> dict:
 def params_to_reference(params, cfg) -> dict:
     """The inverse of `params_from_reference`: the reference's tree, each
     stage's layers stacked along the repeat axis, as detached CPU tensors
-    in the parameters' dtypes (``shared`` is None: no `shared_attn`)."""
+    in the parameters' dtypes (``shared`` is None without a
+    `shared_attn` block)."""
     def host(t):
         return t.detach().to("cpu", copy=True)
 
@@ -138,6 +149,8 @@ def params_to_reference(params, cfg) -> dict:
             "stages": [], "shared": None}
     if not cfg.tie_embeddings:
         tree["lm_head"] = host(params["lm_head"])
+    if params.get("shared") is not None:
+        tree["shared"] = {w: host(t) for w, t in params["shared"].items()}
     layers = params["layers"]
     index = _layer_index(cfg)
     for si, (_, blocks) in enumerate(cfg.stages):
@@ -146,7 +159,8 @@ def params_to_reference(params, cfg) -> dict:
                                                 for s, b, _, n in index
                                                 if (s, b) == (si, bi)])
                              for path in _weights(block)})
-            for bi, block in enumerate(blocks)})
+            for bi, block in enumerate(blocks)
+            if block.kind != "shared_attn"})
     return tree
 
 

@@ -47,13 +47,20 @@
 //     model scan (repro/models/common.py:97) and the plain version here
 //     do; the Pallas kernel keeps P in float32.  Both lie well inside the
 //     2e-2 bf16 tolerance.  The row sum l uses the unrounded P.
-//   * D is cut into 64-column chunks with 128-byte swizzle plus a 16- or
-//     32-column tail with 32- or 64-byte swizzle (a TMA box's inner
-//     extent may not exceed its swizzle span).  D = 80 (stablelm) is a
-//     64-column and a 16-column chunk: no padding, so Q.K^T does 80
-//     columns of work, and P.V is one n64 and one n16 wgmma per k step
-//     (the narrow one runs the tensor cores at a quarter of their width
-//     for a fifth of the P.V work).
+//   * D is cut into 64-column chunks with 128-byte swizzle, then at most
+//     one 32-column chunk with 64-byte swizzle and one 16-column chunk
+//     with 32-byte swizzle (a TMA box's inner extent may not exceed its
+//     swizzle span, and the wgmma descriptor knows only these three
+//     spans).  D = 80 (stablelm) is 64 + 16; D = 112 (zamba2) is
+//     64 + 32 + 16, with three maps per tensor.  No padding: Q.K^T does
+//     D columns of work, and P.V is one n64 (n32, n16) wgmma per chunk
+//     and k step; the narrow ones run the tensor cores at a half or a
+//     quarter of their width.  The other cut of 112, two 64-column boxes
+//     with TMA's out-of-bounds zeros in columns 112-127, was not taken:
+//     it costs 14 % more Q.K^T work and 20 KB more shared memory a block
+//     and must drop 16 output columns at the store, while the three-chunk
+//     cut reuses the 32- and 16-column paths that D = 32 and D = 80
+//     already run.
 //   * Only tiles that straddle the causal diagonal, the window edge or
 //     kv_len evaluate the mask; interior tiles skip it.  The key range of
 //     a block runs from the first tile the window reaches to the last one
@@ -108,8 +115,23 @@ constexpr size_t wgmma_smem_bytes(int D) {
          8 * (2 * STAGES + 1);
 }
 
-struct Maps {                   // TMA maps: 64-column chunks and the tail
-  CUtensorMap q, k, v, q_tail, k_tail, v_tail;
+// the columns of D past its 64-column chunks: a 32-column chunk, then a
+// 16-column one (D a multiple of 16)
+__host__ __device__ constexpr int cols32(int D) {
+  return D % 64 >= 32 ? 32 : 0;
+}
+__host__ __device__ constexpr int cols16(int D) { return D % 32; }
+// byte offsets of the 32- and 16-column chunks in a tile of n rows (each
+// chunk is n rows of its width, the 64-column chunks first)
+__host__ __device__ constexpr int off32(int n, int D) {
+  return n * 128 * (D / 64);
+}
+__host__ __device__ constexpr int off16(int n, int D) {
+  return off32(n, D) + n * 2 * cols32(D);
+}
+
+struct Maps {   // TMA maps: the 64-, 32- and 16-column chunks
+  CUtensorMap q, k, v, q32, k32, v32, q16, k16, v16;
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -377,7 +399,8 @@ __global__ void __launch_bounds__(rows_per_block(D) / WG_ROWS * WG + 32, 1)
                     int kv_lim, int q_offset, float scale_log2) {
   constexpr int ROWS = rows_per_block(D), KEYS = keys_per_tile(D);
   constexpr int NWG = ROWS / WG_ROWS;          // consumer warpgroups
-  constexpr int FULL = D / 64, TAIL = D % 64;  // 64-column chunks, tail
+  static_assert(D % 16 == 0, "D is cut into 64-, 32- and 16-col chunks");
+  constexpr int FULL = D / 64, T32 = cols32(D), T16 = cols16(D);
   constexpr int NS = KEYS / 2, NO = D / 2;     // accumulator registers
   constexpr int Q_BYTES = ROWS * D * 2, KV_BYTES = KEYS * D * 2;
   extern __shared__ uint8_t smem_raw[];
@@ -418,8 +441,11 @@ __global__ void __launch_bounds__(rows_per_block(D) / WG_ROWS * WG + 32, 1)
 #pragma unroll
       for (int c = 0; c < FULL; ++c)
         tma_load(q_s + ROWS * 128 * c, &maps.q, q_bar, 64 * c, h, q0, b);
-      if (TAIL)
-        tma_load(q_s + ROWS * 128 * FULL, &maps.q_tail, q_bar, 64 * FULL, h,
+      if (T32)
+        tma_load(q_s + off32(ROWS, D), &maps.q32, q_bar, 64 * FULL, h, q0,
+                 b);
+      if (T16)
+        tma_load(q_s + off16(ROWS, D), &maps.q16, q_bar, 64 * FULL + T32, h,
                  q0, b);
       for (int i = 0; i < n_tiles; ++i) {
         const int st = i % STAGES;
@@ -435,10 +461,16 @@ __global__ void __launch_bounds__(rows_per_block(D) / WG_ROWS * WG + 32, 1)
           tma_load(k_s + KEYS * 128 * c, &maps.k, full, 64 * c, kvh, k0, b);
           tma_load(v_s + KEYS * 128 * c, &maps.v, full, 64 * c, kvh, k0, b);
         }
-        if (TAIL) {
-          tma_load(k_s + KEYS * 128 * FULL, &maps.k_tail, full, 64 * FULL,
+        if (T32) {
+          tma_load(k_s + off32(KEYS, D), &maps.k32, full, 64 * FULL, kvh, k0,
+                   b);
+          tma_load(v_s + off32(KEYS, D), &maps.v32, full, 64 * FULL, kvh, k0,
+                   b);
+        }
+        if (T16) {
+          tma_load(k_s + off16(KEYS, D), &maps.k16, full, 64 * FULL + T32,
                    kvh, k0, b);
-          tma_load(v_s + KEYS * 128 * FULL, &maps.v_tail, full, 64 * FULL,
+          tma_load(v_s + off16(KEYS, D), &maps.v16, full, 64 * FULL + T32,
                    kvh, k0, b);
         }
       }
@@ -454,7 +486,8 @@ __global__ void __launch_bounds__(rows_per_block(D) / WG_ROWS * WG + 32, 1)
   const int wq_hi = q_offset + min(r0 + WG_ROWS, Sq) - 1;
   const int row0 = r0 + (warp % 4) * 16 + g;
   const uint32_t q_wg = q_s + wg * WG_ROWS * 128;       // in a 64-col chunk
-  const uint32_t q_wg_tail = q_s + ROWS * 128 * FULL + wg * WG_ROWS * TAIL * 2;
+  const uint32_t q_wg32 = q_s + off32(ROWS, D) + wg * WG_ROWS * T32 * 2;
+  const uint32_t q_wg16 = q_s + off16(ROWS, D) + wg * WG_ROWS * T16 * 2;
 
   float o[NO];
 #pragma unroll
@@ -481,13 +514,17 @@ __global__ void __launch_bounds__(rows_per_block(D) / WG_ROWS * WG + 32, 1)
           Wgmma<KEYS>::ss(s, desc(q_wg + ROWS * 128 * c + 32 * kk, 64, 16),
                           desc(k_s + KEYS * 128 * c + 32 * kk, 64, 16),
                           c > 0 || kk > 0);
-      if constexpr (TAIL > 0) {
+      if constexpr (T32 > 0) {
 #pragma unroll
-        for (int kk = 0; kk < TAIL / 16; ++kk)
-          Wgmma<KEYS>::ss(s, desc(q_wg_tail + 32 * kk, TAIL, 16),
-                          desc(k_s + KEYS * 128 * FULL + 32 * kk, TAIL, 16),
+        for (int kk = 0; kk < 2; ++kk)
+          Wgmma<KEYS>::ss(s, desc(q_wg32 + 32 * kk, 32, 16),
+                          desc(k_s + off32(KEYS, D) + 32 * kk, 32, 16),
                           FULL > 0 || kk > 0);
       }
+      if constexpr (T16 > 0)
+        Wgmma<KEYS>::ss(s, desc(q_wg16, 16, 16),
+                        desc(k_s + off16(KEYS, D), 16, 16),
+                        FULL > 0 || T32 > 0);
       wgmma_commit();
       wgmma_wait();
       fence_regs<NS>(s);
@@ -555,10 +592,14 @@ __global__ void __launch_bounds__(rows_per_block(D) / WG_ROWS * WG + 32, 1)
           Wgmma<64>::rs(o + 32 * c, pa[kk],
                         desc(v_s + KEYS * 128 * c + 16 * 128 * kk, 64,
                              KEYS * 128));
-        if constexpr (TAIL > 0)
-          Wgmma<TAIL>::rs(o + 32 * FULL, pa[kk],
-                          desc(v_s + KEYS * 128 * FULL + 16 * TAIL * 2 * kk,
-                               TAIL, KEYS * TAIL * 2));
+        if constexpr (T32 > 0)
+          Wgmma<32>::rs(o + 32 * FULL, pa[kk],
+                        desc(v_s + off32(KEYS, D) + 16 * 64 * kk, 32,
+                             KEYS * 64));
+        if constexpr (T16 > 0)
+          Wgmma<16>::rs(o + 32 * FULL + T32 / 2, pa[kk],
+                        desc(v_s + off16(KEYS, D) + 16 * 32 * kk, 16,
+                             KEYS * 32));
       }
       wgmma_commit();
       wgmma_wait();
@@ -649,7 +690,6 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
                  int causal, int window, int kv_lim, int q_offset,
                  float scale, cudaStream_t stream) {
   constexpr int ROWS = rows_per_block(D), KEYS = keys_per_tile(D);
-  constexpr int TAIL = D % 64;
   Maps maps = {};
   bool ok = true;
   if (D >= 64) {
@@ -657,10 +697,15 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
     ok = ok && make_map(&maps.k, k, B, Skv, KVH, D, 64, KEYS);
     ok = ok && make_map(&maps.v, v, B, Skv, KVH, D, 64, KEYS);
   }
-  if (TAIL > 0) {
-    ok = ok && make_map(&maps.q_tail, q, B, Sq, H, D, TAIL, ROWS);
-    ok = ok && make_map(&maps.k_tail, k, B, Skv, KVH, D, TAIL, KEYS);
-    ok = ok && make_map(&maps.v_tail, v, B, Skv, KVH, D, TAIL, KEYS);
+  if (cols32(D) > 0) {
+    ok = ok && make_map(&maps.q32, q, B, Sq, H, D, 32, ROWS);
+    ok = ok && make_map(&maps.k32, k, B, Skv, KVH, D, 32, KEYS);
+    ok = ok && make_map(&maps.v32, v, B, Skv, KVH, D, 32, KEYS);
+  }
+  if (cols16(D) > 0) {
+    ok = ok && make_map(&maps.q16, q, B, Sq, H, D, 16, ROWS);
+    ok = ok && make_map(&maps.k16, k, B, Skv, KVH, D, 16, KEYS);
+    ok = ok && make_map(&maps.v16, v, B, Skv, KVH, D, 16, KEYS);
   }
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = wgmma_smem_bytes(D);
@@ -909,6 +954,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
     case 80:
       return launch<80>(dtype, q, k, v, out, l, B, Sq, Skv, H, KVH, causal,
                         window, kv_lim, q_offset, scale, s);
+    case 112:
+      return launch<112>(dtype, q, k, v, out, l, B, Sq, Skv, H, KVH, causal,
+                         window, kv_lim, q_offset, scale, s);
     case 128:
       return launch<128>(dtype, q, k, v, out, l, B, Sq, Skv, H, KVH, causal,
                          window, kv_lim, q_offset, scale, s);

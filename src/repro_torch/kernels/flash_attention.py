@@ -10,7 +10,8 @@ float32 row log-sum-exp ``lse`` (B, H, Sq), the residual the backward in
 
   * `csrc/flash_attention.cu`: in bf16, one block per (128-row q tile,
     head, batch) with both products on `wgmma` and K/V tiles of 128 keys
-    brought by TMA into a 2-stage ring (64 rows and 64 keys at D = 256);
+    brought by TMA into a 2-stage ring (64 rows and 64 keys at D = 256),
+    D cut into column chunks of 64, 32 and 16 (`bf16_chunks`);
     in float32, the CUDA-core kernel of 64-row tiles and 64-key tiles.
     Both loop over the key tiles between the window's and the
     causal/kv_len limits with the online softmax in float32 (see the
@@ -38,7 +39,7 @@ from . import _build
 F32 = torch.float32
 NEG_INF = -1e30
 _DTYPES = {F32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 80, 128, 256)   # csrc instantiations
+HEAD_DIMS = (16, 32, 64, 80, 112, 128, 256)   # csrc instantiations
 STAGES = 2                               # csrc STAGES: bf16 K/V ring depth
 _F32_BQ = _F32_BK = 64                   # csrc F32_BQ, F32_BK
 SMEM_OPTIN = 232_448                     # a block's shared-memory limit
@@ -48,6 +49,14 @@ def bf16_tile(D: int) -> tuple[int, int]:
     """(query rows a block, keys a tile) of the bf16 kernel (csrc
     `rows_per_block`, `keys_per_tile`)."""
     return (64, 64) if D > 128 else (128, 128)
+
+
+def bf16_chunks(D: int) -> tuple[int, ...]:
+    """The column chunks the bf16 kernel cuts D into, each one TMA box
+    and one swizzle span (csrc `cols32`, `cols16`): 64-column chunks,
+    then at most one of 32 and one of 16 columns; 112 is 64 + 32 + 16."""
+    return (64,) * (D // 64) + ((32,) if D % 64 >= 32 else ()) \
+        + ((16,) if D % 32 else ())
 
 
 def smem_bytes(D: int, dtype=torch.bfloat16) -> int:

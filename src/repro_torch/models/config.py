@@ -10,11 +10,10 @@ Block kinds:
     moe         — attention + mixture-of-experts MLP
     mamba2      — pre-norm Mamba2 SSD mixer (no MLP)
     shared_attn — attention + MLP with weights *shared* across all
-                  occurrences (zamba2)
+                  occurrences (zamba2); each occurrence keeps its own
+                  decode cache
 
-Ported: `attn` and `moe` blocks (windowed or not, float or int8 KV
-cache) and `mamba2` blocks; the fields of `shared_attn` are kept so that
-the dataclasses stay equal to the reference's field for field.
+Every kind is ported.
 """
 from __future__ import annotations
 

@@ -136,7 +136,9 @@ def mamba2_mixer(p, xin, cfg):
     y = rms_norm(y, p["gated_norm"])
     out = y @ p["wout"]
     K = cfg.ssm_conv
-    conv_tail = F.pad(raw, (0, 0, K - 1, 0))[:, -(K - 1):]   # zeros if L < K-1
+    # zeros if L < K-1; a copy, since a view would keep the whole
+    # (B, L, conv_dim) stream alive in the prefill's cache
+    conv_tail = F.pad(raw, (0, 0, K - 1, 0))[:, -(K - 1):].clone()
     return xin + out, (h_last, conv_tail.to(xin.dtype))
 
 

@@ -1,9 +1,9 @@
 """Model assembly (port of `repro/models/transformer.py`): parameters,
 the train/prefill forward and loss, the decode cache and one decode step,
 for architectures built of `attn` and `moe` blocks (windowed or not, with
-a float or an int8 KV cache) and of `mamba2` blocks.  A windowed layer's
-decode cache is a ring buffer of min(window, s_max) slots, as the
-reference's (`_cache_len`).
+a float or an int8 KV cache), of `mamba2` blocks and of zamba2's
+`shared_attn` block.  A windowed layer's decode cache is a ring buffer of
+min(window, s_max) slots, as the reference's (`_cache_len`).
 
 Parameters are a plain dict: ``embed`` (V, d), ``final_norm`` (d,),
 ``lm_head`` (d, V) unless embeddings are tied, and ``layers``, one dict
@@ -12,7 +12,12 @@ reference stacks each stage's layers along a leading repeat axis instead;
 `convert.params_from_reference` maps one onto the other).  A `moe` layer
 holds the attention weights and a nested ``moe`` dict (`models/moe.py`)
 in place of the SwiGLU's; its forward routes with the configured
-capacity and its decode step dropless (`moe_ffn(dropless=True)`).
+capacity and its decode step dropless (`moe_ffn(dropless=True)`).  A
+`shared_attn` layer's entry is None: the block's weights are held once,
+in ``shared`` (an attention block with a SwiGLU of `shared_attn_d_ff`),
+and every occurrence applies them, so that each tensor is one leaf of
+the tree (one gradient, one AdamW update, one checkpoint entry); each
+occurrence keeps its own KV cache, as the reference's `init_cache` gives.
 Vocab sizes are padded to a multiple of 256.
 """
 from __future__ import annotations
@@ -26,7 +31,7 @@ from .config import ModelConfig
 from . import moe
 from .mamba2 import init_mamba2, mamba2_mixer, mamba2_step
 
-KINDS = ("attn", "mamba2", "moe")      # block kinds the port runs
+KINDS = ("attn", "mamba2", "moe", "shared_attn")   # block kinds
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -35,13 +40,20 @@ def padded_vocab(cfg: ModelConfig) -> int:
 
 def layer_blocks(cfg: ModelConfig) -> list:
     """The blocks of every layer in execution order; raises for a kind
-    the port cannot run yet (`shared_attn`)."""
+    the port does not know."""
     blocks = [b for repeat, bs in cfg.stages for _ in range(repeat)
               for b in bs]
     for b in blocks:
         if b.kind not in KINDS:
-            raise NotImplementedError(f"{b.kind} blocks are not ported yet")
+            raise NotImplementedError(f"{b.kind} blocks are not ported")
     return blocks
+
+
+def layer_params(params, cfg: ModelConfig):
+    """(block, weights) of every layer in execution order: a
+    `shared_attn` layer gets the one shared block."""
+    return [(b, params["shared"] if b.kind == "shared_attn" else p)
+            for b, p in zip(layer_blocks(cfg), params["layers"])]
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device):
@@ -49,6 +61,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device):
     `generator` (which must live on `device`)."""
     V, d = padded_vocab(cfg), cfg.d_model
     dt = getattr(torch, cfg.dtype)
+    blocks = layer_blocks(cfg)
 
     def normal(*shape):
         w = torch.randn(shape, generator=generator, dtype=F32, device=device)
@@ -58,12 +71,19 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device):
               "final_norm": torch.zeros(d, dtype=dt, device=device)}
     if not cfg.tie_embeddings:
         params["lm_head"] = normal(d, V)
+    # drawn only when the config has the block: every other architecture
+    # draws the numbers it always drew
+    if any(b.kind == "shared_attn" for b in blocks):
+        params["shared"] = init_attn_block(cfg, cfg.shared_attn_d_ff,
+                                           generator, device)
     params["layers"] = [_init_layer(cfg, b, generator, device)
-                        for b in layer_blocks(cfg)]
+                        for b in blocks]
     return params
 
 
 def _init_layer(cfg, block, generator, device):
+    if block.kind == "shared_attn":
+        return None                 # in params["shared"]
     if block.kind == "mamba2":
         return init_mamba2(cfg, generator, device)
     if block.kind == "moe":
@@ -96,15 +116,14 @@ def forward_hidden(params, cfg: ModelConfig, tokens, *, frontend_emb=None,
     attention, {"ssm" (B, nh, ns, hp) float32, "conv" (B, K-1, conv_dim)}
     for mamba2.  With ``cfg.remat == "block"`` and autograd on, each layer
     is checkpointed (its activations are recomputed in the backward)."""
-    blocks = layer_blocks(cfg)              # raises for unported kinds
     x = params["embed"][tokens.long()]
     if frontend_emb is not None:   # vision/audio stub: replace a prefix
         n = frontend_emb.shape[1]
         x = torch.cat([frontend_emb.to(x.dtype), x[:, n:]], dim=1)
     remat = cfg.remat == "block" and torch.is_grad_enabled()
     caches = []
-    for b, p in zip(blocks, params["layers"]):
-        if remat:
+    for b, p in layer_params(params, cfg):
+        if remat:       # p reaches the checkpointed call as an argument
             x, c = checkpoint(_apply_block, b, p, x, cfg,
                               use_reentrant=False)
         else:
@@ -144,7 +163,8 @@ def _cache_len(block, s_max: int) -> int:
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int, device) -> list:
-    """Zeroed decode cache, one entry per layer: attention {"k", "v"} of
+    """Zeroed decode cache, one entry per layer: attention (every
+    `shared_attn` occurrence its own) {"k", "v"} of
     shape (batch, n_kv_heads, S, head_dim) (head-major), S = s_max, or
     min(window, s_max) for a windowed layer's ring buffer; with
     `cfg.kv_quant` int8 "k"/"v" and float32 "k_scale"/"v_scale" (batch,
@@ -181,7 +201,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos: int):
     `decode_step`); keys enter the ring after RoPE, and the softmax does
     not depend on their order."""
     x = params["embed"][tokens]                          # (B, d)
-    for b, p, c in zip(layer_blocks(cfg), params["layers"], cache):
+    for (b, p), c in zip(layer_params(params, cfg), cache):
         if b.kind == "mamba2":
             x, (ssm, conv) = mamba2_step(p, x, (c["ssm"], c["conv"]), cfg)
             c["ssm"].copy_(ssm)

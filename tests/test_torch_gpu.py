@@ -3,8 +3,10 @@ plain PyTorch version (which `tests/test_torch_kernels.py`,
 `tests/test_torch_training.py` and `tests/test_torch_ssd.py` hold to the
 JAX reference), and the decode step, tiered KV cache, training step,
 mamba2 mixer, prefill and decode, the MoE MLP and model, windowed (ring
-buffer) and int8-cache decode (the append included), and the tiered
-embedding and expert cache on CUDA against the same code on the CPU.
+buffer) and int8-cache decode (the append included), zamba2's decode
+step (the shared block at each occurrence, each with its own cache) and
+the tiered embedding and expert cache on CUDA against the same code on
+the CPU.
 Imports neither jax nor `repro`, so it runs on a GPU machine without
 them:
 
@@ -222,7 +224,9 @@ def test_tracker_on_card_matches_cpu_twin(cuda):
     (4, 128, 4, 4, 128, 128), (1, 1024, 8, 4, 256, 700),
     (4, 168, 32, 8, 128, 1), (4, 168, 32, 8, 128, 129),
     (2, 4096, 32, 32, 80, 3001), (1, 300, 16, 1, 256, 300),
-    (4, 168, 64, 4, 128, 129)])                  # qwen3-moe: G = 16
+    (4, 168, 64, 4, 128, 129),                   # qwen3-moe: G = 16
+    (4, 168, 32, 32, 112, 129),                  # zamba2: G 1, D 112
+    (1, 9000, 32, 32, 112, 8193)])               # zamba2, many splits
 def test_decode_kernel_matches_plain(cuda, B, S, H, KVH, D, valid, dtype):
     rng = np.random.default_rng(0)
     q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
@@ -352,6 +356,7 @@ def int8_cache(cuda, B, S, KVH, D, dtype, seed):
     (2, 400, 64, 4, 128, 129),          # G = 16: two slices of 8 (qwen3)
     (1, 8192, 8, 1, 128, 8000),         # many splits, the fused merge
     (2, 500, 32, 32, 80, 457),          # D = 80: 5 of 8 lanes
+    (2, 500, 32, 32, 112, 457),         # D = 112 (zamba2), G 1
     (1, 100, 2, 2, 20, 77),             # D = 20: element loads
     (3, 64, 8, 2, 16, 1)])              # valid_len 1, one lane a row
 def test_decode_int8_kernel_matches_plain(cuda, B, S, H, KVH, D, valid,
@@ -406,6 +411,7 @@ def tie_rows(rng, B, KVH, D):
     (1, 8192, 8, 1, 128, 8000, "end"),  # the last row of a split
     (1, 8192, 8, 1, 128, 8000, 4321),   # mid-split
     (2, 100, 2, 2, 20, 77, 50),         # D 20: 4-byte copies
+    (4, 168, 32, 32, 112, 129, 128),    # D 112 (zamba2), G 1
     (3, 64, 8, 2, 16, 1, 0)])           # valid_len 1
 def test_decode_int8_append_matches_plain(cuda, B, S, H, KVH, D, valid,
                                           slot):
@@ -629,6 +635,36 @@ def test_decode_step_on_card_matches_cpu(cuda):
                                    rtol=1e-4, atol=1e-4)
 
 
+def test_zamba2_decode_step_on_card_matches_cpu(cuda):
+    """12 decode steps of zamba2's float32 smoke model (the shared block
+    at both occurrences, each with its own cache) through the CUDA
+    kernels and through the plain path: logits and every cache."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_config("zamba2-7b")
+    cpu = torch.device("cpu")
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                     cpu)
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    caches = (transformer.init_cache(cfg, 3, 16, cpu),
+              transformer.init_cache(cfg, 3, 16, cuda))
+    rng = np.random.default_rng(5)
+    before = ops.LAUNCHES["decode_attention"]
+    for pos in range(12):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, 3))
+        want = transformer.decode_step(params, cfg, caches[0], toks, pos)
+        got = transformer.decode_step(on_card, cfg, caches[1], toks.to(cuda),
+                                      pos)
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=1e-4, atol=1e-4)
+    shared = sum(b.kind == "shared_attn"
+                 for b in transformer.layer_blocks(cfg))
+    assert ops.LAUNCHES["decode_attention"] == before + 12 * shared
+    for c_cpu, c_card in zip(*caches):
+        for name, t in c_cpu.items():
+            np.testing.assert_allclose(c_card[name].cpu().numpy(), t.numpy(),
+                                       rtol=1e-4, atol=1e-4, err_msg=name)
+
+
 def test_tiered_kv_on_card_matches_cpu(cuda):
     """The same hotspot replay on both devices, with the same threshold
     draws: identical counters, one fused tracker launch per read on the
@@ -683,6 +719,8 @@ def flash_inputs(cuda, B, Sq, Skv, H, KVH, D, dtype, seed=0):
     (1, 100, 100, 16, 2, 32, 7, None),            # G = 8, narrow window
     (1, 70, 45, 4, 4, 256, 8, None),              # rows that see no key
     (1, 333, 333, 64, 4, 128, None, None),        # qwen3-moe: G = 16
+    (1, 333, 333, 32, 32, 112, None, None),       # zamba2: D 112, G 1
+    (1, 300, 300, 16, 4, 112, 100, None),         # D 112, G 4, window
 ])
 def test_flash_kernel_matches_plain(cuda, B, Sq, Skv, H, KVH, D, window,
                                     kv_len, dtype):
@@ -726,6 +764,8 @@ def test_flash_kernel_q_offset(cuda, q_offset):
     (1, 130, 300, 8, 8, 256, 50, 280, 37),      # D = 256, every mask
     (1, 77, 140, 4, 1, 16, 30, None, 37),       # D = 16: one 16-col chunk
     (1, 150, 150, 4, 2, 32, None, None, 0),     # D = 32: one 32-col chunk
+    (1, 300, 300, 8, 8, 112, None, None, 0),    # D = 112: 64 + 32 + 16
+    (2, 190, 250, 8, 2, 112, 64, 201, 37),      # D = 112, G 4, every mask
 ])
 def test_flash_kernel_bf16_edges(cuda, B, Sq, Skv, H, KVH, D, window,
                                  kv_len, q_offset):

@@ -166,6 +166,19 @@ def test_flash_tile_fits_shared_memory(D):
     rows, keys = tflash.bf16_tile(D)
     assert tflash.smem_bytes(D) == (1024 + 2 * D * (
         rows + 2 * tflash.STAGES * keys) + 8 * (2 * tflash.STAGES + 1))
+    # D's column chunks (112 = 64 + 32 + 16): each a TMA box as wide as
+    # a swizzle span, each starting on its swizzle atom (8 rows of the
+    # span) in the q tile, in each K/V tile and in each warpgroup's rows
+    chunks = tflash.bf16_chunks(D)
+    assert sum(chunks) == D and list(chunks) == sorted(chunks, reverse=True)
+    assert set(chunks) <= {16, 32, 64} and chunks.count(32) <= 1 \
+        and chunks.count(16) <= 1
+    for n in (rows, keys, 64):
+        offset = 0
+        for w in chunks:
+            assert offset % (8 * 2 * w) == 0 and n * 2 * w % (8 * 2 * w) == 0
+            offset += n * 2 * w
+        assert offset == n * 2 * D
 
 
 def test_flash_wrapper_agrees_with_its_source():
@@ -188,6 +201,17 @@ def test_flash_wrapper_agrees_with_its_source():
         for D in tflash.HEAD_DIMS:
             above = D >= int(cut) if op == ">=" else D > int(cut)
             assert tflash.bf16_tile(D)[i] == int(big if above else small)
+    # the chunk cut, as the wrapper's bf16_chunks states it
+    w32 = re.search(r"constexpr int cols32\(int D\) {\s*return D % 64 >= "
+                    r"32 \? 32 : 0;\s*}", src)
+    w16 = re.search(r"constexpr int cols16\(int D\) { return D % 32; }", src)
+    assert w32 and w16
+    for D in tflash.HEAD_DIMS:
+        tail = (32 if D % 64 >= 32 else 0, D % 32)
+        assert tflash.bf16_chunks(D) == (64,) * (D // 64) + tuple(
+            w for w in tail if w)
+    assert re.search(r"CUtensorMap q, k, v, q32, k32, v32, q16, k16, v16;",
+                     src)
     for ptx in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier"):
         assert ptx in src
     assert "flash_attention" in _build.KERNELS

@@ -109,6 +109,20 @@ def test_mixer_gradients_match_jax_grad():
                                    err_msg=name)
 
 
+def test_conv_state_holds_its_own_storage():
+    """The conv state a prefill hands off is a copy of the last K-1
+    projections, not a view of the whole (B, L, conv_dim) stream, which
+    the cache would otherwise keep alive (32.5 GB over zamba2-7b's 68
+    mamba2 layers at 32,768 tokens)."""
+    cfg = smoke_config(ARCH)
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                     CPU)
+    _, (_, conv) = mamba2.mamba2_mixer(params["layers"][0],
+                                       torch.zeros(1, 64, cfg.d_model), cfg)
+    assert conv.untyped_storage().nbytes() == \
+        conv.numel() * conv.element_size()
+
+
 def test_mixer_rejects_length_off_the_chunk():
     cfg = smoke_config(ARCH)
     params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
@@ -271,23 +285,33 @@ def test_checkpoint_roundtrips_both_ways(tmp_path):
 
 
 @pytest.mark.parametrize("block,match", [
-    # windowed moe blocks (mixtral) run since windowed decode; the id is
-    # kept from when they raised
+    # windowed moe blocks (mixtral) run since windowed decode, and
+    # shared_attn blocks (zamba2) since the shared block's port; the ids
+    # are kept from when they raised
     pytest.param(Block("moe", window=16), None, id="moe"),
-    pytest.param(Block("shared_attn"), "shared_attn", id="shared_attn")])
+    pytest.param(Block("shared_attn"), None, id="shared_attn"),
+    pytest.param(Block("retnet"), "retnet", id="unknown")])
 def test_unported_block_kinds_raise(block, match):
-    """`shared_attn` still raises; a windowed `moe` block builds, and its
-    decode cache is a ring of its window."""
+    """A kind the port does not know raises; a windowed `moe` block
+    builds, and its decode cache is a ring of its window; a `shared_attn`
+    block builds with its weights in ``shared`` and its own cache."""
     cfg = ModelConfig(name="x", d_model=16, n_heads=2, n_kv_heads=2,
                       head_dim=8, d_ff=32, vocab=64,
                       stages=((1, (Block("mamba2"), block)),),
                       ssm_state=8, ssm_heads=2, ssm_head_dim=8,
-                      n_experts=4, top_k=2)
-    if match is None:
-        params = transformer.init_params(cfg, torch.Generator(), CPU)
-        assert "moe" in params["layers"][1]
-        cache = transformer.init_cache(cfg, 1, 64, CPU)
-        assert cache[1]["k"].shape == (1, 2, 16, 8)
+                      n_experts=4, top_k=2, shared_attn_d_ff=32)
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            transformer.init_params(cfg, torch.Generator(), CPU)
+        with pytest.raises(NotImplementedError, match=match):
+            transformer.init_cache(cfg, 1, 64, CPU)
         return
-    with pytest.raises(NotImplementedError, match=match):
-        transformer.init_params(cfg, torch.Generator(), CPU)
+    params = transformer.init_params(cfg, torch.Generator(), CPU)
+    cache = transformer.init_cache(cfg, 1, 64, CPU)
+    if block.kind == "moe":
+        assert "moe" in params["layers"][1]
+        assert cache[1]["k"].shape == (1, 2, 16, 8)
+    else:
+        assert params["layers"][1] is None
+        assert params["shared"]["w_gate"].shape == (16, 32)
+        assert cache[1]["k"].shape == (1, 2, 64, 8)

@@ -83,10 +83,14 @@ def test_ported_configs_match_reference(arch):
         assert port.param_count() == reference.param_count()
 
 
-@pytest.mark.parametrize("arch", ["zamba2-7b"])
+@pytest.mark.parametrize("arch", ["zamba2-70b", "llama3"])
 def test_unported_configs_raise(arch):
-    with pytest.raises(KeyError, match="not ported yet"):
+    """Every architecture of the reference is ported; an id it does not
+    know raises."""
+    with pytest.raises(KeyError, match="unknown arch"):
         get_config(arch)
+    with pytest.raises(KeyError, match="unknown arch"):
+        smoke_config(arch)
 
 
 def test_page_bytes_match_reference():
