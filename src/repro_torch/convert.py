@@ -23,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .distributed.sharding import P
 from .models import attention, mamba2, moe
 from .models.transformer import layer_blocks
 
@@ -177,3 +178,62 @@ def opt_state_from_reference(tree, cfg, device,
     return {"m": params_from_reference(tree["m"], cfg, device, moment_dtype),
             "v": params_from_reference(tree["v"], cfg, device, moment_dtype),
             "count": _tensor(tree["count"], torch.int32, device)}
+
+
+def _stacked_spec(specs: list):
+    """The reference's spec of a stage's stacked leaf from its layers'
+    (which must agree): a logical spec gains the leading "stack" dim, a
+    concrete `P` a leading None (the stack dim binds to nothing)."""
+    first = specs[0]
+    if any(s != first for s in specs):
+        raise ValueError(f"the layers of one stage disagree: {specs}")
+    if isinstance(first, P):
+        return P(None, *first)
+    return ("stack", *first)
+
+
+def _stack_specs(layers: list, cfg, with_shared: bool) -> list:
+    """Per-layer spec dicts -> the reference's stages, each (stage,
+    block) stacked over its repeats; a `shared_attn` block's entry only
+    `with_shared` (caches have one per occurrence, parameters none)."""
+    index = _layer_index(cfg)
+    stages = []
+    for si, (_, blocks) in enumerate(cfg.stages):
+        stage = {}
+        for bi, block in enumerate(blocks):
+            if block.kind == "shared_attn" and not with_shared:
+                continue
+            per = [layers[n] for s, b, _, n in index if (s, b) == (si, bi)]
+            flat = {}
+
+            def walk(prefix, node):
+                for k, sub in node.items():
+                    if isinstance(sub, dict):
+                        walk(prefix + (k,), sub)
+                    else:
+                        flat[prefix + (k,)] = [_leaf(lay, prefix + (k,))
+                                               for lay in per]
+            walk((), per[0])
+            stage[f"b{bi}"] = _nest({path: _stacked_spec(leaves)
+                                     for path, leaves in flat.items()})
+        stages.append(stage)
+    return stages
+
+
+def specs_to_reference(specs, cfg) -> dict:
+    """A parameter spec tree in the port's layout
+    (`transformer.logical_param_specs` or `param_specs`) in the
+    reference's: each stage's layers stacked, ``shared`` None without a
+    `shared_attn` block."""
+    tree = {k: specs[k] for k in ("embed", "final_norm", "lm_head")
+            if k in specs}
+    tree["shared"] = specs.get("shared")
+    tree["stages"] = _stack_specs(specs["layers"], cfg, with_shared=False)
+    return tree
+
+
+def cache_specs_to_reference(specs: list, cfg) -> list:
+    """`transformer.cache_specs`' per-layer list in the reference's
+    layout: a list of stages, each block (every `shared_attn`
+    occurrence's cache included) stacked over the stage's repeats."""
+    return _stack_specs(specs, cfg, with_shared=True)

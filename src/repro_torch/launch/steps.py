@@ -1,7 +1,9 @@
 """Step functions of the port (counterpart of `repro/launch/steps.py`):
-train and prefill on one card.  There is no mesh, sharding or cell
-planner: the reference's `plan_cell` / `lower_cell` lower a step for a
-TPU mesh, which one H100 does not need.
+train, prefill and serve.  Each runs on one device; `launch/train.py`
+runs the train step on every rank of a mesh and averages its gradients
+over the data-parallel ranks (`make_train_step(reduce=...)`).  The
+reference's cell planner (`CellPlan`, `plan_cell`, `lower_cell`) lowers
+a step for a TPU mesh through XLA and has no counterpart here yet.
 """
 from __future__ import annotations
 
@@ -9,7 +11,7 @@ import dataclasses
 
 import torch
 
-from ..models.transformer import forward, loss_fn
+from ..models.transformer import decode_step, forward, loss_fn
 from ..optim import AdamWConfig, adamw_update, cosine_schedule
 from ..tree import tree_leaves, tree_map
 
@@ -66,12 +68,16 @@ def value_and_grad(params, cfg, batch, microbatch: int = 1):
     return loss, tree_map(lambda _: next(it), params)
 
 
-def make_train_step(cfg, topts: TrainOptions):
+def make_train_step(cfg, topts: TrainOptions, reduce=None):
     """-> train_step(params, opt_state, step, batch) -> (params,
     opt_state, metrics); the parameters and moments are updated in
-    place (see `optim.adamw`)."""
+    place (see `optim.adamw`).  `reduce(loss, grads) -> (loss, grads)`,
+    if given, runs between the gradients and the update (the
+    data-parallel mean of `launch/train.py`)."""
     def train_step(params, opt_state, step, batch):
         loss, grads = value_and_grad(params, cfg, batch, topts.microbatch)
+        if reduce is not None:
+            loss, grads = reduce(loss, grads)
         lr_scale = cosine_schedule(step, topts.warmup_steps,
                                    topts.total_steps)
         params, opt_state, metrics = adamw_update(
@@ -95,3 +101,16 @@ def make_prefill_step(cfg):
         return logits[:, -1, :], cache
 
     return prefill_step
+
+
+def make_serve_step(cfg):
+    """-> serve_step(params, cache, tokens, pos) -> (next tokens (B,)
+    int32, cache): one `decode_step` (which writes the new token into
+    `cache` in place) and the greedy choice of each row; an argmax tie
+    goes to the lower token id, as `jnp.argmax` breaks it."""
+    def serve_step(params, cache, tokens, pos):
+        with torch.no_grad():
+            logits = decode_step(params, cfg, cache, tokens, pos)
+        return torch.argmax(logits, dim=-1).to(torch.int32), cache
+
+    return serve_step

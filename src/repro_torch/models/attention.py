@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from ..distributed.sharding import FSDP, TP
 from ..kernels import ops
 from ..kernels.ref import quantize_kv
 from .common import F32, flash_attention, rms_norm, rope, swiglu
@@ -55,6 +56,22 @@ def init_attn_block(cfg, d_ff: int | None, generator: torch.Generator,
         p.update(w_gate=mk(d, d_ff, fan_in=d), w_up=mk(d, d_ff, fan_in=d),
                  w_down=mk(d_ff, d, fan_in=d_ff))
     return p
+
+
+def attn_specs() -> dict:
+    """Logical dims of each leaf of `init_attn_block`'s tree, one layer
+    (the reference's `attn_specs(stacked=False)`)."""
+    return {
+        "norm1": (None,),
+        "wq": (FSDP, TP, None),
+        "wk": (FSDP, TP, None),      # falls back to None if KV % tp != 0
+        "wv": (FSDP, TP, None),
+        "wo": (TP, None, FSDP),
+        "norm2": (None,),
+        "w_gate": (FSDP, TP),
+        "w_up": (FSDP, TP),
+        "w_down": (TP, FSDP),
+    }
 
 
 def _mlp(p, h, mlp_fn):

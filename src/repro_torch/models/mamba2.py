@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import FSDP, TP
 from ..kernels import ops
 from ..kernels.ssd_scan import ssd_scan_plain
 from .common import F32, rms_norm
@@ -62,6 +63,16 @@ def init_mamba2(cfg, generator: torch.Generator, device):
         "dt_bias": full(0.0, nh),
         "gated_norm": full(0.0, di, dt),
         "wout": mk(di, d, fan_in=di),
+    }
+
+
+def mamba2_specs() -> dict:
+    """Logical dims of each leaf of `init_mamba2`'s tree, one layer."""
+    return {
+        "norm": (None,), "wx": (FSDP, TP), "wz": (FSDP, TP),
+        "wB": (FSDP, None), "wC": (FSDP, None), "wdt": (FSDP, TP),
+        "conv_w": (TP, None), "A_log": (TP,), "D": (TP,),
+        "dt_bias": (TP,), "gated_norm": (TP,), "wout": (TP, FSDP),
     }
 
 

@@ -1,11 +1,11 @@
 """Mixture-of-Experts MLP with token-choice top-k routing and fixed expert
 capacity (port of `repro/models/moe.py`).
 
-One device means one token group (the reference's G = 1 without a
-mesh).  Dispatch is the reference's argsort-based slotting: assignments
-are sorted by expert (stable), each expert's slots c < C pull the c-th
-of its assignments through `searchsorted` offsets into a dense (E, C, d)
-buffer, and the expert products run over that buffer as batched matmuls.
+One call is one token group (`moe_ffn`).  Dispatch is the reference's
+argsort-based slotting: assignments are sorted by expert (stable), each
+expert's slots c < C pull the c-th of its assignments through
+`searchsorted` offsets into a dense (E, C, d) buffer, and the expert
+products run over that buffer as batched matmuls.
 Overflow beyond C = int(T * K / E * capacity_factor) (at least 1, at
 most T) is dropped in that sorted order; `dropless=True` sets C = T.
 
@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import FSDP, TP
 from .common import F32
 
 WEIGHTS = ("router", "w_gate", "w_up", "w_down")
@@ -43,6 +44,25 @@ def init_moe(cfg, generator: torch.Generator, device):
             "w_gate": mk(E, d, ff, fan_in=d),
             "w_up": mk(E, d, ff, fan_in=d),
             "w_down": mk(E, ff, d, fan_in=ff)}
+
+
+def moe_specs(ff_sharded: bool = False) -> dict:
+    """Logical dims of each leaf of `init_moe`'s tree, one layer.  TP
+    names both the expert dim and the ff dim: `param_specs`' first
+    divisible dim takes it (experts when E divides the model axis, as
+    qwen3's 128; the ff dim otherwise, as mixtral's 8 on a 16-way axis).
+    `ff_sharded` (decode) is the weight-stationary layout: FSDP on the ff
+    dim instead of d_model; "tp_fsdp" binds the model then the data
+    axes."""
+    if ff_sharded:
+        return {"router": (None, None),
+                "w_gate": (TP, None, "tp_fsdp"),
+                "w_up": (TP, None, "tp_fsdp"),
+                "w_down": (TP, "tp_fsdp", None)}
+    return {"router": (FSDP, None),
+            "w_gate": (TP, FSDP, TP),
+            "w_up": (TP, FSDP, TP),
+            "w_down": (TP, TP, FSDP)}
 
 
 def capacity(T: int, cfg, dropless: bool = False) -> int:
@@ -95,7 +115,15 @@ def kept(eidx, E: int, C: int) -> torch.Tensor:
 
 
 def moe_ffn(p, x, cfg, dropless: bool = False):
-    """x: (B, S, d) or (B, d) -> the same shape."""
+    """x: (B, S, d) or (B, d) -> the same shape.
+
+    Token groups: the reference views the step's T tokens as G = |moe_g|
+    groups, one per data shard (`repro/models/moe.py:85-94`), and slots
+    and drops within each; capacity is per group.  Here all of `x` is
+    one group (G = 1).  Under `launch/train.py`'s data parallelism a
+    rank's `x` is its dp shard's rows, taken in order, which is the
+    reference's group of that shard, so the rows are never split again
+    here; on one device it is the reference's G = 1."""
     orig_shape = x.shape
     d = orig_shape[-1]
     xf = x.reshape(-1, d)

@@ -25,11 +25,15 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .attention import attn_block, attn_decode, init_attn_block
+from ..tree import tree_map
+
+from ..distributed.sharding import (EMBED_D, FSDP, TP, VOCAB, P,
+                                    describe_mesh)
+from .attention import attn_block, attn_decode, attn_specs, init_attn_block
 from .common import F32, chunked_cross_entropy, rms_norm
 from .config import ModelConfig
 from . import moe
-from .mamba2 import init_mamba2, mamba2_mixer, mamba2_step
+from .mamba2 import init_mamba2, mamba2_mixer, mamba2_specs, mamba2_step
 
 KINDS = ("attn", "mamba2", "moe", "shared_attn")   # block kinds
 
@@ -81,6 +85,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device):
     return params
 
 
+def param_shapes(cfg: ModelConfig) -> dict:
+    """`init_params`' tree on the meta device: shapes and dtypes, no
+    memory."""
+    return init_params(cfg, None, torch.device("meta"))
+
+
 def _init_layer(cfg, block, generator, device):
     if block.kind == "shared_attn":
         return None                 # in params["shared"]
@@ -91,6 +101,67 @@ def _init_layer(cfg, block, generator, device):
         p["moe"] = moe.init_moe(cfg, generator, device)
         return p
     return init_attn_block(cfg, cfg.d_ff, generator, device)
+
+
+def _block_specs(block, moe_ff_sharded: bool = False):
+    if block.kind == "shared_attn":
+        return None                 # in specs["shared"]
+    if block.kind == "mamba2":
+        return mamba2_specs()
+    s = attn_specs()
+    if block.kind == "moe":
+        for w in ("w_gate", "w_up", "w_down"):
+            del s[w]
+        s["moe"] = moe.moe_specs(ff_sharded=moe_ff_sharded)
+    return s
+
+
+def logical_param_specs(cfg: ModelConfig, moe_ff_sharded: bool = False):
+    """The tree of `init_params` with each leaf's logical dims (a tuple
+    of `distributed.sharding` axis names and None); a shared layer's
+    entry is None, as its parameters'.  `convert.specs_to_reference`
+    gives the reference's stacked tree."""
+    specs = {"embed": (VOCAB, EMBED_D), "final_norm": (None,)}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = (EMBED_D, VOCAB)
+    blocks = layer_blocks(cfg)
+    if any(b.kind == "shared_attn" for b in blocks):
+        specs["shared"] = attn_specs()
+    specs["layers"] = [_block_specs(b, moe_ff_sharded) for b in blocks]
+    return specs
+
+
+def param_specs(params, cfg: ModelConfig, mesh, dp_axes=("data",),
+                tp_axes=("model",), fsdp_axes=("data",),
+                vocab_axes=("model",), embed_d_axes=("data",),
+                moe_ff_sharded: bool = False):
+    """Concrete `P`s of `params` (any tree of tensors with its shapes,
+    e.g. `param_shapes`): a logical axis applies only where the dim
+    divides the bound mesh axes (gemma3's 8 heads skip a 16-way model
+    axis, but the FSDP dim still shards), and an axis claimed by an
+    earlier dim is not used again."""
+    sizes = describe_mesh(mesh).shape
+    binding = {TP: tuple(tp_axes), "dp": tuple(dp_axes),
+               FSDP: tuple(fsdp_axes), VOCAB: tuple(vocab_axes),
+               EMBED_D: tuple(embed_d_axes),
+               "tp_fsdp": tuple(tp_axes) + tuple(fsdp_axes)}
+
+    def one(arr, spec):
+        out = []
+        used: set = set()
+        for dim, s in zip(arr.shape, spec):
+            axes = tuple(a for a in binding.get(s, ()) if a not in used)
+            n = 1
+            for a in axes:
+                n *= sizes[a]
+            if axes and dim % n == 0:
+                used.update(axes)
+                out.append(axes[0] if len(axes) == 1 else axes)
+            else:
+                out.append(None)
+        return P(*out)
+
+    return tree_map(one, params, logical_param_specs(cfg, moe_ff_sharded))
 
 
 def _moe_mlp(p, cfg, dropless: bool = False):
@@ -190,6 +261,42 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, device) -> list:
         return {"k": zeros(kv), "v": zeros(kv)}
 
     return [layer(b) for b in layer_blocks(cfg)]
+
+
+def cache_specs(cache, mesh, dp_axes=("data",), tp_axes=("model",),
+                seq_axes=None) -> list:
+    """Concrete `P`s of a decode cache (`init_cache`'s layout): KV caches
+    and their int8 scales batch over dp and sequence over `seq_axes`
+    (default tp; long_500k binds ("data", "model")); SSM states batch
+    over dp, heads (ssm) or channels (conv) over tp.  An axis applies
+    only where it divides the dim."""
+    sizes = describe_mesh(mesh).shape
+    seq_axes = tuple(seq_axes if seq_axes is not None else tp_axes)
+
+    def ax(axes, dim):
+        n = 1
+        for a in axes:
+            n *= sizes[a]
+        if not axes or dim % n != 0:
+            return None
+        return axes[0] if len(axes) == 1 else axes
+
+    dp, tp = tuple(dp_axes), tuple(tp_axes)
+
+    def one(name, t):
+        sh = t.shape
+        if name in ("k", "v"):                # (B, KV, S, hd)
+            return P(ax(dp, sh[0]), None, ax(seq_axes, sh[2]), None)
+        if name in ("k_scale", "v_scale"):    # (B, KV, S)
+            return P(ax(dp, sh[0]), None, ax(seq_axes, sh[2]))
+        if name == "ssm":                     # (B, nh, ns, hp)
+            return P(ax(dp, sh[0]), ax(tp, sh[1]), None, None)
+        if name == "conv":                    # (B, K-1, conv_dim)
+            return P(ax(dp, sh[0]), None, ax(tp, sh[2]))
+        return P()
+
+    return [{name: one(name, t) for name, t in layer.items()}
+            for layer in cache]
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens, pos: int):

@@ -128,16 +128,22 @@ def current_scores(state, cfg: TrackerConfig):
     return state["score"] * torch.pow(_f32(cfg.alpha, dt.device), dt)
 
 
-def seeded_sampler(device):
+class SeededSampler:
     """The default index source of `sampled_threshold`: uniform unit ids
-    from a `torch.Generator` seeded from (17, now).  The reference draws
-    `jax.random.randint(fold_in(key(17), now))`, which torch cannot
-    reproduce; parity tests inject the reference's draws instead."""
-    def sample(now: int, n: int, n_units: int) -> torch.Tensor:
-        g = torch.Generator(device=device)
+    from a `torch.Generator` on `device` seeded from (17, now).  The
+    reference draws `jax.random.randint(fold_in(key(17), now))`, which
+    torch cannot reproduce; parity tests inject the reference's draws
+    instead.  A module-level class (not a closure), so a tracker and the
+    caches that hold one pickle."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+
+    def __call__(self, now: int, n: int, n_units: int) -> torch.Tensor:
+        g = torch.Generator(device=self.device)
         g.manual_seed((17 << 32) + now)
-        return torch.randint(0, n_units, (n,), generator=g, device=device)
-    return sample
+        return torch.randint(0, n_units, (n,), generator=g,
+                             device=self.device)
 
 
 def sampled_threshold(state, cfg: TrackerConfig, target_bytes, sampler):
@@ -184,13 +190,13 @@ def hot_mask(state, cfg: TrackerConfig):
 
 class HotTracker:
     """Stateful wrapper over the functions above.  `sampler` is the index
-    source of `sampled_threshold` (default: `seeded_sampler`)."""
+    source of `sampled_threshold` (default: `SeededSampler`)."""
 
     def __init__(self, cfg: TrackerConfig, device=None, sampler=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.state = init_state(cfg, self.device)
-        self.sampler = sampler or seeded_sampler(self.device)
+        self.sampler = sampler or SeededSampler(self.device)
 
     def record(self, hit_mask):
         if self.device.type == "cuda":

@@ -329,7 +329,11 @@ for name in ("repro_torch.launch.train", "repro_torch.launch.steps",
              "repro_torch.configs.gemma3_4b",
              "repro_torch.configs.mixtral_8x22b",
              "repro_torch.configs.minitron_8b",
-             "repro_torch.configs.musicgen_large"):
+             "repro_torch.configs.musicgen_large",
+             "repro_torch.configs.shapes", "repro_torch.launch.mesh",
+             "repro_torch.distributed", "repro_torch.distributed.sharding",
+             "repro_torch.distributed.compression",
+             "repro_torch.distributed.pipeline"):
     assert name in sys.modules, name
 print(len(names), "modules")
 """
@@ -357,6 +361,11 @@ def test_port_imports_neither_jax_nor_reference():
         smoke_config("llama3-8b"), steps=1, global_batch=2, seq_len=8),
     lambda: __import__("repro_torch.launch.train", fromlist=["main"]).main(
         ["--smoke", "--steps", "1"]),
+    lambda: __import__("repro_torch.launch.train", fromlist=["train"]).train(
+        smoke_config("llama3-8b"), steps=1, global_batch=2, seq_len=8,
+        mesh=(("data", "model"), (1, 1))),
+    lambda: __import__("repro_torch.launch.train", fromlist=["main"]).main(
+        ["--smoke", "--steps", "1", "--mesh", "data=1,model=1"]),
 ])
 def test_entry_points_need_cuda_unless_cpu_is_asked(make):
     if torch.cuda.is_available():

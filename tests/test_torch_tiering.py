@@ -2,6 +2,9 @@
 reference (`repro.tiering`), fed the same accesses and the reference's
 own threshold-sampling draws (torch cannot reproduce `jax.random`).  The
 tiered embedding and expert cache are in `test_torch_tiered_caches.py`."""
+import dataclasses
+import pickle
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -12,6 +15,7 @@ from benchmarks.tiered_serving import access_stream, make_kv
 from repro.tiering import hotness as jhot
 from repro.tiering.kvcache import HBM_BW, KVTierConfig as JKVTierConfig
 from repro.tiering.kvcache import PCIE_BW, TieredKVCache as JTieredKVCache
+from repro_torch.tiering import ExpertCache, TieredEmbedding
 from repro_torch.tiering import hotness as thot
 from repro_torch.tiering.kvcache import KVTierConfig, TieredKVCache
 
@@ -210,7 +214,7 @@ def test_sampled_threshold_targets_fraction():
     state = {**state, "score": torch.arange(1024, dtype=torch.float32)}
     target = torch.tensor(0.25 * 1024 * cfg.unit_bytes)
     thr = float(thot.sampled_threshold(state, cfg, target,
-                                       thot.seeded_sampler(CPU)))
+                                       thot.SeededSampler(CPU)))
     kept = (np.arange(1024) >= thr).mean()
     assert 0.15 < kept < 0.35, (thr, kept)
 
@@ -287,3 +291,113 @@ def test_promotion_aborts_on_newer_version():
         assert getattr(port.clock, name) == getattr(ref.clock, name), name
     got = port.read_pages([0])[0].float().numpy()
     np.testing.assert_allclose(got[0], newer, rtol=1e-2, atol=1e-2)
+
+
+# ----------------------------------------------------------------------
+# pickling (`tests/test_serving_obs.py:49-66` on the port)
+# ----------------------------------------------------------------------
+def assert_same_state(a, b, path="obj"):
+    """Every attribute of `a` equals `b`'s, walking dicts, lists and
+    objects: tensors and arrays bit for bit (dtype and device too)."""
+    assert type(a) is type(b), path
+    if torch.is_tensor(a):
+        assert (a.dtype, a.shape, a.device) == (b.dtype, b.shape, b.device)
+        assert torch.equal(a, b), path
+    elif isinstance(a, np.ndarray):
+        np.testing.assert_array_equal(a, b, err_msg=path)
+    elif isinstance(a, dict):
+        assert list(a) == list(b), path
+        for k in a:
+            assert_same_state(a[k], b[k], f"{path}[{k!r}]")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            assert_same_state(x, y, f"{path}[{i}]")
+    elif hasattr(a, "__dict__") and not dataclasses.is_dataclass(a):
+        assert_same_state(vars(a), vars(b), path)
+    else:
+        assert a == b, path
+
+
+def _drive_tracker(t, step):
+    rng = np.random.default_rng(step)
+    for i in range(12):
+        t.record_ids(np.unique(rng.integers(0, 64, 6)))
+        if i % 4 == 3:
+            t.refresh_limits()
+
+
+def _drive_kv(kv, step):
+    for p in access_stream("hotspot", 128, 300, seed=step):
+        kv.read_pages([p])
+
+
+def _drive_embedding(emb, step):
+    rng = np.random.default_rng(step)
+    for _ in range(20):
+        emb.lookup(np.where(rng.random(16) < 0.9, rng.integers(0, 8, 16),
+                            rng.integers(0, 64, 16)))
+
+
+def _drive_experts(ec, step):
+    rng = np.random.default_rng(step)
+    for _ in range(40):
+        ec.route(np.bincount(np.minimum(rng.zipf(1.4, 32), 8) - 1,
+                             minlength=8))
+
+
+def _drive_engine(eng, step):
+    from repro_torch.serving.engine import Request
+    rng = np.random.default_rng(step)
+    for rid in range(3):
+        eng.submit(Request(rid=10 * step + rid,
+                           prompt=[int(t) for t in rng.integers(0, 256, 4)],
+                           max_new=3))
+    eng.run()
+
+
+def _kv():
+    cfg = KVTierConfig(n_pages=128, fast_slots=16, page_tokens=4,
+                       kv_heads=2, head_dim=8, staging_slots=8,
+                       sweep_every=32)
+    kv = TieredKVCache(cfg, hbm_bw=HBM_BW, pcie_bw=PCIE_BW, device="cpu")
+    z = np.zeros((1, 4, 2, 8), np.float32)
+    for p in range(cfg.n_pages):
+        kv.write_page(p, z + p, z - p)
+    return kv
+
+
+def _engine():
+    from repro_torch.configs import smoke_config
+    from repro_torch.serving.engine import ServeEngine
+    return ServeEngine(smoke_config("llama3-8b"), batch=2, max_len=16,
+                       device="cpu")
+
+
+@pytest.mark.parametrize("make,drive", [
+    (lambda: thot.HotTracker(thot.TrackerConfig(
+        n_units=64, unit_bytes=4096, fast_bytes=8 * 4096, n_samples=32),
+        device="cpu"), _drive_tracker),
+    (_kv, _drive_kv),
+    (lambda: TieredEmbedding(
+        np.random.default_rng(0).standard_normal((64, 4)).astype(
+            np.float32), 8, 4, hbm_bw=HBM_BW, pcie_bw=PCIE_BW,
+        device="cpu"), _drive_embedding),
+    (lambda: ExpertCache(
+        np.random.default_rng(1).standard_normal((8, 2, 2)).astype(
+            np.float32), 2, 4, hbm_bw=HBM_BW, pcie_bw=PCIE_BW,
+        device="cpu"), _drive_experts),
+    (_engine, _drive_engine),
+], ids=["HotTracker", "TieredKVCache", "TieredEmbedding", "ExpertCache",
+        "ServeEngine"])
+def test_components_pickle_cleanly(make, drive):
+    """Driven with the default threshold sampler, then pickled: the clone
+    holds the same clock and state, and a further drive of the clone
+    leaves what the same drive of the original leaves."""
+    comp = make()
+    drive(comp, 1)
+    clone = pickle.loads(pickle.dumps(comp))
+    assert_same_state(comp, clone)
+    drive(comp, 2)
+    drive(clone, 2)
+    assert_same_state(comp, clone)

@@ -225,6 +225,21 @@ def test_restart_matches_uninterrupted(tmp_path):
     assert latest_step(str(tmp_path / "b")) == 11
 
 
+def test_checkpoint_every_step_ends_cleanly(tmp_path):
+    """With the step count a multiple of `ckpt_every` the loop has just
+    written the last step's checkpoint, so the final save does not write
+    it again (it renamed onto the existing directory and raised); a
+    resume with no step left to run writes nothing."""
+    cfg = smoke_config("llama3-8b")
+    kw = dict(steps=2, global_batch=2, seq_len=8, ckpt_dir=str(tmp_path),
+              ckpt_every=1, log_every=100, async_ckpt=False, device="cpu")
+    train(cfg, **kw)
+    assert sorted(os.listdir(tmp_path)) == ["step_00000000",
+                                            "step_00000001"]
+    _, _, hist = train(cfg, resume=True, **kw)
+    assert hist["loss"] == [] and latest_step(str(tmp_path)) == 1
+
+
 def test_straggler_monitor_flags_slow_steps():
     m = StragglerMonitor(deadline_factor=2.0, warmup=1)
     flags = [m.observe(i, dt) for i, dt in
