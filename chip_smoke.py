@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from `src/repro_torch/csrc` and runs
-seventeen phases, each printing one JSON line:
+nineteen phases, each printing one JSON line:
 
   device   the card's name and power limit, and the kernels' build time;
   ptxas    registers and spill bytes of the flash, decode (float and
@@ -12,7 +12,9 @@ seventeen phases, each printing one JSON line:
   kernels  each kernel against its plain PyTorch version on the card, at
            the shapes the serving and training paths give it and at
            others (the int8-cache decode kernel with the appended token
-           held bit for bit), with its time, the plain version's time,
+           held bit for bit; both decode kernels' row lse against the
+           plain versions, timed with and without it, and an empty
+           sequence shard), with its time, the plain version's time,
            one PyTorch call's time where one computes the same function,
            its bound, the share of the bound it reaches and its time over
            the PyTorch call's;
@@ -109,11 +111,23 @@ seventeen phases, each printing one JSON line:
            `compressed_allreduce` on that group, the int8 payload against
            the numpy rule; two gloo ranks sharing the card (stablelm-3b
            at 8 of 32 layers, one 4096-token row a rank) against one
-           process, and compression at world 2.
+           process, and compression at world 2;
+  placed   two gloo ranks sharing the card on a (1, 2) mesh, each holding
+           its blocks of the weights and KV cache (`plan_cell`,
+           `serve.serve_placed`): llama3-8b at full width and depth in
+           bf16 serving the `serve` phase's requests (its tokens against
+           the engine's, free running and forced on the engine's tokens),
+           qwen3-moe at 2 layers with its experts over "model" (against
+           its one-process engine), a float32 check at 4 of llama3's
+           layers against one process's logits, each rank's
+           memory_allocated against `local_bytes`;
+  plan     the planner (`launch/plan.py`) under 1x1: each model above, its
+           parameter bytes against memory_allocated after init_params,
+           and its peak estimates beside peaks measured by earlier runs.
 
 Kernel launches are counted from zero in each of the serve, tiered,
 tracker, prefill, train and int8 runs, in each part of the mamba2, moe,
-window, mixtral, zamba2 and multidevice runs, in each dense model's
+window, mixtral, zamba2 and multidevice runs, in each placed rank's run, in each dense model's
 serve run and in each cache's replay.  The summary line's launches of
 the flash, decode and ssd kernels add zamba2's main-path runs to those
 of the train, serve and mamba2 runs, and their rows carry the numbers of
@@ -127,6 +141,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -185,6 +200,14 @@ ZAMBA_ARCH, ZAMBA_LONG, ZAMBA_REPEATS = "zamba2-7b", 32_768, (2, 1)
 # steps a recipe over the one-rank NCCL mesh; two gloo ranks at 8 of
 # stablelm-3b's 32 layers
 MD_BATCH, MD_STEPS, MD_TRAIN_STEPS, MD_RANK_LAYERS = 8, 32, 2, 8
+# placed run: two gloo ranks sharing the card, a (1, 2) mesh, serving the
+# first 4 of the serve run's requests (about 0.3 s a step: each of a
+# step's 131 collectives is staged through the host); float32 checks of
+# 12 steps at 4 of llama3-8b's layers and at 2 of qwen3-moe's; one
+# deadline for both ranks; a bf16 logit's size for the near-tie bound
+PLACED_WORLD, PLACED_REQUESTS, PLACED_CHECK_LAYERS = 2, 4, 4
+PLACED_CHECK_STEPS, PLACED_MOE_LAYERS = 12, 2
+PLACED_DEADLINE, PLACED_LOGIT_SCALE = 400, 8.0
 
 
 def emit(phase: str, **fields) -> None:
@@ -343,21 +366,33 @@ def ralt_record_case(ops, hotness, dev, g, flush, N: int,
 
 def decode_case(ops, ref, dev, g, flush, B, H, KVH, D, S, valid,
                 dtype) -> dict:
+    """The float decode kernel against the plain version, and its row lse
+    (the placed path's merge input) against `decode_attention_partial`'s
+    m + log l within LSE_TOL; its time with the lse store beside the
+    time without."""
+    from repro_torch.models.common import decode_attention_partial
     q = torch.randn(B, H, D, generator=g, device=dev).to(dtype)
     k = torch.randn(B, KVH, S, D, generator=g, device=dev).to(dtype)
     v = torch.randn(B, KVH, S, D, generator=g, device=dev).to(dtype)
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)
-    outs = [ops.decode_attention_head_major(q, k, v, valid)]
+    out, lse = ops.decode_attention_head_major(q, k, v, valid,
+                                               return_lse=True)
+    outs = [ops.decode_attention_head_major(q, k, v, valid), out]
     want = ref.decode_attention_ref(q, kt, vt, valid)
     if S <= 4096:      # the reference layout's entry point, same kernel
         outs.append(ops.decode_attention(q, kt.contiguous(), vt.contiguous(),
                                          valid))
     agree = decode_agrees(outs, want, TOL[dtype])
+    _, l_p, m_p = decode_attention_partial(q, kt, vt, valid)
+    lse_err = float((lse - (m_p + torch.log(l_p)).reshape(B, H)).abs().max())
+    agree["ok"] = agree["ok"] and lse_err <= LSE_TOL
     q4, kv, vv = q[:, :, None], k[:, :, :valid], v[:, :, :valid]
     lib = F.scaled_dot_product_attention(q4, kv, vv, enable_gqa=True)
     lib_err = float((lib[:, :, 0].float() - want.float()).abs().max())
     ms = device_ms(lambda: ops.decode_attention_head_major(q, k, v, valid),
                    flush)
+    lse_ms = device_ms(lambda: ops.decode_attention_head_major(
+        q, k, v, valid, return_lse=True), flush)
     plain_ms = device_ms(lambda: ref.decode_attention_ref(q, kt, vt, valid),
                          flush)
     library_ms = device_ms(lambda: F.scaled_dot_product_attention(
@@ -368,9 +403,11 @@ def decode_case(ops, ref, dev, g, flush, B, H, KVH, D, S, valid,
                        dtype)
     return dict(shape=dict(B=B, H=H, KVH=KVH, D=D, S=S, valid_len=valid),
                 dtype=str(dtype).removeprefix("torch."), **agree,
-                tol=TOL[dtype], library_max_abs_err=lib_err, kernel_ms=ms,
-                plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
-                bound_by=b_by, **shares(ms, b_ms, library_ms))
+                tol=TOL[dtype], lse_max_abs_err=lse_err, lse_tol=LSE_TOL,
+                library_max_abs_err=lib_err, kernel_ms=ms,
+                kernel_ms_with_lse=lse_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+                **shares(ms, b_ms, library_ms))
 
 
 def decode_int8_case(ops, ref, quantize_kv, dev, g, flush, B, H, KVH, D, S,
@@ -392,8 +429,9 @@ def decode_int8_case(ops, ref, quantize_kv, dev, g, flush, B, H, KVH, D, S,
     scales = dict(k_scale=ks, v_scale=vs)
     appended = {}
     if slot is None:
-        def kernel():
-            return ops.decode_attention_head_major(q, k, v, valid, **scales)
+        def kernel(return_lse=False):
+            return ops.decode_attention_head_major(q, k, v, valid, **scales,
+                                                   return_lse=return_lse)
     else:
         k_new, v_new = (torch.randn(B, KVH, D, generator=g, device=dev).to(
             bf16) for _ in range(2))
@@ -401,10 +439,12 @@ def decode_int8_case(ops, ref, quantize_kv, dev, g, flush, B, H, KVH, D, S,
         want_rows = (k8, v8, s8, sv)
         caches = [t.clone() for t in (k, v, ks, vs)]
 
-        def kernel():
+        def kernel(return_lse=False):
             return ops.decode_attention_int8_append(
-                q, k_new, v_new, *caches, slot, valid)
+                q, k_new, v_new, *caches, slot, valid, return_lse=return_lse)
     outs = [kernel()]
+    out_l, lse = kernel(True)
+    outs.append(out_l)
     if slot is not None:
         torch.cuda.synchronize()
         appended = dict(slot=slot, appended_bit_for_bit=all(
@@ -414,11 +454,15 @@ def decode_int8_case(ops, ref, quantize_kv, dev, g, flush, B, H, KVH, D, S,
         for t, w in zip((k, v, ks, vs), want_rows):
             t[:, :, slot] = w
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)
-    want = ref.decode_attention_ref(q, kt, vt, valid, ks, vs)
+    want, want_lse = ref.decode_attention_ref(q, kt, vt, valid, ks, vs,
+                                              return_lse=True)
     agree = decode_agrees(outs, want, TOL[bf16])
+    lse_err = float((lse - want_lse).abs().max())
+    agree["ok"] = agree["ok"] and lse_err <= LSE_TOL
     if slot is not None:
         agree["ok"] = agree["ok"] and appended["appended_bit_for_bit"]
     ms = device_ms(kernel, flush)
+    lse_ms = device_ms(lambda: kernel(True), flush)
     plain_ms = device_ms(lambda: ref.decode_attention_ref(q, kt, vt, valid,
                                                           ks, vs), flush)
     # int8 K and V rows and their two float32 scales, q and out in bf16;
@@ -430,9 +474,46 @@ def decode_int8_case(ops, ref, quantize_kv, dev, g, flush, B, H, KVH, D, S,
                        bf16)
     return dict(shape=dict(B=B, H=H, KVH=KVH, D=D, S=S, valid_len=valid),
                 dtype="bfloat16", cache="int8", **appended, **agree,
-                tol=TOL[bf16], kernel_ms=ms, plain_ms=plain_ms,
+                tol=TOL[bf16], lse_max_abs_err=lse_err, lse_tol=LSE_TOL,
+                kernel_ms=ms, kernel_ms_with_lse=lse_ms, plain_ms=plain_ms,
                 library_ms=None, bound_ms=b_ms, bound_by=b_by,
                 **shares(ms, b_ms, None))
+
+
+def empty_shard_case(ops, ref, quantize_kv, dev, g, B, H, KVH, D, S,
+                     int8: bool) -> dict:
+    """A sequence shard that holds no filled row (local valid length 0):
+    the kernel's output 0 and lse -inf, as the plain version gives, in
+    one launch; the int8 kernel with no slot to append to."""
+    bf16 = torch.bfloat16
+    q = torch.randn(B, H, D, generator=g, device=dev).to(bf16)
+    k, v = (torch.randn(B, KVH, S, D, generator=g, device=dev).to(bf16)
+            for _ in range(2))
+    scales = {}
+    name = "decode_attention"
+    if int8:
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        scales = dict(k_scale=ks, v_scale=vs)
+        name = "decode_attention_int8"
+    before = ops.LAUNCHES[name]
+    if int8:
+        new = torch.randn(B, KVH, D, generator=g, device=dev).to(bf16)
+        out, lse = ops.decode_attention_int8_append(
+            q, new, new, k, v, ks, vs, None, 0, return_lse=True)
+    else:
+        out, lse = ops.decode_attention_head_major(q, k, v, 0,
+                                                   return_lse=True)
+    torch.cuda.synchronize()
+    want, want_lse = ref.decode_attention_ref(
+        q, k.transpose(1, 2), v.transpose(1, 2), 0, return_lse=True,
+        **scales)
+    return dict(shape=dict(B=B, H=H, KVH=KVH, D=D, S=S, valid_len=0),
+                cache="int8" if int8 else "bfloat16",
+                ok=bool(torch.equal(out, want) and torch.equal(lse, want_lse)
+                        and torch.isneginf(lse).all()
+                        and ops.LAUNCHES[name] == before + 1),
+                max_abs_err=float(out.float().abs().max()),
+                lse_all_minus_inf=bool(torch.isneginf(lse).all()))
 
 
 def visible_pairs(Sq: int, Skv: int, window) -> int:
@@ -611,6 +692,11 @@ def kernels_phase(dev, flush, power: str) -> dict:
                              # zamba2's serving shape, D 112
                              (BATCH, 32, 32, 112, MAX_LEN, PROMPT + 1,
                               PROMPT))]
+    # the placed serve's empty sequence shard: llama3's serving shape with
+    # nothing filled, both kernels
+    empty = [empty_shard_case(ops, ref, quantize_kv, dev, g, BATCH, 32, 8,
+                              128, MAX_LEN // 2, int8)
+             for int8 in (False, True)]
     flash = [flash_case(ops, fa, dev, g, flush, *shape)
              for shape in (
                  # the training path's shapes: stablelm-3b (D = 80, MHA)
@@ -661,14 +747,15 @@ def kernels_phase(dev, flush, power: str) -> dict:
         decode_attention_int8=dict(
             tpu_counterpart="src/repro/kernels/decode_attention.py:106",
             cases=decode8),
+        decode_empty_shard=empty,
         flash_attention=dict(
             tpu_counterpart="src/repro/kernels/flash_attention.py:111",
             cases=flash),
         ssd_scan=dict(tpu_counterpart="src/repro/kernels/ssd_scan.py:89",
                       cases=ssd_cases),
         peak_bytes_per_s=PEAK_BYTES, power_limit=power)
-    bad = [c for c in ralt + record + decode + decode8 + flash + ssd_cases
-           if not c["ok"]]
+    bad = [c for c in ralt + record + decode + decode8 + empty + flash
+           + ssd_cases if not c["ok"]]
     if bad:
         raise SystemExit(f"kernel disagrees with its plain version: {bad}")
     # the main path's shapes: the tracker's page table (one page a
@@ -2484,6 +2571,341 @@ def multidevice_phase(dev, power: str, engine_tokens: dict,
     fail_on("multidevice", checks)
 
 
+# ----------------------------------------------------------------------
+# placed
+# ----------------------------------------------------------------------
+PLACED_SCRIPT = r"""
+import datetime, json, sys
+import numpy as np
+import torch, torch.distributed as dist
+sys.path.insert(0, sys.argv[4])
+import chip_smoke as cs
+sys.path.insert(0, sys.argv[5])
+rank, world, work = int(sys.argv[1]), int(sys.argv[2]), sys.argv[6]
+dist.init_process_group("gloo", init_method="tcp://localhost:" + sys.argv[3],
+                        rank=rank, world_size=world,
+                        timeout=datetime.timedelta(seconds=300))
+print("RESULT " + json.dumps(cs.placed_rank(work, world)), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def placed_cfgs() -> dict:
+    """The placed phase's models: llama3-8b in bf16 (served), and the
+    float32 checks: llama3-8b at PLACED_CHECK_LAYERS layers, qwen3-moe at
+    PLACED_MOE_LAYERS (its experts over "model")."""
+    from repro_torch.configs import get_config
+    llama = get_config("llama3-8b")
+    return {"llama3": llama,
+            "llama3_f32": dataclasses.replace(
+                layers_cut(llama, PLACED_CHECK_LAYERS), dtype="float32"),
+            "qwen3_f32": dataclasses.replace(
+                layers_cut(get_config(MOE_ARCH), PLACED_MOE_LAYERS),
+                dtype="float32")}
+
+
+def placed_check_tokens(vocab: int) -> np.ndarray:
+    return np.random.default_rng(7).integers(0, vocab, (PLACED_CHECK_STEPS,
+                                                         BATCH))
+
+
+def placed_check(name: str, cfg, work: Path, world: int, dev) -> dict:
+    """One float32 check on this rank: the weights drawn from seed 0 and
+    placed one rank at a time (so the full trees never coexist), then
+    PLACED_CHECK_STEPS decode steps of BATCH rows, each step's gathered
+    logits of this rank's rows against one process's."""
+    import torch.distributed as dist
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.distributed.placement import local_bytes
+    from repro_torch.distributed.sharding import MeshDesc
+    from repro_torch.launch import steps
+    from repro_torch.models.transformer import (decode_step, init_params,
+                                                param_shapes)
+    from repro_torch.tree import tree_leaves
+
+    mesh = MeshDesc(("data", "model"), (1, world))
+    plan = steps.plan_cell(cfg, ShapeSpec(name, "decode", PLACED_CHECK_STEPS,
+                                          BATCH), mesh)
+    for r in range(world):
+        if r == dist.get_rank():
+            g = torch.Generator(device=dev)
+            g.manual_seed(0)
+            full = init_params(cfg, g, dev)
+            params = steps.place_params(plan, full)
+            del full
+            torch.cuda.empty_cache()
+        dist.barrier()
+    cache = steps.init_placed_cache(plan, dev)
+    allocated = torch.cuda.memory_allocated(dev)
+    step = steps.make_serve_step(cfg, plan)
+    plc = step.placement
+    want = torch.load(work / f"{name}.pt")
+    toks = torch.from_numpy(placed_check_tokens(cfg.vocab)).to(dev)
+    rows = steps.local_rows(plan, torch.arange(BATCH)).tolist()
+    err = 0.0
+    for pos in range(PLACED_CHECK_STEPS):
+        with torch.no_grad():
+            lg = decode_step(params, cfg, cache,
+                             steps.local_rows(plan, toks[pos]), pos,
+                             place=plc)
+        got = plc.all_gather(lg, plan.vocab_entry, 1).cpu()
+        w = want[pos][rows]
+        err = max(err, float((got - w).abs().max() / w.abs().max()))
+    weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(cache))
+    del params, cache
+    torch.cuda.empty_cache()
+    return dict(model=cfg.name, layers=cfg.n_layers, steps=PLACED_CHECK_STEPS,
+                rows=rows, max_rel_err=err, weight_bytes=weights,
+                local_bytes=local_bytes(param_shapes(cfg), plan.param_specs,
+                                        mesh),
+                cache_bytes=cache_bytes, memory_allocated=allocated,
+                traffic=dict(plc.traffic))
+
+
+def placed_rank(work: str, world: int) -> dict:
+    """One gloo rank of the `placed` phase on cuda:0 (a (1, world) mesh):
+    the two float32 checks, then llama3-8b in bf16 through
+    `serve.serve_placed`, forced on the engine's tokens."""
+    from repro_torch.distributed.placement import local_bytes
+    from repro_torch.distributed.sharding import MeshDesc
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve_placed
+    from repro_torch.models.transformer import param_shapes
+
+    dev = torch.device("cuda", 0)
+    work = Path(work)
+    cfgs = placed_cfgs()
+    out = {name: placed_check(name, cfgs[name], work, world, dev)
+           for name in ("llama3_f32", "qwen3_f32")}
+    spec = json.loads((work / "placed.json").read_text())
+    cfg = cfgs["llama3"]
+    mesh = MeshDesc(("data", "model"), (1, world))
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    res = serve_placed(cfg, mesh, np.asarray(spec["prompts"]), NEW,
+                       batch=BATCH, device=dev,
+                       teacher=np.asarray(spec["teacher"]))
+    plan = res.pop("plan")
+    out["llama3"] = dict(
+        res, launches=dict(ops.LAUNCHES),
+        local_bytes=local_bytes(param_shapes(cfg), plan.param_specs, mesh),
+        max_memory_allocated=torch.cuda.max_memory_allocated(dev))
+    return out
+
+
+def placed_one_process(dev, work: Path, engine_tokens: dict) -> None:
+    """What the ranks are held to, computed here before they start (and
+    freed): each float32 check's logits; the first PLACED_REQUESTS of the
+    `serve` phase's requests with the engine's tokens."""
+    from repro_torch.models.transformer import (decode_step, init_cache,
+                                                init_params)
+
+    cfgs = placed_cfgs()
+    for name in ("llama3_f32", "qwen3_f32"):
+        cfg = cfgs[name]
+        g = torch.Generator(device=dev)
+        g.manual_seed(0)
+        params = init_params(cfg, g, dev)
+        cache = init_cache(cfg, BATCH, PLACED_CHECK_STEPS, dev)
+        toks = torch.from_numpy(placed_check_tokens(cfg.vocab)).to(dev)
+        with torch.no_grad():
+            want = torch.stack([decode_step(params, cfg, cache, toks[pos],
+                                            pos).cpu()
+                                for pos in range(PLACED_CHECK_STEPS)])
+        torch.save(want, work / f"{name}.pt")
+        del params, cache
+        torch.cuda.empty_cache()
+    rng = np.random.default_rng(0)                 # as `serve_run` draws
+    prompts = [[int(t) for t in rng.integers(0, cfgs["llama3"].vocab,
+                                             PROMPT)]
+               for _ in range(REQUESTS)][:PLACED_REQUESTS]
+    (work / "placed.json").write_text(json.dumps(dict(
+        prompts=prompts,
+        teacher=[engine_tokens[r] for r in range(PLACED_REQUESTS)])))
+
+
+def run_placed_ranks(work: Path, world: int) -> list:
+    port = str(free_port())
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", PLACED_SCRIPT, str(r), str(world), port,
+         str(ROOT), str(ROOT / "src"), str(work)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(world)]
+    t0 = time.perf_counter()
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=max(
+                PLACED_DEADLINE - (time.perf_counter() - t0), 1)))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, (_, err)) in enumerate(zip(procs, outs)):
+        if p.returncode:
+            raise SystemExit(f"placed rank {r} exited {p.returncode}:"
+                             f"\n{err[-3000:]}")
+    return [json.loads(next(line[7:] for line in out.splitlines()
+                            if line.startswith("RESULT ")))
+            for out, _ in outs]
+
+
+def bf16_ulp(x: float) -> float:
+    """The spacing of bfloat16 numbers at |x|."""
+    return 2.0 ** (math.floor(math.log2(max(abs(x), 2.0 ** -126))) - 7)
+
+
+def placed_phase(dev, power: str, engine_tokens: dict) -> dict:
+    """llama3-8b (full width and depth, bf16) served by the placed decode
+    step on two gloo ranks sharing the card, a (1, 2) mesh, forced on
+    the engine's tokens; float32 checks of llama3-8b (PLACED_CHECK_LAYERS
+    layers) and qwen3-moe (PLACED_MOE_LAYERS, experts over "model")
+    against one process."""
+    import tempfile
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.distributed.placement import spec_leaves
+    from repro_torch.distributed.sharding import MeshDesc
+    from repro_torch.launch import steps
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.tree import named_leaves
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        placed_one_process(dev, work, engine_tokens)
+        t1 = time.perf_counter()
+        ranks = run_placed_ranks(work, PLACED_WORLD)
+        ranks_s = time.perf_counter() - t1
+    cfg = placed_cfgs()["llama3"]
+    want = {r: engine_tokens[r] for r in range(PLACED_REQUESTS)}
+    got, gaps = {}, {}
+    for rk in ranks:
+        got.update({int(k): v for k, v in rk["llama3"]["tokens"].items()})
+        gaps.update({int(k): v for k, v in rk["llama3"]["gaps"].items()})
+    misses = [dict(request=r, step=i, gap=gaps[r][i]) for r in want
+              for i, (a, b) in enumerate(zip(got[r], want[r])) if a != b]
+    n = sum(len(v) for v in want.values())
+    # the model's bytes, and those every rank holds whole (the norms)
+    shapes = dict(named_leaves(param_shapes(cfg)))
+    whole = sum(t.numel() * t.element_size() for t in shapes.values())
+    plan = steps.plan_cell(cfg, ShapeSpec("serve", "decode", MAX_LEN, BATCH),
+                           MeshDesc(("data", "model"), (1, PLACED_WORLD)))
+    kept = sum(shapes[k].numel() * shapes[k].element_size()
+               for k, spec in spec_leaves(plan.param_specs)
+               if not any(spec))
+    serve = dict(
+        model=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype,
+        requests=PLACED_REQUESTS, forced_tokens=n,
+        agreement_with_engine=1 - len(misses) / n, mismatches=misses,
+        max_mismatch_gap=max((m["gap"] for m in misses), default=0.0),
+        one_process_weight_bytes=whole, replicated_weight_bytes=kept,
+        ranks=[dict(
+            {k: r[k] for k in ("weight_bytes", "local_bytes", "cache_bytes",
+                               "memory_allocated", "max_memory_allocated",
+                               "steps", "wall_s", "traffic")},
+            allocated_over_resident=r["memory_allocated"]
+            / (r["weight_bytes"] + r["cache_bytes"]),
+            ms_per_step=r["wall_s"] * 1e3 / r["steps"],
+            decode_launches=r["launches"]["decode_attention"])
+            for r in (rk["llama3"] for rk in ranks)])
+    checks = {name: [rk[name] for rk in ranks]
+              for name in ("llama3_f32", "qwen3_f32")}
+    emit("placed", name=torch.cuda.get_device_name(dev), power_limit=power,
+         world=PLACED_WORLD, mesh=[1, PLACED_WORLD], serve=serve,
+         float32_checks=checks, ranks_s=ranks_s,
+         phase_s=time.perf_counter() - t0,
+         timing_note="gloo ranks sharing one card: every collective is "
+                     "staged through the host; the times are no speed")
+    held = [r for c in checks.values() for r in c] + serve["ranks"]
+    fail_on("placed", {
+        "float32 checks within 1e-5 of one process on every rank": all(
+            r["max_rel_err"] <= 1e-5 for c in checks.values() for r in c),
+        "every rank holds local_bytes of weights: llama3's half of all but "
+        "the replicated norms": all(
+            r["weight_bytes"] == r["local_bytes"] for r in held) and all(
+            r["weight_bytes"] == (whole - kept) // PLACED_WORLD + kept
+            for r in serve["ranks"]),
+        "memory_allocated within 1% of the resident weights and cache":
+            all(abs(r["memory_allocated"] / (r["weight_bytes"]
+                                             + r["cache_bytes"]) - 1) <= 0.01
+                for r in held),
+        "decode kernel once per layer and step on every rank": all(
+            r["decode_launches"] == cfg.n_layers * r["steps"]
+            for r in serve["ranks"]),
+        # bf16 with random weights: near-flat logits, so a tie within bf16
+        # rounding can go either way; forced on the engine's tokens, the
+        # placed argmax may differ from the engine's only at such a tie
+        "forced on the engine's tokens, every mismatch a bf16 near tie":
+            serve["max_mismatch_gap"] <= 2 * bf16_ulp(PLACED_LOGIT_SCALE),
+    })
+    return serve
+
+
+def plan_line(dev, power: str) -> None:
+    """The planner (`launch/plan.py`) under 1x1 against the card: each
+    model a phase builds, its parameter bytes against the bytes that
+    `init_params` leaves allocated, as requested of the caching allocator
+    (within 1%) and as it holds them in blocks (`memory_allocated`,
+    rounded up to its block sizes; reported); and its peak estimates
+    beside peaks measured by earlier runs of this script (PERF.md §5-§6),
+    reported."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import plan
+    from repro_torch.models.transformer import init_params
+
+    models = [(a, get_config(a)) for a in (
+        "llama3-8b", "stablelm-3b", "mamba2-1.3b", "gemma3-4b",
+        "minitron-8b", "musicgen-large", "zamba2-7b")]
+    models += [(MOE_ARCH, layers_cut(get_config(MOE_ARCH), MOE_LAYERS)),
+               (MIXTRAL_ARCH, layers_cut(get_config(MIXTRAL_ARCH),
+                                         MIXTRAL_LAYERS))]
+    one = ShapeSpec("decode_32k", "decode", 64, 1)
+    rows = []
+    for arch, cfg in models:
+        planned = plan.plan_one(cfg, one, "1x1", arch=arch)[
+            "bytes_per_device"]["params"]
+        torch.cuda.empty_cache()
+        before = (torch.cuda.memory_allocated(dev), torch.cuda.memory_stats(
+            dev)["requested_bytes.all.current"])
+        g = torch.Generator(device=dev)
+        g.manual_seed(0)
+        params = init_params(cfg, g, dev)
+        got = torch.cuda.memory_allocated(dev) - before[0]
+        asked = torch.cuda.memory_stats(dev)[
+            "requested_bytes.all.current"] - before[1]
+        del params
+        torch.cuda.empty_cache()
+        rows.append(dict(arch=arch, layers=cfg.n_layers, planned=planned,
+                         requested=asked, ratio=asked / planned,
+                         memory_allocated=got,
+                         allocated_ratio=got / planned))
+    # earlier measured peaks (PERF.md: PR 20's zamba2 long prefill, PR 15's
+    # stablelm train step, PR 21's decode_32k at batch 8)
+    peaks = []
+    for arch, shape, micro, measured in (
+            ("zamba2-7b", ShapeSpec("prefill_32k", "prefill", ZAMBA_LONG, 1),
+             1, 26.33e9),
+            ("stablelm-3b", ShapeSpec("train_4k", "train", TRAIN_SEQ,
+                                      TRAIN_BATCH), TRAIN_MICRO, 46.73e9),
+            ("llama3-8b", ShapeSpec("decode_32k", "decode", 32_768,
+                                    MD_BATCH), 1, 63.59e9)):
+        rec = plan.plan_one(get_config(arch), shape, "1x1", arch=arch,
+                            microbatch=micro)
+        peaks.append(dict(arch=arch, shape=dataclasses.asdict(shape),
+                          microbatch=micro,
+                          planned_peak=rec["bytes_per_device"]["peak"],
+                          planned=rec["bytes_per_device"],
+                          measured_peak_earlier_run=measured))
+    emit("plan", name=torch.cuda.get_device_name(dev), power_limit=power,
+         params_1x1=rows, peaks=peaks)
+    fail_on("plan", {
+        "1x1 parameter bytes within 1% of the bytes init_params "
+        "requested": all(abs(r["ratio"] - 1) <= 0.01 for r in rows)})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2543,6 +2965,10 @@ def main() -> int:
         launches[name] += n
     torch.cuda.empty_cache()
     multidevice_phase(dev, power, bf16_tokens, train_losses)
+    torch.cuda.empty_cache()
+    placed_phase(dev, power, bf16_tokens)
+    torch.cuda.empty_cache()
+    plan_line(dev, power)
     sources = {
         "ralt_update": ("src/repro_torch/csrc/ralt_score.cu",
                         "src/repro/kernels/ralt_score.py:78"),

@@ -34,7 +34,9 @@
 //     and bumps an arrival counter of its (batch, kv head): the last block
 //     to arrive merges the splits with the log-sum-exp algebra of
 //     repro/models/common.py:merge_partials, writes the output and resets
-//     the counter.  One launch either way.
+//     the counter.  One launch either way.  The merged (m, l) of each row
+//     also give its log-sum-exp (an optional output, for a
+//     sequence-sharded cache whose shards merge across ranks).
 // The int8 cache (the model's `kv_quant`) under a float32 q (a bf16 q
 // takes decode_attention_int8.cu): payloads int8 in the same layout and
 // strides, with float32 scales of each (batch, kv head, token) in
@@ -68,6 +70,7 @@ constexpr int DPL_INT8 = 16;   // dims a lane holds of an int8 cache, HG <= 4
 constexpr int MAX_SPLITS = 256;  // the merge's weights reuse red_o
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // One launch's arguments (the C entry point's, typed by the kernel).
 struct Args {
@@ -75,6 +78,7 @@ struct Args {
   const void* k;
   const void* v;
   void* out;
+  float* lse;             // (B, H) float32 row log-sum-exp, or null
   float* o_part;
   float* ml_part;
   int* counters;
@@ -365,7 +369,11 @@ __global__ void __launch_bounds__(NT) decode_kernel(const Args a) {
       oo += red_o[w][hh][d] * c;
     }
     if (n_splits == 1) {
-      st(out_bh + idx, oo / ll);
+      // an empty shard (valid_len 0) has ll 0: output 0, lse -inf
+      st(out_bh + idx, ll > 0.0f ? oo / ll : 0.0f);
+      if (d == 0 && a.lse)
+        a.lse[b * H + kvh * G + g] =
+            ll > 0.0f ? (mm + log2f(ll)) * LN2 : -INFINITY;
     } else {
       a.o_part[part * G * D + idx] = oo;
       if (d == 0) {
@@ -398,6 +406,7 @@ __global__ void __launch_bounds__(NT) decode_kernel(const Args a) {
             exp2f(w[sp * G + tid] - mm);
     for (int sp = 0; sp < n_splits; ++sp)
       w[sp * G + tid] = exp2f(w[sp * G + tid] - mm) / ll;
+    if (a.lse) a.lse[b * H + kvh * G + tid] = (mm + log2f(ll)) * LN2;
   }
   __syncthreads();
   const float* o_bh = a.o_part + bh * n_splits * G * D;
@@ -477,9 +486,13 @@ extern "C" int decode_blocks_per_sm(int dtype, int cache_dtype, int hg) {
 // 1 when every row start is 16-byte aligned and D a multiple of those
 // dims.  o_part (B*KVH*n_splits*G*D) and ml_part (B*KVH*n_splits*G*2) are
 // float32 scratch, counters (B*KVH) int32 zeros that the kernel leaves
-// zero.
+// zero.  lse: null, or float32 (B, H) that takes each row's log-sum-exp of
+// the scaled scores (natural log; the split merge's m + log l).
+// valid_len 0 (an empty shard of a sequence-sharded cache; one split)
+// writes output 0 and lse -inf.
 extern "C" int decode_attention(
-    const void* q, const void* k, const void* v, void* out, void* o_part,
+    const void* q, const void* k, const void* v, void* out, void* lse,
+    void* o_part,
     void* ml_part, void* counters, const void* k_scale, const void* v_scale,
     int dtype, int cache_dtype, int B, int H, int KVH, int D, int hg,
     int lanes, int valid_len, int split_len, int n_splits, int vec,
@@ -492,11 +505,12 @@ extern "C" int decode_attention(
   if (KVH < 1 || H % KVH != 0 || G > MAXG || D < 1 || D > MAXD ||
       (G + hg - 1) / hg > 2 || lanes < 1 || lanes > 32 ||
       n_splits < 1 || n_splits > MAX_SPLITS ||
-      (lanes & (lanes - 1)) != 0 || lanes * dpl < D ||
+      (lanes & (lanes - 1)) != 0 || lanes * dpl < D || valid_len < 0 ||
+      (n_splits > 1 && valid_len < 1) ||
       quant != (k_scale != nullptr) || quant != (v_scale != nullptr) ||
       (quant && scale_len < valid_len))
     return static_cast<int>(cudaErrorInvalidValue);
-  Args a{q, k, v, out, static_cast<float*>(o_part),
+  Args a{q, k, v, out, static_cast<float*>(lse), static_cast<float*>(o_part),
          static_cast<float*>(ml_part), static_cast<int*>(counters),
          static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
          H, KVH, D, lanes, valid_len, split_len, n_splits, vec, scale_len,

@@ -57,7 +57,9 @@
 // resident blocks.  The warps' states merge in shared memory; with more
 // than one split the last block of a (batch, kv head) to arrive merges
 // the splits' partials, as the float kernel does (decode_attention.cu),
-// on the same per-stream arrival counters.  One launch either way.
+// on the same per-stream arrival counters.  One launch either way.  The
+// merge's (m, l) of each row also give its log-sum-exp (an optional
+// output, for a sequence-sharded cache whose shards merge across ranks).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -77,6 +79,7 @@ constexpr int MAX_SPLITS = 256;
 constexpr int SMEM_LIMIT = 232448;      // dynamic shared memory a block
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // Byte offsets of one block's dynamic shared memory.  The ring of stages
 // (K tile, V tile, k scales, v scales; rows `pd` bytes apart) doubles as
@@ -113,6 +116,7 @@ struct Args {
   float* k_scale;
   float* v_scale;
   __nv_bfloat16* out;
+  float* lse;                   // (B, H) row log-sum-exp, or null
   float* o_part;
   float* ml_part;
   int* counters;
@@ -587,7 +591,11 @@ __global__ void __launch_bounds__(NT, min_blocks(DC, EXACT))
       oo += red_o[(w * G + g) * pd + d] * c;
     }
     if (n_splits == 1) {
-      out_bh[idx] = __float2bfloat16(__fdividef(oo, ll));
+      // an empty shard (valid_len 0) has ll 0: output 0, lse -inf
+      out_bh[idx] = __float2bfloat16(ll > 0.0f ? __fdividef(oo, ll) : 0.0f);
+      if (d == 0 && a.lse)
+        a.lse[b * a.H + kvh * G + g] =
+            ll > 0.0f ? (mm + log2f(ll)) * LN2 : -INFINITY;
     } else {
       a.o_part[part * G * D + idx] = oo;
       if (d == 0) {
@@ -621,6 +629,7 @@ __global__ void __launch_bounds__(NT, min_blocks(DC, EXACT))
             ex2(w[sp * G + tid] - mm);
     for (int sp = 0; sp < n_splits; ++sp)
       w[sp * G + tid] = __fdividef(ex2(w[sp * G + tid] - mm), ll);
+    if (a.lse) a.lse[b * a.H + kvh * G + tid] = (mm + log2f(ll)) * LN2;
   }
   __syncthreads();
   const float* o_bh = a.o_part + bh * n_splits * G * D;
@@ -680,16 +689,21 @@ extern "C" int decode_int8_blocks_per_sm(int D, int smem) {
 // bf16, contiguous) and their scales (floor: the quantizer's 1e-8 in
 // bf16, as a float).  split_len: a multiple of TILE; o_part
 // (B*KVH*n_splits*G*D) and ml_part (B*KVH*n_splits*G*2) float32 scratch,
-// counters (B*KVH) int32 zeros that the kernel leaves zero.
+// counters (B*KVH) int32 zeros that the kernel leaves zero.  lse: null,
+// or float32 (B, H) that takes each row's log-sum-exp of the scaled
+// scores (natural log).  valid_len 0 (an empty shard of a
+// sequence-sharded cache; one split, no slot) writes output 0 and lse
+// -inf.
 extern "C" int decode_attention_int8(
     const void* q, void* k, void* v, void* k_scale, void* v_scale, void* out,
-    void* o_part, void* ml_part, void* counters, const void* k_new,
+    void* lse, void* o_part, void* ml_part, void* counters, const void* k_new,
     const void* v_new, int B, int H, int KVH, int D, int S, int valid_len,
     int split_len, int n_splits, int stages, int bulk, int slot,
     float floor_, float scale, void* stream) {
   const int G = KVH > 0 ? H / KVH : 0;
   if (B < 1 || KVH < 1 || H % KVH != 0 || G > MAXG || D < 4 || D > MAXD ||
-      D % 4 != 0 || valid_len < 1 || valid_len > S ||
+      D % 4 != 0 || valid_len < 0 || valid_len > S ||
+      (n_splits > 1 && valid_len < 1) ||
       stages < MIN_STAGES || stages > MAX_STAGES || n_splits < 1 ||
       n_splits > MAX_SPLITS || split_len % TILE != 0 ||
       static_cast<long long>(split_len) * n_splits < valid_len ||
@@ -701,7 +715,7 @@ extern "C" int decode_attention_int8(
   Args a{static_cast<const __nv_bfloat16*>(q), static_cast<int8_t*>(k),
          static_cast<int8_t*>(v), static_cast<float*>(k_scale),
          static_cast<float*>(v_scale), static_cast<__nv_bfloat16*>(out),
-         static_cast<float*>(o_part), static_cast<float*>(ml_part),
+         static_cast<float*>(lse), static_cast<float*>(o_part), static_cast<float*>(ml_part),
          static_cast<int*>(counters),
          static_cast<const __nv_bfloat16*>(k_new),
          static_cast<const __nv_bfloat16*>(v_new), H, KVH, D, S, valid_len,

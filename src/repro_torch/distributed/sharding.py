@@ -19,9 +19,17 @@ axis names, sizes and total size of either; nothing here needs a process
 group.  `P` is the port's PartitionSpec: a tuple, so a spec compares
 equal to the reference's as ``tuple(ref) == tuple(port)``.
 
-The port places no activation: `shard` checks its dims and returns its
-input (the train launcher runs data parallelism over the dp ranks with
-replicated weights; `launch/train.py`).
+Placement is explicit, not by constraint: `shard` checks its dims and
+returns its input.  A placed decode cell (`launch/steps.py:plan_cell`)
+gives each rank its blocks of the weights, the KV cache and the batch
+(`distributed/placement.py`), and the placed decode path splits its
+activations itself: a rank's batch rows over dp, its q/k/v heads, the
+MLP's ff slice and its experts over tp, the KV sequence over `seq`, and
+the logits' vocab over tp, with the gathers and all-reduces between
+(`models/attention.py:_attn_decode_placed`, `models/moe.py:
+moe_ffn_placed`, `models/transformer.py:_decode_step_placed`).  Train
+and prefill place nothing yet: the train launcher runs data parallelism
+over the dp ranks with replicated weights (`launch/train.py`).
 """
 from __future__ import annotations
 
@@ -162,8 +170,9 @@ def logical_spec(*dims, shape=None) -> P:
 
 def shard(x, *dims):
     """The reference's sharding constraint: checks that `dims` names
-    every dim of `x` and returns `x` unchanged (the port applies no
-    activation sharding)."""
+    every dim of `x` and returns `x` unchanged.  Nothing is placed by
+    constraint: the placed decode path works on each rank's blocks and
+    moves them with explicit collectives (see the module docstring)."""
     if len(dims) != x.ndim:
         raise ValueError(f"{len(dims)} logical dims for a tensor of shape "
                          f"{tuple(x.shape)}")

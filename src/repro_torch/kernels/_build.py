@@ -35,6 +35,12 @@ LAUNCHES = {"ralt_update": 0, "ralt_record": 0, "decode_attention": 0,
             "flash_attention": 0, "ssd_scan": 0}
 
 
+# Analytic FLOPs (two a multiply-add) of the work a kernel would have done
+# for calls on the meta device, where a wrapper returns only its outputs'
+# shapes; a dry run (`launch/plan.py`) resets and reads them.
+META_FLOPS = {"decode_attention": 0, "flash_attention": 0, "ssd_scan": 0}
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0

@@ -75,7 +75,7 @@ def _lib():
     lib = _build.load("decode_attention")
     if lib.decode_attention.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.decode_attention.argtypes = [P] * 9 + [I] * 13 + [L] * 6 + [
+        lib.decode_attention.argtypes = [P] * 10 + [I] * 13 + [L] * 6 + [
             ctypes.c_float, P]
         lib.decode_attention.restype = ctypes.c_int
         lib.decode_blocks_per_sm.argtypes = [I, I, I]
@@ -87,7 +87,7 @@ def _lib_int8():
     lib = _build.load("decode_attention_int8")
     if lib.decode_attention_int8.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.decode_attention_int8.argtypes = [P] * 11 + [I] * 11 + [
+        lib.decode_attention_int8.argtypes = [P] * 12 + [I] * 11 + [
             ctypes.c_float, ctypes.c_float, P]
         lib.decode_attention_int8.restype = I
         lib.decode_int8_blocks_per_sm.argtypes = [I, I]
@@ -144,7 +144,10 @@ def plan_splits(B: int, KVH: int, valid_len: int, tile: int,
                 slots: int) -> tuple[int, int]:
     """(split_len, n_splits): at most one wave of `slots` resident
     (b, kv_head, split) blocks, at most `_MAX_SPLITS` splits, each a whole
-    number of tiles, and no split at or past `valid_len`."""
+    number of tiles, and no split at or past `valid_len`; an empty shard
+    (valid_len 0) takes one split of one tile."""
+    if valid_len == 0:
+        return tile, 1
     n_tiles = -(-valid_len // tile)
     n = max(1, min(slots // (B * KVH), _MAX_SPLITS, n_tiles))
     split_len = -(-n_tiles // n) * tile
@@ -219,9 +222,10 @@ def _counters(dev, stream: int, n: int) -> torch.Tensor:
     return have
 
 
-def _cuda(q, k, v, valid_len, KVH, strides, k_scale, v_scale):
+def _cuda(q, k, v, valid_len, KVH, strides, k_scale, v_scale, lse=None):
     """`strides`: element strides of the caches' (batch, kv head, token)
-    axes; the head_dim axis is contiguous."""
+    axes; the head_dim axis is contiguous.  `lse`: None, or float32 (B, H)
+    that takes each row's log-sum-exp."""
     B, H, D = q.shape
     dev = q.device
     G = H // KVH
@@ -241,6 +245,7 @@ def _cuda(q, k, v, valid_len, KVH, strides, k_scale, v_scale):
     quant = k_scale is not None
     rc = lib.decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         o_part.data_ptr(), ml_part.data_ptr(),
         _counters(dev, stream, B * KVH).data_ptr(),
         k_scale.data_ptr() if quant else None,
@@ -255,10 +260,10 @@ def _cuda(q, k, v, valid_len, KVH, strides, k_scale, v_scale):
 
 
 def _cuda_int8(q, k, v, valid_len, k_scale, v_scale, k_new=None, v_new=None,
-               slot=-1):
+               slot=-1, lse=None):
     """The int8 kernel over the head-major (B, KVH, S, D) cache, bf16 q;
     with `slot` >= 0 it first writes the quantized `k_new` / `v_new` at
-    `slot`."""
+    `slot`; `lse` as `_cuda`'s."""
     B, H, D = q.shape
     _, KVH, S, _ = k.shape
     G = H // KVH
@@ -281,7 +286,8 @@ def _cuda_int8(q, k, v, valid_len, k_scale, v_scale, k_new=None, v_new=None,
     ml_part = torch.empty(n_part * G * 2, dtype=F32, device=dev)
     rc = lib.decode_attention_int8(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
-        v_scale.data_ptr(), out.data_ptr(), o_part.data_ptr(),
+        v_scale.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), o_part.data_ptr(),
         ml_part.data_ptr(), _counters(dev, stream, B * KVH).data_ptr(),
         None if k_new is None else k_new.data_ptr(),
         None if v_new is None else v_new.data_ptr(), B, H, KVH, D, S,
@@ -292,7 +298,7 @@ def _cuda_int8(q, k, v, valid_len, k_scale, v_scale, k_new=None, v_new=None,
     return out
 
 
-def _check(q, k, v, valid_len, kvh_dim, k_scale, v_scale):
+def _check(q, k, v, valid_len, kvh_dim, k_scale, v_scale, lo: int = 1):
     if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"decode_attention: bad shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
@@ -302,9 +308,9 @@ def _check(q, k, v, valid_len, kvh_dim, k_scale, v_scale):
     if k.shape[0] != B or k.shape[3] != D or H % KVH:
         raise ValueError("decode_attention: q and caches disagree on B, D "
                          "or the head grouping")
-    if not 1 <= valid_len <= S:
+    if not lo <= valid_len <= S:
         raise ValueError(f"decode_attention: valid_len {valid_len} not in "
-                         f"[1, {S}]")
+                         f"[{lo}, {S}]")
     quant = k.dtype == torch.int8 or v.dtype == torch.int8
     scales = [t for t in (k_scale, v_scale) if t is not None]
     if len(scales) != (2 if quant else 0):
@@ -315,7 +321,7 @@ def _check(q, k, v, valid_len, kvh_dim, k_scale, v_scale):
             raise ValueError(f"decode_attention: {name} must be float32 of "
                              f"shape {(B, KVH, S)}, got {t.dtype} "
                              f"{tuple(t.shape)}")
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return S
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
@@ -337,11 +343,25 @@ def _check(q, k, v, valid_len, kvh_dim, k_scale, v_scale):
     return S
 
 
+def _meta(q, valid_len: int, return_lse: bool):
+    """The plain version's shapes on the meta device; the kernel's work,
+    q.k and p.v over `valid_len` rows, goes to `_build.META_FLOPS` (a
+    planner's dry run)."""
+    B, H, D = q.shape
+    _build.META_FLOPS["decode_attention"] += 4 * B * H * valid_len * D
+    out = torch.empty_like(q)
+    if not return_lse:
+        return out
+    return out, torch.empty(q.shape[:2], dtype=F32, device=q.device)
+
+
 def decode_attention(q, k_cache, v_cache, valid_len):
     """q: (B, H, D); caches: (B, S, KVH, D); valid_len: scalar int in
     [1, S].  -> (B, H, D) in q's dtype."""
     valid_len = int(valid_len)
     S = _check(q, k_cache, v_cache, valid_len, 2, None, None)
+    if q.device.type == "meta":
+        return _meta(q, valid_len, False)
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, valid_len)
     _, _, KVH, D = k_cache.shape
@@ -349,40 +369,59 @@ def decode_attention(q, k_cache, v_cache, valid_len):
                  (S * KVH * D, D, KVH * D), None, None)
 
 
+def _lse_out(q, return_lse: bool):
+    return torch.empty(q.shape[:2], dtype=F32, device=q.device) \
+        if return_lse else None
+
+
 def decode_attention_head_major(q, k_cache, v_cache, valid_len,
-                                k_scale=None, v_scale=None):
+                                k_scale=None, v_scale=None,
+                                return_lse: bool = False):
     """q: (B, H, D); caches: (B, KVH, S, D) (the model's decode cache), in
     q's dtype or int8 with float32 `k_scale` / `v_scale` (B, KVH, S);
-    valid_len: scalar int in [1, S].  -> (B, H, D) in q's dtype.  On the
-    card an int8 cache goes by q's dtype: bf16 q to the int8 kernel,
+    valid_len: scalar int in [0, S].  -> (B, H, D) in q's dtype, and with
+    `return_lse` each row's float32 log-sum-exp (B, H) of the scaled
+    scores, which a sequence shard's partial needs for the cross-rank
+    merge; valid_len 0 (an empty shard) gives output 0 and lse -inf.  On
+    the card an int8 cache goes by q's dtype: bf16 q to the int8 kernel,
     float32 q to the float kernel's int8 instantiation."""
     valid_len = int(valid_len)
-    S = _check(q, k_cache, v_cache, valid_len, 1, k_scale, v_scale)
+    S = _check(q, k_cache, v_cache, valid_len, 1, k_scale, v_scale, lo=0)
+    if q.device.type == "meta":
+        return _meta(q, valid_len, return_lse)
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache.transpose(1, 2),
                                     v_cache.transpose(1, 2), valid_len,
-                                    k_scale, v_scale)
+                                    k_scale, v_scale, return_lse=return_lse)
+    lse = _lse_out(q, return_lse)
     if k_scale is not None and q.dtype == torch.bfloat16:
-        return _cuda_int8(q, k_cache, v_cache, valid_len, k_scale, v_scale)
-    _, KVH, _, D = k_cache.shape
-    return _cuda(q, k_cache, v_cache, valid_len, KVH,
-                 (KVH * S * D, S * D, D), k_scale, v_scale)
+        out = _cuda_int8(q, k_cache, v_cache, valid_len, k_scale, v_scale,
+                         lse=lse)
+    else:
+        _, KVH, _, D = k_cache.shape
+        out = _cuda(q, k_cache, v_cache, valid_len, KVH,
+                    (KVH * S * D, S * D, D), k_scale, v_scale, lse)
+    return (out, lse) if return_lse else out
 
 
 def decode_attention_int8_append(q, k_new, v_new, cache_k, cache_v, k_scale,
-                                 v_scale, slot, valid_len):
+                                 v_scale, slot, valid_len,
+                                 return_lse: bool = False):
     """The model's int8 decode step: quantizes the new token's `k_new` /
     `v_new` ((B, KVH, D) in q's dtype, after RoPE) as `ref.quantize_kv`
     does, writes payloads and float32 scales at cache row `slot` (in
     place), then attends q (B, H, D) over the first `valid_len` rows of
     the head-major int8 caches (B, KVH, S, D) with their `k_scale` /
-    `v_scale` (B, KVH, S); `slot` in [0, valid_len).  -> (B, H, D) in q's
-    dtype.  On the card one launch of the int8 kernel (bf16 q only); on
-    the CPU the quantizer, the four writes and the plain version."""
-    slot, valid_len = int(slot), int(valid_len)
+    `v_scale` (B, KVH, S); `slot` in [0, valid_len), or None where this
+    cache (a sequence shard) does not hold the new token's row: then
+    nothing is written and valid_len may be 0.  -> (B, H, D) in q's
+    dtype [, lse (B, H) float32, as `decode_attention_head_major`'s].  On
+    the card one launch of the int8 kernel (bf16 q only); on the CPU the
+    quantizer, the four writes and the plain version."""
+    valid_len = int(valid_len)
     if cache_k.dtype != torch.int8:
         raise ValueError("decode_attention_int8_append: takes an int8 cache")
-    _check(q, cache_k, cache_v, valid_len, 1, k_scale, v_scale)
+    _check(q, cache_k, cache_v, valid_len, 1, k_scale, v_scale, lo=0)
     B, KVH, _, D = cache_k.shape
     for name, t in (("k_new", k_new), ("v_new", v_new)):
         if t.shape != (B, KVH, D) or t.dtype != q.dtype \
@@ -391,20 +430,28 @@ def decode_attention_int8_append(q, k_new, v_new, cache_k, cache_v, k_scale,
                              f"contiguous {q.dtype} of shape {(B, KVH, D)} on "
                              f"{q.device}, got {t.dtype} {tuple(t.shape)} on "
                              f"{t.device}")
-    if not 0 <= slot < valid_len:
-        raise ValueError(f"decode_attention_int8_append: slot {slot} not in "
-                         f"[0, {valid_len})")
+    if slot is not None:
+        slot = int(slot)
+        if not 0 <= slot < valid_len:
+            raise ValueError(f"decode_attention_int8_append: slot {slot} not "
+                             f"in [0, {valid_len})")
+    if q.device.type == "meta":
+        return _meta(q, valid_len, return_lse)
     if q.device.type == "cpu":
-        k8, ks = quantize_kv(k_new)
-        v8, vs = quantize_kv(v_new)
-        k_scale[:, :, slot] = ks
-        v_scale[:, :, slot] = vs
-        cache_k[:, :, slot] = k8
-        cache_v[:, :, slot] = v8
+        if slot is not None:
+            k8, ks = quantize_kv(k_new)
+            v8, vs = quantize_kv(v_new)
+            k_scale[:, :, slot] = ks
+            v_scale[:, :, slot] = vs
+            cache_k[:, :, slot] = k8
+            cache_v[:, :, slot] = v8
         return decode_attention_head_major(q, cache_k, cache_v, valid_len,
-                                           k_scale, v_scale)
+                                           k_scale, v_scale,
+                                           return_lse=return_lse)
     if q.dtype != torch.bfloat16:
         raise ValueError(f"decode_attention_int8_append: the card's kernel "
                          f"takes a bfloat16 q, got {q.dtype}")
-    return _cuda_int8(q, cache_k, cache_v, valid_len, k_scale, v_scale,
-                      k_new, v_new, slot)
+    lse = _lse_out(q, return_lse)
+    out = _cuda_int8(q, cache_k, cache_v, valid_len, k_scale, v_scale,
+                     k_new, v_new, -1 if slot is None else slot, lse)
+    return (out, lse) if return_lse else out

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import _build
@@ -77,6 +78,17 @@ def _lib():
             ctypes.c_float, P]
         lib.flash_attention_fwd.restype = ctypes.c_int
     return lib
+
+
+def visible_pairs(Sq: int, kv_len: int, causal: bool, window,
+                  q_offset: int = 0) -> int:
+    """(query, key) pairs the causal and window masks let through: query
+    row i at position q_offset + i sees keys up to it (causal) and within
+    `window` of it, of the first kv_len."""
+    p = q_offset + np.arange(Sq)
+    hi = np.minimum(p, kv_len - 1) if causal else np.full(Sq, kv_len - 1)
+    lo = np.maximum(p - window + 1, 0) if window else np.zeros(Sq, np.int64)
+    return int((hi - lo + 1).clip(min=0).sum())
 
 
 def tile_visible(q_lo, q_hi, k_lo, k_hi, causal, window, kv_len) -> bool:
@@ -160,7 +172,7 @@ def _check(q, k, v, window, kv_len):
                          f"[0, {Skv}]")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} < 1")
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
@@ -184,10 +196,17 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=None, kv_len=None,
     """q: (B, Sq, H, D); k/v: (B, Skv, KVH, D).  -> (out (B, Sq, H, D) in
     q's dtype, lse (B, H, Sq) float32).  `q_offset`: absolute position of
     q row 0; `kv_len`: keys at or past it are masked.  The chunk sizes
-    apply to the plain version only."""
+    apply to the plain version only.  On the meta device: the outputs'
+    shapes, no work (a planner counts the kernel's from its formula)."""
     Skv = k.shape[1]
     kv_len = Skv if kv_len is None else int(kv_len)
     _check(q, k, v, window, kv_len)
+    if q.device.type == "meta":
+        B, Sq, H, D = q.shape
+        _build.META_FLOPS["flash_attention"] += 4 * B * H * D * visible_pairs(
+            Sq, kv_len, causal, window, q_offset)
+        return torch.empty_like(q), torch.empty(B, H, Sq, dtype=F32,
+                                                device=q.device)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      kv_len=kv_len, q_offset=q_offset,

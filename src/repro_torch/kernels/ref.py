@@ -37,14 +37,17 @@ def flash_attention_ref(q, k, v, *, causal=True, window=None):
 
 
 def decode_attention_ref(q, k_cache, v_cache, valid_len, k_scale=None,
-                         v_scale=None):
+                         v_scale=None, return_lse: bool = False):
     """q: (B, H, D); caches: (B, S, KVH, D); valid_len: scalar int.
     -> (B, H, D).  GQA: query head h reads KV head h // (H // KVH).
     An int8 cache comes with float32 per-(token, head) `k_scale` and
     `v_scale` (B, KVH, S), folded in as the reference's einsum does
     (`repro/models/attention.py:146-166`): the scores times k_scale after
     the dot, the probabilities times v_scale before the V product, all in
-    float32 from the int8 payload."""
+    float32 from the int8 payload.  With `return_lse` also each row's
+    float32 log-sum-exp (B, H) of the masked scaled scores; valid_len 0
+    (an empty shard of a sequence-sharded cache) gives output 0 and lse
+    -inf."""
     B, H, D = q.shape
     _, S, KVH, _ = k_cache.shape
     qg = q.reshape(B, KVH, H // KVH, D).to(F32)
@@ -57,7 +60,13 @@ def decode_attention_ref(q, k_cache, v_cache, valid_len, k_scale=None,
     if v_scale is not None:
         w = w * v_scale[:, :, None, :]
     o = torch.einsum("bhgs,bshd->bhgd", w, v_cache.to(F32))
-    return o.reshape(B, H, D).to(q.dtype)
+    o = o.reshape(B, H, D).to(q.dtype)
+    if not return_lse:
+        return o
+    if valid_len == 0:
+        return torch.zeros_like(o), torch.full((B, H), -torch.inf,
+                                               dtype=F32, device=q.device)
+    return o, torch.logsumexp(s, dim=-1).reshape(B, H)
 
 
 def quantize_kv(x):

@@ -159,7 +159,7 @@ def _check(x, Bm, Cm, dt, A):
                          f"{tuple(A.shape)} disagree")
     if min(x.shape) < 1 or Bm.shape[-1] < 1:
         raise ValueError("ssd_scan: empty input")
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         return
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan: unsupported device {x.device}")
@@ -198,6 +198,15 @@ def _check(x, Bm, Cm, dt, A):
 
 def _scan(x, Bm, Cm, dt, A, out_dtype):
     _check(x, Bm, Cm, dt, A)
+    if x.device.type == "meta":     # shapes only (a planner's dry run)
+        Bsz, nC, Q, nh, hp = x.shape
+        ns = Bm.shape[-1]
+        # C B^T once a chunk; per head and chunk W x, C h and the update
+        _build.META_FLOPS["ssd_scan"] += 2 * Bsz * nC * (
+            Q * Q * ns + nh * (Q * Q * hp + 2 * Q * ns * hp))
+        return (torch.empty(x.shape, dtype=out_dtype, device=x.device),
+                torch.empty(Bsz, nh, Bm.shape[-1], hp, dtype=F32,
+                            device=x.device))
     if x.device.type == "cpu":
         y, h = ssd_scan_plain(x, Bm, Cm, dt, A)
         return y.to(out_dtype), h

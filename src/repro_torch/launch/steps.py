@@ -1,19 +1,33 @@
 """Step functions of the port (counterpart of `repro/launch/steps.py`):
-train, prefill and serve.  Each runs on one device; `launch/train.py`
-runs the train step on every rank of a mesh and averages its gradients
-over the data-parallel ranks (`make_train_step(reduce=...)`).  The
-reference's cell planner (`CellPlan`, `plan_cell`, `lower_cell`) lowers
-a step for a TPU mesh through XLA and has no counterpart here yet.
+train, prefill and serve, and the cell planner of decode cells.  The
+train and prefill steps run on one device; `launch/train.py` runs the
+train step on every rank of a mesh and averages its gradients over the
+data-parallel ranks (`make_train_step(reduce=...)`), each rank holding
+every weight.  `plan_cell` places a decode cell's weights, KV cache and
+batch on a ("data", "model") mesh as the reference's does
+(`repro/launch/steps.py:144-207`), and `make_serve_step(cfg, plan=...)`
+serves it with each rank holding only its blocks.  The reference's
+`lower_cell` (XLA lowering) has no counterpart: `launch/plan.py` sizes a
+cell from the same specs instead.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
-from ..models.transformer import decode_step, forward, loss_fn
+from ..configs.shapes import ShapeSpec
+from ..distributed.placement import (Placement, local_shape, mesh_coords,
+                                     place)
+from ..distributed.sharding import P, describe_mesh
+from ..models.config import ModelConfig
+from ..models.transformer import (cache_specs, decode_step, forward,
+                                  init_cache, layer_blocks, loss_fn,
+                                  param_shapes, param_specs)
 from ..optim import AdamWConfig, adamw_update, cosine_schedule
 from ..tree import tree_leaves, tree_map
+from .mesh import axis_binding
 
 F32 = torch.float32
 
@@ -103,14 +117,166 @@ def make_prefill_step(cfg):
     return prefill_step
 
 
-def make_serve_step(cfg):
+def make_serve_step(cfg, plan: "CellPlan | None" = None):
     """-> serve_step(params, cache, tokens, pos) -> (next tokens (B,)
     int32, cache): one `decode_step` (which writes the new token into
     `cache` in place) and the greedy choice of each row; an argmax tie
-    goes to the lower token id, as `jnp.argmax` breaks it."""
-    def serve_step(params, cache, tokens, pos):
-        with torch.no_grad():
-            logits = decode_step(params, cfg, cache, tokens, pos)
-        return torch.argmax(logits, dim=-1).to(torch.int32), cache
+    goes to the lower token id, as `jnp.argmax` breaks it.
 
-    return serve_step
+    With `plan` (`plan_cell`'s, on a mesh over the default process
+    group; every rank must call this, as it creates the mesh's process
+    groups) the step's arguments are this rank's blocks (`place_params`,
+    `place_cache`, `local_rows`) and it returns this rank's rows' next
+    tokens (B_local,), the ones the one-device step gives for those
+    rows; the argmax runs across the vocab shards.  The step's
+    `placement` attribute holds the rank's `Placement` (its collectives'
+    `traffic`)."""
+    if plan is None:
+        def serve_step(params, cache, tokens, pos):
+            with torch.no_grad():
+                logits = decode_step(params, cfg, cache, tokens, pos)
+            return torch.argmax(logits, dim=-1).to(torch.int32), cache
+
+        return serve_step
+    plc = Placement(plan.mesh, plan.param_specs, plan.cache_specs,
+                    plan.batch_entry)
+
+    def placed_step(params, cache, tokens, pos):
+        with torch.no_grad():
+            logits = decode_step(params, cfg, cache, tokens, pos, place=plc)
+        return plc.argmax(logits, plan.vocab_entry), cache
+
+    placed_step.placement = plc
+    return placed_step
+
+
+# ----------------------------------------------------------------------
+# cell planner
+# ----------------------------------------------------------------------
+@dataclasses.dataclass
+class CellPlan:
+    """What a placed cell's ranks share: the binding of the logical axes,
+    the `P` of every parameter and cache leaf, the batch's entry (its
+    rows over dp, or None: replicated) and the vocab shards' entry of the
+    logits.  `mesh` is a DeviceMesh (or a description whose ranks are
+    0..n-1 row-major)."""
+    cfg: ModelConfig
+    shape: ShapeSpec
+    mesh: object
+    binding: dict
+    param_specs: object
+    cache_specs: list
+    batch_entry: object
+    vocab_entry: object
+    recipe: str = "tp"
+
+
+def cell_binding(cfg: ModelConfig, shape: ShapeSpec, mesh,
+                 recipe: str = "tp", microbatch: int = 1) -> dict:
+    """The reference's `plan_cell` binding (`repro/launch/steps.py:
+    153-161`): long_500k spreads the KV sequence over ("data", "model");
+    an SSM architecture keeps context parallelism off."""
+    has_ssm = any(b.kind == "mamba2" for b in layer_blocks(cfg))
+    binding = axis_binding(mesh, shape_kind=shape.kind,
+                           seq_over_all=shape.name == "long_500k",
+                           recipe=recipe,
+                           batch=shape.batch // max(microbatch, 1),
+                           allow_sp=not has_ssm)
+    binding["mesh"] = describe_mesh(mesh)
+    return binding
+
+
+def cell_param_specs(cfg: ModelConfig, shape: ShapeSpec, binding: dict,
+                     params=None):
+    """`param_specs` of the cell's parameters (`param_shapes` unless
+    given) under `binding`; decode takes the weight-stationary expert
+    layout, as the reference's `plan_cell` does."""
+    return param_specs(params if params is not None else param_shapes(cfg),
+                       cfg, binding["mesh"], dp_axes=binding["dp"],
+                       tp_axes=binding["tp"], fsdp_axes=binding["fsdp"],
+                       vocab_axes=binding["vocab"],
+                       embed_d_axes=binding["embed_d"],
+                       moe_ff_sharded=shape.kind == "decode")
+
+
+def batch_entry(rows: int, binding: dict):
+    """The spec entry of a batch dim of `rows` (`_batch_specs`): the dp
+    axes where they divide it, else None."""
+    dp = tuple(binding["dp"])
+    n = 1
+    for a in dp:
+        n *= binding["mesh"].shape[a]
+    if not dp or rows % n:
+        return None
+    return dp[0] if len(dp) == 1 else dp
+
+
+def plan_cell(cfg: ModelConfig, shape: ShapeSpec, mesh,
+              recipe: str = "tp") -> CellPlan:
+    """Place a decode cell on a ("data", "model") mesh as the reference's
+    `plan_cell` decode branch does (`repro/launch/steps.py:191-207`):
+    `axis_binding(shape_kind="decode")`, `param_specs(moe_ff_sharded=
+    True)`, `cache_specs(seq_axes=binding["seq"])` over the cell's
+    (batch, seq) cache, and the batch over dp.  Needs no process group.
+    Train and prefill cells, and the mamba2 and shared-attention layers,
+    are not placed yet: they raise `NotImplementedError` naming their
+    ROADMAP item."""
+    if shape.kind != "decode":
+        raise NotImplementedError(
+            f"placement of {shape.kind} cells (FSDP gathers and "
+            "reduce-scatters, TP in the backward) is ROADMAP Queue 1, "
+            "item 'train and prefill placement'")
+    kinds = {b.kind for b in layer_blocks(cfg)} - {"attn", "moe"}
+    if kinds:
+        raise NotImplementedError(
+            f"placement of {sorted(kinds)} layers (mamba2-1.3b, zamba2-7b) "
+            "is ROADMAP Queue 1, item 'mamba2 and zamba2 placement'")
+    binding = cell_binding(cfg, shape, mesh, recipe)
+    pspecs = cell_param_specs(cfg, shape, binding)
+    cache = init_cache(cfg, shape.batch, shape.seq, torch.device("meta"))
+    cspecs = cache_specs(cache, binding["mesh"], dp_axes=binding["dp"],
+                         tp_axes=binding["tp"], seq_axes=binding["seq"])
+    vocab = pspecs["embed"][0] if cfg.tie_embeddings \
+        else pspecs["lm_head"][1]
+    return CellPlan(cfg=cfg, shape=shape, mesh=mesh, binding=binding,
+                    param_specs=pspecs, cache_specs=cspecs,
+                    batch_entry=batch_entry(shape.batch, binding),
+                    vocab_entry=vocab, recipe=recipe)
+
+
+def _coords(plan: CellPlan, rank: int | None) -> dict:
+    return mesh_coords(plan.mesh, dist.get_rank() if rank is None else rank)
+
+
+def place_params(plan: CellPlan, params, rank: int | None = None,
+                 device=None):
+    """This rank's blocks of full `params`, in fresh storage."""
+    return place(params, plan.param_specs, plan.binding["mesh"],
+                 _coords(plan, rank), device)
+
+
+def place_cache(plan: CellPlan, cache, rank: int | None = None,
+                device=None):
+    """This rank's blocks of a full decode cache (`init_cache` of the
+    cell's batch and seq), in fresh storage."""
+    return place(cache, plan.cache_specs, plan.binding["mesh"],
+                 _coords(plan, rank), device)
+
+
+def init_placed_cache(plan: CellPlan, device):
+    """This rank's blocks of the cell's zeroed decode cache, made at their
+    own size (no full cache is built)."""
+    full = init_cache(plan.cfg, plan.shape.batch, plan.shape.seq,
+                      torch.device("meta"))
+    mesh = plan.binding["mesh"]
+    return tree_map(lambda t, spec: torch.zeros(
+        local_shape(t.shape, spec, mesh), dtype=t.dtype, device=device),
+        full, plan.cache_specs)
+
+
+def local_rows(plan: CellPlan, x, rank: int | None = None):
+    """This rank's rows of a (batch, ...) tensor under the batch's
+    entry."""
+    spec = P(plan.batch_entry, *([None] * (x.dim() - 1)))
+    return place({"x": x}, {"x": spec}, plan.binding["mesh"],
+                 _coords(plan, rank))["x"]

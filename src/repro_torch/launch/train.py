@@ -112,9 +112,10 @@ def train(cfg, *, steps: int, global_batch: int, seq_len: int,
     work until weights are placed).
     Gradients and the loss are averaged over the dp ranks (`dp_mean`),
     so `history` holds the global batch's loss on every rank.  Weights
-    and optimizer state are replicated: the reference's placement of
-    weights by `param_specs` (tp over "model", fsdp over "data") is not
-    ported.  A rank's MoE layers route its own rows as one token group
+    and optimizer state are replicated: the reference's placement of a
+    train cell's weights by `param_specs` (tp over "model", fsdp over
+    "data") is not ported; only decode cells are placed
+    (`launch.steps.plan_cell`).  A rank's MoE layers route its own rows as one token group
     (`models.moe.moe_ffn`).  Rank 0 writes checkpoints; every rank
     restores them.  A rank runs on ``cuda:LOCAL_RANK`` unless `device`
     says otherwise."""

@@ -108,13 +108,20 @@ def attn_block(p, x, cfg, window: int | None = None, positions=None,
 
 
 def attn_decode(p, x, cache_k, cache_v, pos: int, cfg, mlp_fn=None, *,
-                slot: int, valid_len: int, k_scale=None, v_scale=None):
+                slot: int, valid_len: int, k_scale=None, v_scale=None,
+                place=None):
     """Single-token decode.  x: (B, d); caches head-major (B, KV, S, hd),
     updated in place at `slot` (`pos`, or a windowed layer's ring slot);
     attention covers the cache's first `valid_len` entries.  `pos` is the
     token's position (RoPE).  An int8 cache takes float32 `k_scale` /
     `v_scale` (B, KV, S), written at `slot` with the payload.  Returns
-    the block output (B, d)."""
+    the block output (B, d).  With `place` (a
+    `distributed.placement.LayerPlace`) `p` and the caches are this
+    rank's blocks and `slot` / `valid_len` the whole cache's: see
+    `_attn_decode_placed`."""
+    if place is not None:
+        return _attn_decode_placed(p, x, cache_k, cache_v, pos, cfg, mlp_fn,
+                                   slot, valid_len, k_scale, v_scale, place)
     B, d = x.shape
     h = rms_norm(x, p["norm1"])
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
@@ -139,3 +146,73 @@ def attn_decode(p, x, cache_k, cache_v, pos: int, cfg, mlp_fn=None, *,
     x = x + o.reshape(B, -1) @ p["wo"].reshape(-1, d)
     h = rms_norm(x, p["norm2"])
     return x + _mlp(p, h, mlp_fn)
+
+
+def _attn_decode_placed(p, x, cache_k, cache_v, pos, cfg, mlp_fn, slot,
+                        valid_len, k_scale, v_scale, lp):
+    """`attn_decode` on one rank of a placed decode cell (the reference's
+    `attn_decode` under `plan_cell`'s decode shardings).  x: this rank's
+    rows (B, d), the same on every rank of its "model" group.
+
+    Weights: a dim bound to "data" (fsdp: d_model) is all-gathered before
+    use.  q heads are local where `param_specs` splits `wq` over "model"
+    (H % tp == 0), k/v heads where it splits `wk`/`wv` (KV % tp == 0);
+    otherwise every rank computes them all.  The cache holds every KV
+    head of this rank's sequence shard, so q and the new token's k/v are
+    all-gathered over "model" (B x heads x hd elements).  The rank whose
+    shard holds `slot` writes the token; each attends over its shard's
+    filled rows, a local valid length clamp(valid_len - offset, 0,
+    S_local), by the decode kernel with its row lse, and the shards merge
+    across the sequence group (`Placement.merge_seq`).  Then `wo` is
+    row-parallel over the heads it holds (an all-reduce over "model"),
+    and the SwiGLU column-parallel `w_gate`/`w_up`, row-parallel
+    `w_down` (an all-reduce)."""
+    plc, s = lp.plc, lp.spec
+    B, d = x.shape
+    hd = cfg.head_dim
+    h = rms_norm(x, p["norm1"])
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+
+    def proj(name, rotate):
+        w = plc.gather_axis(p[name], s[name])            # (d, heads, hd)
+        y = (h @ w.reshape(d, -1)).view(B, 1, w.shape[1], hd)
+        return (rope(y, positions, cfg.rope_theta) if rotate else y)[:, 0]
+
+    qkv = {n: proj(n, n != "wv") for n in ("wq", "wk", "wv")}
+    split = [n for n in qkv if s[n][1] is not None]      # heads over tp
+    if split:                                            # one all-gather
+        qkv.update(zip(split, plc.all_gather_many(
+            [qkv[n] for n in split], s[split[0]][1], 1)))
+    q, k, v = (qkv[n].contiguous() for n in ("wq", "wk", "wv"))
+    S = cache_k.shape[2]
+    off = plc.index(lp.seq) * S
+    mine = slot - off if 0 <= slot - off < S else None
+    valid = min(max(valid_len - off, 0), S)
+    if cache_k.dtype == torch.int8 and q.dtype == torch.bfloat16:
+        o, lse = ops.decode_attention_int8_append(
+            q, k, v, cache_k, cache_v, k_scale, v_scale, mine, valid,
+            return_lse=True)
+    else:
+        if mine is not None:
+            if cache_k.dtype == torch.int8:
+                k, ks = quantize_kv(k)
+                v, vs = quantize_kv(v)
+                k_scale[:, :, mine] = ks
+                v_scale[:, :, mine] = vs
+            cache_k[:, :, mine] = k.to(cache_k.dtype)
+            cache_v[:, :, mine] = v.to(cache_v.dtype)
+        o, lse = ops.decode_attention_head_major(
+            q, cache_k, cache_v, valid, k_scale=k_scale, v_scale=v_scale,
+            return_lse=True)
+    o = plc.merge_seq(o, lse, lp.seq)                    # (B, H, hd)
+    wo = plc.gather_axis(p["wo"], s["wo"])               # (H_local, hd, d)
+    n = wo.shape[0]
+    o = o[:, plc.index(s["wo"][0]) * n:][:, :n]
+    x = x + plc.all_reduce(o.reshape(B, -1) @ wo.reshape(-1, d), s["wo"][0])
+    h = rms_norm(x, p["norm2"])
+    if mlp_fn is not None:
+        return x + mlp_fn(h)
+    y = swiglu(h, plc.gather_axis(p["w_gate"], s["w_gate"]),
+               plc.gather_axis(p["w_up"], s["w_up"]),
+               plc.gather_axis(p["w_down"], s["w_down"]))
+    return x + plc.all_reduce(y, s["w_down"][0])

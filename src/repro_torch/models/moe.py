@@ -164,3 +164,43 @@ def aux_load_balance_loss(p, x, cfg):
     frac = F.one_hot(top1, cfg.n_experts).to(F32).mean(dim=0)
     imp = probs.mean(dim=0)
     return cfg.n_experts * torch.sum(frac * imp)
+
+
+def moe_ffn_placed(p, x, cfg, plc, spec):
+    """Dropless decode `moe_ffn` on one rank of a placed cell, in the
+    reference's weight-stationary layout (`moe_specs(ff_sharded=True)`,
+    `repro/models/moe.py:36-60`): experts over "model" where E divides
+    it, ff over what "tp_fsdp" leaves; the router replicated.  No expert
+    weight moves.  x: this rank's rows (B, d).
+
+    Every rank of the layer's group (the axes the expert weights are
+    split over) routes the same tokens: where that group spans the batch
+    axis, the rows are all-gathered first.  Each rank runs every token
+    through its experts' slice of ff (the dropless buffer is T tokens an
+    expert, as `moe_ffn`'s with C = T), weighs each output by the token's
+    gate on that expert (0 where the token did not choose it), sums over
+    its experts in float32, and the partial sums are all-reduced over the
+    group; this rank's rows are taken back at the end."""
+    from ..distributed.placement import axes_of
+    w_spec = tuple(spec["w_gate"])
+    group = axes_of(w_spec[0]) + axes_of(w_spec[2])
+    rows = bool(set(group) & set(axes_of(plc.batch_entry)))
+    xa = plc.all_gather(x, plc.batch_entry, 0) if rows else x
+    T, d = xa.shape
+    gates, eidx = route(p["router"], xa, cfg)
+    E = p["w_gate"].shape[0]
+    local = eidx - plc.index(w_spec[0]) * E
+    on = (local >= 0) & (local < E)
+    w = torch.zeros(T, E, dtype=F32, device=x.device).scatter_add_(
+        1, local.clamp(0, E - 1), gates * on)
+    xe = xa.expand(E, T, d)
+    g = torch.bmm(xe, p["w_gate"])
+    u = torch.bmm(xe, p["w_up"])
+    h = F.silu(g.to(F32)).to(x.dtype) * u
+    yb = torch.bmm(h, p["w_down"])                       # (E, T, d)
+    y = torch.einsum("te,etd->td", w, yb.to(F32))
+    y = plc.all_reduce(y, tuple(a for a in ("data", "model") if a in group))
+    if rows:
+        n = x.shape[0]
+        y = y[plc.index(plc.batch_entry) * n:][:n]
+    return y.to(x.dtype)

@@ -299,14 +299,18 @@ def cache_specs(cache, mesh, dp_axes=("data",), tp_axes=("model",),
             for layer in cache]
 
 
-def decode_step(params, cfg: ModelConfig, cache, tokens, pos: int):
+def decode_step(params, cfg: ModelConfig, cache, tokens, pos: int,
+                place=None):
     """One decode step.  tokens: (B,) int; pos: the position being
     written (the current length).  Updates `cache` in place (the new
     token's K/V, or the mamba2 layer's ssm and conv state) and returns
     logits (B, V_padded).  A windowed layer writes ring slot pos % W and
     attends its min(pos + 1, W) filled slots (the reference's
     `decode_step`); keys enter the ring after RoPE, and the softmax does
-    not depend on their order."""
+    not depend on their order.  With `place` (a
+    `distributed.placement.Placement`) see `_decode_step_placed`."""
+    if place is not None:
+        return _decode_step_placed(params, cfg, cache, tokens, pos, place)
     x = params["embed"][tokens]                          # (B, d)
     for (b, p), c in zip(layer_params(params, cfg), cache):
         if b.kind == "mamba2":
@@ -324,3 +328,38 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos: int):
                             v_scale=c.get("v_scale"))
     x = rms_norm(x, params["final_norm"])
     return x @ _head(params, cfg)
+
+
+def _decode_step_placed(params, cfg, cache, tokens, pos, plc):
+    """`decode_step` on one rank of a placed decode cell: `params`,
+    `cache` and `tokens` are this rank's blocks (`placement.place` by the
+    plan's specs).  The embedding lookup is vocab-parallel
+    (`Placement.embed`); each layer runs `attn_decode` under its
+    `LayerPlace`, a windowed ring's slot and valid length taken on the
+    whole ring (its length the local one times the sequence shards); a
+    `moe` layer's MLP is `moe.moe_ffn_placed`.  The final norm is
+    replicated and the head's d_model dim gathered, so the logits come
+    back vocab-sharded over "model": (B_local, V_padded / tp).  Mamba2
+    and `shared_attn` layers are not placed yet (ROADMAP Queue 1)."""
+    specs = plc.param_specs
+    x = plc.embed(params["embed"], tokens, specs["embed"])
+    for i, ((b, p), c) in enumerate(zip(layer_params(params, cfg), cache)):
+        if b.kind not in ("attn", "moe"):
+            raise NotImplementedError(f"placed decode of {b.kind} layers "
+                                      "(ROADMAP Queue 1)")
+        lp = plc.layer(i)
+        mlp_fn = None
+        if b.kind == "moe":
+            def mlp_fn(h, p=p, spec=lp.spec["moe"]):
+                return moe.moe_ffn_placed(p["moe"], h, cfg, plc, spec)
+        W = c["k"].shape[2] * plc.count(lp.seq)
+        x = attn_decode(p, x, c["k"], c["v"], pos, cfg, mlp_fn=mlp_fn,
+                        slot=pos % W if b.window else pos,
+                        valid_len=min(pos + 1, W), k_scale=c.get("k_scale"),
+                        v_scale=c.get("v_scale"), place=lp)
+    x = rms_norm(x, params["final_norm"])
+    if cfg.tie_embeddings:
+        head, spec = params["embed"].T, P(*reversed(specs["embed"]))
+    else:
+        head, spec = params["lm_head"], specs["lm_head"]
+    return x @ plc.gather_axis(head, spec)

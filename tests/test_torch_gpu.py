@@ -318,6 +318,95 @@ def test_decode_kernel_on_two_streams_at_once(cuda, dtype):
                                        **TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,KVH,D,valid", [
+    (4, 168, 32, 8, 128, 129),                   # llama3's serve shape
+    (4, 64, 32, 8, 128, 8),                      # one split
+    (8, 32768, 32, 8, 128, 30001),               # the long cache
+    (4, 168, 64, 4, 128, 129),                   # qwen3: G 16
+    (2, 2100, 4, 2, 20, 2000)])                  # element loads
+def test_decode_kernel_lse_matches_partials(cuda, B, S, H, KVH, D, valid,
+                                            dtype):
+    """The row lse a sequence shard's merge takes: the kernel's against
+    `decode_attention_partial`'s m + log l within 1e-5, its output the
+    same as without the lse, in one launch."""
+    from repro_torch.models.common import decode_attention_partial
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+        device=cuda, dtype=dt)
+        for shape in ((B, H, D), (B, KVH, S, D), (B, KVH, S, D)))
+    before = ops.LAUNCHES["decode_attention"]
+    out, lse = ops.decode_attention_head_major(q, k, v, valid,
+                                               return_lse=True)
+    plain = ops.decode_attention_head_major(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["decode_attention"] == before + 2
+    assert torch.equal(out, plain)
+    _, l, m = decode_attention_partial(q, k.transpose(1, 2),
+                                       v.transpose(1, 2), valid)
+    want = (m + torch.log(l)).reshape(B, H)
+    assert float((lse - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("valid,slot", [(129, 128), (30001, None),
+                                        (129, None)])
+def test_decode_int8_kernel_lse_matches_plain(cuda, valid, slot):
+    """The int8 kernel's row lse (with and without the append) against
+    the plain version's within 1e-5."""
+    B, S = (8, 32768) if valid > 168 else (4, 168)
+    H, KVH, D = 32, 8, 128
+    k, ks, v, vs = int8_cache(cuda, B, S, KVH, D, torch.bfloat16, 4)
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(rng.standard_normal((B, H, D), np.float32)).to(
+        device=cuda, dtype=torch.bfloat16)
+    if slot is None:
+        out, lse = ops.decode_attention_head_major(q, k, v, valid, ks, vs,
+                                                   return_lse=True)
+    else:
+        new = torch.from_numpy(rng.standard_normal((2, B, KVH, D),
+                                                   np.float32)).to(
+            device=cuda, dtype=torch.bfloat16)
+        out, lse = ops.decode_attention_int8_append(
+            q, new[0], new[1], k, v, ks, vs, slot, valid, return_lse=True)
+    want, want_lse = ref.decode_attention_ref(
+        q, k.transpose(1, 2), v.transpose(1, 2), valid, ks, vs,
+        return_lse=True)
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **TOL["bfloat16"])
+    assert float((lse - want_lse).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_decode_kernels_take_an_empty_shard(cuda, int8):
+    """Local valid length 0: output 0 and lse -inf in one launch; the int8
+    kernel with no slot writes nothing."""
+    B, S, H, KVH, D = 4, 84, 32, 8, 128
+    rng = np.random.default_rng(6)
+    q = torch.from_numpy(rng.standard_normal((B, H, D), np.float32)).to(
+        device=cuda, dtype=torch.bfloat16)
+    if int8:
+        k, ks, v, vs = int8_cache(cuda, B, S, KVH, D, torch.bfloat16, 7)
+        before = [t.clone() for t in (k, v, ks, vs)]
+        new = q[:, :KVH].contiguous()
+        name = "decode_attention_int8"
+        n = ops.LAUNCHES[name]
+        out, lse = ops.decode_attention_int8_append(
+            q, new, new, k, v, ks, vs, None, 0, return_lse=True)
+    else:
+        k, v = (q.new_ones(B, KVH, S, D) for _ in range(2))
+        name = "decode_attention"
+        n = ops.LAUNCHES[name]
+        out, lse = ops.decode_attention_head_major(q, k, v, 0,
+                                                   return_lse=True)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[name] == n + 1
+    assert torch.equal(out, torch.zeros_like(out))
+    assert bool(torch.isneginf(lse).all())
+    if int8:
+        assert all(torch.equal(a, b) for a, b in zip(before, (k, v, ks, vs)))
+
+
 def test_decode_kernel_rejects_what_it_does_not_take(cuda):
     q = torch.zeros(1, 4, 64, device=cuda)
     k = torch.zeros(1, 32, 2, 64, device=cuda)

@@ -333,7 +333,8 @@ for name in ("repro_torch.launch.train", "repro_torch.launch.steps",
              "repro_torch.configs.shapes", "repro_torch.launch.mesh",
              "repro_torch.distributed", "repro_torch.distributed.sharding",
              "repro_torch.distributed.compression",
-             "repro_torch.distributed.pipeline"):
+             "repro_torch.distributed.pipeline",
+             "repro_torch.distributed.placement", "repro_torch.launch.plan"):
     assert name in sys.modules, name
 print(len(names), "modules")
 """
@@ -366,6 +367,8 @@ def test_port_imports_neither_jax_nor_reference():
         mesh=(("data", "model"), (1, 1))),
     lambda: __import__("repro_torch.launch.train", fromlist=["main"]).main(
         ["--smoke", "--steps", "1", "--mesh", "data=1,model=1"]),
+    lambda: __import__("repro_torch.launch.serve", fromlist=["main"]).main(
+        ["--smoke", "--mesh", "1x1"]),
 ])
 def test_entry_points_need_cuda_unless_cpu_is_asked(make):
     if torch.cuda.is_available():
