@@ -113,14 +113,22 @@ nineteen phases, each printing one JSON line:
            at 8 of 32 layers, one 4096-token row a rank) against one
            process, and compression at world 2;
   placed   two gloo ranks sharing the card on a (1, 2) mesh, each holding
-           its blocks of the weights and KV cache (`plan_cell`,
-           `serve.serve_placed`): llama3-8b at full width and depth in
-           bf16 serving the `serve` phase's requests (its tokens against
-           the engine's, free running and forced on the engine's tokens),
-           qwen3-moe at 2 layers with its experts over "model" (against
-           its one-process engine), a float32 check at 4 of llama3's
-           layers against one process's logits, each rank's
-           memory_allocated against `local_bytes`;
+           its blocks of the weights and caches (`plan_cell`,
+           `serve.serve_placed`, `make_prefill_step(plan=)`): llama3-8b
+           at full width and depth in bf16 serving the `serve` phase's
+           first 4 requests forced on the engine's tokens; mamba2-1.3b
+           (full) and zamba2-7b (full width, 15 layers: the shared block
+           twice) serving 4 requests; bf16 prefills of 4096 tokens at
+           batch 1: llama3-8b at full depth under "fsdp" (context
+           parallel), mamba2-1.3b under "fsdp" (its heads over "model"),
+           qwen3-moe at 2 layers under "ep"; float32 checks against one
+           process: decode (12 steps, logits and every cache block) of
+           llama3-8b and mamba2-1.3b at 4 layers, zamba2 at 3 mamba2
+           layers and the shared block, qwen3-moe at 2; prefill (last
+           logits and every cache block) of llama3-8b and mamba2-1.3b at
+           4 layers and qwen3-moe at 2; each rank's weights against
+           `local_bytes` and the memory its cells allocate, the flash,
+           ssd and decode launches of every placed run;
   plan     the planner (`launch/plan.py`) under 1x1: each model above, its
            parameter bytes against memory_allocated after init_params,
            and its peak estimates beside peaks measured by earlier runs.
@@ -207,7 +215,10 @@ MD_BATCH, MD_STEPS, MD_TRAIN_STEPS, MD_RANK_LAYERS = 8, 32, 2, 8
 # deadline for both ranks; a bf16 logit's size for the near-tie bound
 PLACED_WORLD, PLACED_REQUESTS, PLACED_CHECK_LAYERS = 2, 4, 4
 PLACED_CHECK_STEPS, PLACED_MOE_LAYERS = 12, 2
-PLACED_DEADLINE, PLACED_LOGIT_SCALE = 400, 8.0
+PLACED_DEADLINE, PLACED_LOGIT_SCALE = 900, 8.0
+# placed prefills: a 4096-token prompt at batch 1; mamba2 and zamba2
+# served 8 new tokens from the first 16 of the serve run's prompts
+PLACED_PREFILL, PLACED_SSM_PROMPT, PLACED_SSM_NEW = 4096, 16, 8
 
 
 def emit(phase: str, **fields) -> None:
@@ -2590,18 +2601,45 @@ dist.destroy_process_group()
 """
 
 
+def zamba2_short(cfg):
+    """zamba2 cut to PLACED_CHECK_LAYERS layers that keep a shared
+    occurrence: three mamba2 layers and the shared block."""
+    from repro_torch.models.config import Block
+    return dataclasses.replace(cfg, stages=(
+        (1, (Block("mamba2"),) * (PLACED_CHECK_LAYERS - 1)
+         + (Block("shared_attn"),)),))
+
+
 def placed_cfgs() -> dict:
-    """The placed phase's models: llama3-8b in bf16 (served), and the
-    float32 checks: llama3-8b at PLACED_CHECK_LAYERS layers, qwen3-moe at
-    PLACED_MOE_LAYERS (its experts over "model")."""
+    """The placed phase's models.  Served in bf16: llama3-8b and
+    mamba2-1.3b at full width and depth, zamba2-7b at full width cut to
+    15 layers (`zamba2_cut`: the shared block twice).  Prefilled in bf16
+    (PLACED_PREFILL tokens, batch 1): llama3-8b at full depth (the
+    "fsdp" recipe's context parallelism), mamba2-1.3b (its heads over
+    "model"), qwen3-moe at PLACED_MOE_LAYERS under "ep".  The float32
+    checks: llama3-8b and mamba2-1.3b at PLACED_CHECK_LAYERS layers,
+    zamba2 at `zamba2_short`, qwen3-moe at PLACED_MOE_LAYERS."""
     from repro_torch.configs import get_config
-    llama = get_config("llama3-8b")
-    return {"llama3": llama,
-            "llama3_f32": dataclasses.replace(
-                layers_cut(llama, PLACED_CHECK_LAYERS), dtype="float32"),
-            "qwen3_f32": dataclasses.replace(
-                layers_cut(get_config(MOE_ARCH), PLACED_MOE_LAYERS),
-                dtype="float32")}
+    llama, mamba = get_config("llama3-8b"), get_config("mamba2-1.3b")
+    zamba, qwen = get_config(ZAMBA_ARCH), get_config(MOE_ARCH)
+
+    def f32(cfg):
+        return dataclasses.replace(cfg, dtype="float32")
+    return {"llama3": llama, "mamba2": mamba, "zamba2": zamba2_cut(zamba),
+            "qwen3": layers_cut(qwen, PLACED_MOE_LAYERS),
+            "llama3_f32": f32(layers_cut(llama, PLACED_CHECK_LAYERS)),
+            "mamba2_f32": f32(layers_cut(mamba, PLACED_CHECK_LAYERS)),
+            "zamba2_f32": f32(zamba2_short(zamba)),
+            "qwen3_f32": f32(layers_cut(qwen, PLACED_MOE_LAYERS))}
+
+
+# float32 checks: decode (PLACED_CHECK_STEPS steps of BATCH rows) and
+# prefill (PLACED_PREFILL tokens, batch 1, under the dry run's recipe)
+PLACED_DECODE_CHECKS = ("llama3_f32", "qwen3_f32", "mamba2_f32",
+                        "zamba2_f32")
+PLACED_PREFILL_CHECKS = {"llama3_f32": "fsdp", "mamba2_f32": "fsdp",
+                         "qwen3_f32": "ep"}
+PLACED_PREFILLS = {"llama3": "fsdp", "mamba2": "fsdp", "qwen3": "ep"}
 
 
 def placed_check_tokens(vocab: int) -> np.ndarray:
@@ -2609,23 +2647,44 @@ def placed_check_tokens(vocab: int) -> np.ndarray:
                                                          BATCH))
 
 
-def placed_check(name: str, cfg, work: Path, world: int, dev) -> dict:
-    """One float32 check on this rank: the weights drawn from seed 0 and
-    placed one rank at a time (so the full trees never coexist), then
-    PLACED_CHECK_STEPS decode steps of BATCH rows, each step's gathered
-    logits of this rank's rows against one process's."""
-    import torch.distributed as dist
+def placed_prompt(vocab: int) -> np.ndarray:
+    return np.random.default_rng(8).integers(0, vocab, (1, PLACED_PREFILL))
+
+
+def placed_prefill_plan(cfg, recipe: str, world: int):
     from repro_torch.configs.shapes import ShapeSpec
-    from repro_torch.distributed.placement import local_bytes
     from repro_torch.distributed.sharding import MeshDesc
     from repro_torch.launch import steps
-    from repro_torch.models.transformer import (decode_step, init_params,
-                                                param_shapes)
-    from repro_torch.tree import tree_leaves
+    return steps.plan_cell(cfg, ShapeSpec("prefill", "prefill",
+                                          PLACED_PREFILL, 1),
+                           MeshDesc(("data", "model"), (1, world)), recipe)
 
-    mesh = MeshDesc(("data", "model"), (1, world))
-    plan = steps.plan_cell(cfg, ShapeSpec(name, "decode", PLACED_CHECK_STEPS,
-                                          BATCH), mesh)
+
+def cache_block_err(plan, got: list, want: list, rank: int) -> dict:
+    """Per cache leaf name, the largest error of this rank's blocks `got`
+    relative to the largest magnitude of `place` of the one-process cache
+    `want` (on the CPU); a block of another shape fails."""
+    from repro_torch.launch import steps
+    placed = steps.place_cache(plan, want, rank=rank)
+    err: dict = {}
+    for g, w in zip(got, placed):
+        for k, t in g.items():
+            if tuple(t.shape) != tuple(w[k].shape):
+                err[k] = math.inf
+                continue
+            e = float((t.cpu().float() - w[k].float()).abs().max()
+                      / w[k].float().abs().max().clamp(min=1e-30))
+            err[k] = max(err.get(k, 0.0), e)
+    return err
+
+
+def placed_params(plan, cfg, world: int, dev):
+    """This rank's blocks of the weights drawn from seed 0, placed one
+    rank at a time (so the full trees never coexist)."""
+    import torch.distributed as dist
+    from repro_torch.launch import steps
+    from repro_torch.models.transformer import init_params
+    params = None
     for r in range(world):
         if r == dist.get_rank():
             g = torch.Generator(device=dev)
@@ -2635,14 +2694,42 @@ def placed_check(name: str, cfg, work: Path, world: int, dev) -> dict:
             del full
             torch.cuda.empty_cache()
         dist.barrier()
+    return params
+
+
+def nbytes(tree) -> int:
+    from repro_torch.tree import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def placed_check(name: str, cfg, work: Path, world: int, dev) -> dict:
+    """One float32 decode check on this rank: its blocks of the weights,
+    then PLACED_CHECK_STEPS decode steps of BATCH rows, each step's
+    gathered logits of this rank's rows against one process's, and its
+    cache blocks after the last step against `place` of one process's
+    cache."""
+    import torch.distributed as dist
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.distributed.placement import local_bytes
+    from repro_torch.distributed.sharding import MeshDesc
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models.transformer import decode_step, param_shapes
+
+    mesh = MeshDesc(("data", "model"), (1, world))
+    plan = steps.plan_cell(cfg, ShapeSpec(name, "decode", PLACED_CHECK_STEPS,
+                                          BATCH), mesh)
+    base = torch.cuda.memory_allocated(dev)
+    params = placed_params(plan, cfg, world, dev)
     cache = steps.init_placed_cache(plan, dev)
-    allocated = torch.cuda.memory_allocated(dev)
+    allocated = torch.cuda.memory_allocated(dev) - base
     step = steps.make_serve_step(cfg, plan)
     plc = step.placement
     want = torch.load(work / f"{name}.pt")
     toks = torch.from_numpy(placed_check_tokens(cfg.vocab)).to(dev)
     rows = steps.local_rows(plan, torch.arange(BATCH)).tolist()
     err = 0.0
+    ops.reset_launches()
     for pos in range(PLACED_CHECK_STEPS):
         with torch.no_grad():
             lg = decode_step(params, cfg, cache,
@@ -2651,23 +2738,73 @@ def placed_check(name: str, cfg, work: Path, world: int, dev) -> dict:
         got = plc.all_gather(lg, plan.vocab_entry, 1).cpu()
         w = want[pos][rows]
         err = max(err, float((got - w).abs().max() / w.abs().max()))
-    weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
-    cache_bytes = sum(t.numel() * t.element_size()
-                      for t in tree_leaves(cache))
+    launches = dict(ops.LAUNCHES)
+    cache_err = cache_block_err(plan, cache, torch.load(
+        work / f"{name}_cache.pt"), dist.get_rank())
+    weights, cache_bytes = nbytes(params), nbytes(cache)
     del params, cache
     torch.cuda.empty_cache()
     return dict(model=cfg.name, layers=cfg.n_layers, steps=PLACED_CHECK_STEPS,
-                rows=rows, max_rel_err=err, weight_bytes=weights,
+                rows=rows, max_rel_err=err, cache_rel_err=cache_err,
+                weight_bytes=weights,
                 local_bytes=local_bytes(param_shapes(cfg), plan.param_specs,
                                         mesh),
                 cache_bytes=cache_bytes, memory_allocated=allocated,
-                traffic=dict(plc.traffic))
+                launches=launches, traffic=dict(plc.traffic))
+
+
+def placed_prefill(name: str, cfg, recipe: str, world: int, dev,
+                   work: Path | None = None) -> dict:
+    """One placed prefill on this rank: PLACED_PREFILL tokens at batch 1
+    under `recipe`, timed; with `work`, its last logits and cache blocks
+    against one process's (`{name}_prefill.pt`)."""
+    import torch.distributed as dist
+    from repro_torch.distributed.placement import local_bytes
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models.transformer import param_shapes
+
+    plan = placed_prefill_plan(cfg, recipe, world)
+    base = torch.cuda.memory_allocated(dev)
+    params = placed_params(plan, cfg, world, dev)
+    allocated = torch.cuda.memory_allocated(dev) - base
+    torch.cuda.reset_peak_memory_stats(dev)
+    step = steps.make_prefill_step(cfg, plan)
+    batch = steps.local_batch(plan, {"tokens": torch.from_numpy(
+        placed_prompt(cfg.vocab)).to(dev)})
+    ops.reset_launches()
+    dist.barrier()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    logits, cache = step(params, batch)
+    torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    out = dict(model=cfg.name, layers=cfg.n_layers, recipe=recipe,
+               tokens=PLACED_PREFILL, seq_entry=plan.seq_entry,
+               tp=list(plan.binding["tp"]), prefill_s=seconds,
+               launches=dict(ops.LAUNCHES), weight_bytes=nbytes(params),
+               local_bytes=local_bytes(param_shapes(cfg), plan.param_specs,
+                                       plan.binding["mesh"]),
+               cache_bytes=nbytes(cache), memory_allocated=allocated,
+               max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+               traffic=dict(step.placement.traffic),
+               finite=bool(torch.isfinite(logits).all()))
+    if work is not None:
+        want_logits, want_cache = torch.load(work / f"{name}_prefill.pt")
+        out["max_rel_err"] = float((logits.cpu() - want_logits).abs().max()
+                                   / want_logits.abs().max())
+        out["cache_rel_err"] = cache_block_err(plan, cache, want_cache,
+                                               dist.get_rank())
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    return out
 
 
 def placed_rank(work: str, world: int) -> dict:
     """One gloo rank of the `placed` phase on cuda:0 (a (1, world) mesh):
-    the two float32 checks, then llama3-8b in bf16 through
-    `serve.serve_placed`, forced on the engine's tokens."""
+    the float32 decode and prefill checks, llama3-8b in bf16 through
+    `serve.serve_placed` forced on the engine's tokens, mamba2-1.3b and
+    zamba2 served free running, and the bf16 prefills."""
     from repro_torch.distributed.placement import local_bytes
     from repro_torch.distributed.sharding import MeshDesc
     from repro_torch.kernels import ops
@@ -2678,36 +2815,62 @@ def placed_rank(work: str, world: int) -> dict:
     work = Path(work)
     cfgs = placed_cfgs()
     out = {name: placed_check(name, cfgs[name], work, world, dev)
-           for name in ("llama3_f32", "qwen3_f32")}
+           for name in PLACED_DECODE_CHECKS}
+    for name, recipe in PLACED_PREFILL_CHECKS.items():
+        out[f"{name}_prefill"] = placed_prefill(name, cfgs[name], recipe,
+                                                world, dev, work)
     spec = json.loads((work / "placed.json").read_text())
-    cfg = cfgs["llama3"]
     mesh = MeshDesc(("data", "model"), (1, world))
-    torch.cuda.reset_peak_memory_stats(dev)
-    ops.reset_launches()
-    res = serve_placed(cfg, mesh, np.asarray(spec["prompts"]), NEW,
-                       batch=BATCH, device=dev,
-                       teacher=np.asarray(spec["teacher"]))
-    plan = res.pop("plan")
-    out["llama3"] = dict(
-        res, launches=dict(ops.LAUNCHES),
-        local_bytes=local_bytes(param_shapes(cfg), plan.param_specs, mesh),
-        max_memory_allocated=torch.cuda.max_memory_allocated(dev))
+    prompts = np.asarray(spec["prompts"])
+    for name in ("llama3", "mamba2", "zamba2"):
+        cfg = cfgs[name]
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launches()
+        base = torch.cuda.memory_allocated(dev)
+        res = serve_placed(cfg, mesh, prompts if name == "llama3"
+                           else prompts[:, :PLACED_SSM_PROMPT] % cfg.vocab,
+                           NEW if name == "llama3" else PLACED_SSM_NEW,
+                           batch=BATCH, device=dev,
+                           teacher=np.asarray(spec["teacher"])
+                           if name == "llama3" else None)
+        plan = res.pop("plan")
+        res["memory_allocated"] -= base
+        out[name] = dict(
+            res, launches=dict(ops.LAUNCHES), model=cfg.name,
+            layers=cfg.n_layers,
+            local_bytes=local_bytes(param_shapes(cfg), plan.param_specs,
+                                    mesh),
+            max_memory_allocated=torch.cuda.max_memory_allocated(dev))
+        torch.cuda.empty_cache()
+    for name, recipe in PLACED_PREFILLS.items():
+        out[f"{name}_prefill"] = placed_prefill(name, cfgs[name], recipe,
+                                                world, dev)
     return out
 
 
 def placed_one_process(dev, work: Path, engine_tokens: dict) -> None:
     """What the ranks are held to, computed here before they start (and
-    freed): each float32 check's logits; the first PLACED_REQUESTS of the
-    `serve` phase's requests with the engine's tokens."""
+    freed): each float32 decode check's logits and final cache, each
+    float32 prefill check's last logits and cache; the first
+    PLACED_REQUESTS of the `serve` phase's requests with the engine's
+    tokens."""
+    from repro_torch.launch import steps
     from repro_torch.models.transformer import (decode_step, init_cache,
                                                 init_params)
 
     cfgs = placed_cfgs()
-    for name in ("llama3_f32", "qwen3_f32"):
-        cfg = cfgs[name]
+
+    def weights(cfg):
         g = torch.Generator(device=dev)
         g.manual_seed(0)
-        params = init_params(cfg, g, dev)
+        return init_params(cfg, g, dev)
+
+    def host(cache):
+        return [{k: t.cpu() for k, t in c.items()} for c in cache]
+
+    for name in PLACED_DECODE_CHECKS:
+        cfg = cfgs[name]
+        params = weights(cfg)
         cache = init_cache(cfg, BATCH, PLACED_CHECK_STEPS, dev)
         toks = torch.from_numpy(placed_check_tokens(cfg.vocab)).to(dev)
         with torch.no_grad():
@@ -2715,7 +2878,17 @@ def placed_one_process(dev, work: Path, engine_tokens: dict) -> None:
                                             pos).cpu()
                                 for pos in range(PLACED_CHECK_STEPS)])
         torch.save(want, work / f"{name}.pt")
+        torch.save(host(cache), work / f"{name}_cache.pt")
         del params, cache
+        torch.cuda.empty_cache()
+    for name in PLACED_PREFILL_CHECKS:
+        cfg = cfgs[name]
+        params = weights(cfg)
+        tokens = torch.from_numpy(placed_prompt(cfg.vocab)).to(dev)
+        logits, cache = steps.make_prefill_step(cfg)(params,
+                                                     {"tokens": tokens})
+        torch.save((logits.cpu(), host(cache)), work / f"{name}_prefill.pt")
+        del params, cache, logits
         torch.cuda.empty_cache()
     rng = np.random.default_rng(0)                 # as `serve_run` draws
     prompts = [[int(t) for t in rng.integers(0, cfgs["llama3"].vocab,
@@ -2758,17 +2931,20 @@ def bf16_ulp(x: float) -> float:
 
 
 def placed_phase(dev, power: str, engine_tokens: dict) -> dict:
-    """llama3-8b (full width and depth, bf16) served by the placed decode
-    step on two gloo ranks sharing the card, a (1, 2) mesh, forced on
-    the engine's tokens; float32 checks of llama3-8b (PLACED_CHECK_LAYERS
-    layers) and qwen3-moe (PLACED_MOE_LAYERS, experts over "model")
-    against one process."""
+    """Two gloo ranks sharing the card, a (1, 2) mesh: llama3-8b (full
+    width and depth, bf16) served by the placed decode step forced on the
+    engine's tokens; mamba2-1.3b (full) and zamba2-7b (full width, 15
+    layers) served free running; bf16 prefills of PLACED_PREFILL tokens
+    (llama3-8b full under "fsdp", context parallel; mamba2-1.3b full under
+    "fsdp", its heads over "model"; qwen3-moe at 2 layers under "ep");
+    float32 decode and prefill checks against one process: logits and
+    every cache block."""
     import tempfile
     from repro_torch.configs.shapes import ShapeSpec
     from repro_torch.distributed.placement import spec_leaves
     from repro_torch.distributed.sharding import MeshDesc
     from repro_torch.launch import steps
-    from repro_torch.models.transformer import param_shapes
+    from repro_torch.models.transformer import layer_blocks, param_shapes
     from repro_torch.tree import named_leaves
 
     t0 = time.perf_counter()
@@ -2778,7 +2954,8 @@ def placed_phase(dev, power: str, engine_tokens: dict) -> dict:
         t1 = time.perf_counter()
         ranks = run_placed_ranks(work, PLACED_WORLD)
         ranks_s = time.perf_counter() - t1
-    cfg = placed_cfgs()["llama3"]
+    cfgs = placed_cfgs()
+    cfg = cfgs["llama3"]
     want = {r: engine_tokens[r] for r in range(PLACED_REQUESTS)}
     got, gaps = {}, {}
     for rk in ranks:
@@ -2795,45 +2972,100 @@ def placed_phase(dev, power: str, engine_tokens: dict) -> dict:
     kept = sum(shapes[k].numel() * shapes[k].element_size()
                for k, spec in spec_leaves(plan.param_specs)
                if not any(spec))
-    serve = dict(
-        model=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype,
-        requests=PLACED_REQUESTS, forced_tokens=n,
-        agreement_with_engine=1 - len(misses) / n, mismatches=misses,
-        max_mismatch_gap=max((m["gap"] for m in misses), default=0.0),
-        one_process_weight_bytes=whole, replicated_weight_bytes=kept,
-        ranks=[dict(
+
+    def served(name):
+        return [dict(
             {k: r[k] for k in ("weight_bytes", "local_bytes", "cache_bytes",
                                "memory_allocated", "max_memory_allocated",
                                "steps", "wall_s", "traffic")},
             allocated_over_resident=r["memory_allocated"]
             / (r["weight_bytes"] + r["cache_bytes"]),
             ms_per_step=r["wall_s"] * 1e3 / r["steps"],
-            decode_launches=r["launches"]["decode_attention"])
-            for r in (rk["llama3"] for rk in ranks)])
+            requests=len(r["tokens"]),
+            decode_launches=r["launches"]["decode_attention"],
+            ssd_launches=r["launches"]["ssd_scan"])
+            for r in (rk[name] for rk in ranks)]
+
+    serve = dict(
+        model=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype,
+        requests=PLACED_REQUESTS, forced_tokens=n,
+        agreement_with_engine=1 - len(misses) / n, mismatches=misses,
+        max_mismatch_gap=max((m["gap"] for m in misses), default=0.0),
+        one_process_weight_bytes=whole, replicated_weight_bytes=kept,
+        ranks=served("llama3"))
+    ssm_serve = {name: dict(model=cfgs[name].name,
+                            layers=cfgs[name].n_layers,
+                            shared_occurrences=sum(
+                                b.kind == "shared_attn"
+                                for b in layer_blocks(cfgs[name])),
+                            ranks=served(name))
+                 for name in ("mamba2", "zamba2")}
+    prefills = {name: [rk[f"{name}_prefill"] for rk in ranks]
+                for name in PLACED_PREFILLS}
     checks = {name: [rk[name] for rk in ranks]
-              for name in ("llama3_f32", "qwen3_f32")}
+              for name in PLACED_DECODE_CHECKS}
+    prefill_checks = {name: [rk[f"{name}_prefill"] for rk in ranks]
+                      for name in PLACED_PREFILL_CHECKS}
     emit("placed", name=torch.cuda.get_device_name(dev), power_limit=power,
          world=PLACED_WORLD, mesh=[1, PLACED_WORLD], serve=serve,
-         float32_checks=checks, ranks_s=ranks_s,
+         ssm_serve=ssm_serve, prefills=prefills, float32_checks=checks,
+         float32_prefill_checks=prefill_checks, ranks_s=ranks_s,
          phase_s=time.perf_counter() - t0,
          timing_note="gloo ranks sharing one card: every collective is "
                      "staged through the host; the times are no speed")
-    held = [r for c in checks.values() for r in c] + serve["ranks"]
+    held = [r for c in checks.values() for r in c] + serve["ranks"] + [
+        r for v in ssm_serve.values() for r in v["ranks"]]
+    all_prefills = [r for c in (prefills, prefill_checks) for v in c.values()
+                    for r in v]
+    zamba = ssm_serve["zamba2"]
     fail_on("placed", {
-        "float32 checks within 1e-5 of one process on every rank": all(
-            r["max_rel_err"] <= 1e-5 for c in checks.values() for r in c),
+        "float32 decode checks within 1e-5 of one process on every rank: "
+        "logits and every cache block": all(
+            r["max_rel_err"] <= 1e-5
+            and max(r["cache_rel_err"].values()) <= 1e-5
+            for c in checks.values() for r in c),
+        "float32 prefill checks within 1e-5 of one process on every rank: "
+        "last logits and every cache block": all(
+            r["max_rel_err"] <= 1e-5
+            and max(r["cache_rel_err"].values()) <= 1e-5
+            for c in prefill_checks.values() for r in c),
         "every rank holds local_bytes of weights: llama3's half of all but "
         "the replicated norms": all(
-            r["weight_bytes"] == r["local_bytes"] for r in held) and all(
+            r["weight_bytes"] == r["local_bytes"]
+            for r in held + all_prefills) and all(
             r["weight_bytes"] == (whole - kept) // PLACED_WORLD + kept
             for r in serve["ranks"]),
-        "memory_allocated within 1% of the resident weights and cache":
+        # over what the rank held before the cell (cuBLAS's workspaces,
+        # which the first products of a process allocate, among it)
+        "memory_allocated for the cell within 1% of its weights and "
+        "cache":
             all(abs(r["memory_allocated"] / (r["weight_bytes"]
                                              + r["cache_bytes"]) - 1) <= 0.01
                 for r in held),
-        "decode kernel once per layer and step on every rank": all(
+        "decode kernel once per attention layer and step on every rank "
+        "(zamba2: each shared occurrence; mamba2: none)": all(
             r["decode_launches"] == cfg.n_layers * r["steps"]
-            for r in serve["ranks"]),
+            for r in serve["ranks"]) and all(
+            r["decode_launches"] == zamba["shared_occurrences"] * r["steps"]
+            for r in zamba["ranks"]) and all(
+            r["decode_launches"] == 0
+            for r in ssm_serve["mamba2"]["ranks"]),
+        "every request served": all(
+            r["requests"] == PLACED_REQUESTS for r in held
+            if "requests" in r),
+        "prefills: flash once per attention layer, ssd once per mamba2 "
+        "layer, finite logits": all(
+            r["finite"] and r["launches"]["flash_attention"]
+            == sum(b.kind != "mamba2" for b in layer_blocks(cfgs[name]))
+            and r["launches"]["ssd_scan"]
+            == sum(b.kind == "mamba2" for b in layer_blocks(cfgs[name]))
+            for c in (prefills, prefill_checks) for name, v in c.items()
+            for r in v),
+        "llama3's prefill context parallel, mamba2's on heads over model":
+            all(r["seq_entry"] == "model" and r["tp"] == []
+                for r in prefills["llama3"]) and all(
+                r["seq_entry"] is None and r["tp"] == ["model"]
+                for r in prefills["mamba2"]),
         # bf16 with random weights: near-flat logits, so a tie within bf16
         # rounding can go either way; forced on the engine's tokens, the
         # placed argmax may differ from the engine's only at such a tie

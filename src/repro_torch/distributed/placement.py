@@ -1,7 +1,8 @@
-"""Placement of parameters and decode caches across the ranks of a mesh,
-and the collectives of the placed decode path (the port's counterpart of
-what `jax.device_put` with a `NamedSharding` and the SPMD partitioner do
-in the reference's `plan_cell`, `repro/launch/steps.py:144-207`).
+"""Placement of parameters and caches across the ranks of a mesh, and the
+collectives of the placed decode and prefill paths (the port's
+counterpart of what `jax.device_put` with a `NamedSharding` and the SPMD
+partitioner do in the reference's `plan_cell`,
+`repro/launch/steps.py:144-207`).
 
 A spec is a `sharding.P`: one entry per dim, None (replicated), a mesh
 axis name or a tuple of them.  A dim bound to several axes is cut
@@ -14,14 +15,16 @@ index = i_0 * n_1 + i_1 for axes (a_0, a_1).
     tensor can be freed; `local_bytes` is a rank's resident bytes of a
     placed tree (every rank holds the same: a spec cuts only dims that
     its axes divide).
-  * `Placement` is one rank's view of a placed decode cell: its
-    coordinates, the process groups along ("data",), ("model",) and
-    ("data", "model") (`launch/mesh.py:axis_group`), and the collectives
-    the placed decode path runs over them: the all-gather of a weight's
-    fsdp dim before its use, the all-reduce after a row-parallel product,
-    the vocab-parallel lookup and argmax, and the log-sum-exp merge of a
+  * `Placement` is one rank's view of a placed cell: its coordinates,
+    the process groups along ("data",), ("model",) and ("data", "model")
+    (`launch/mesh.py:axis_group`), and the collectives the placed paths
+    run over them: the all-gather of a weight's fsdp dim before its use
+    (`take`: a weight cut to the block a computation needs), the
+    all-reduce or reduce-scatter after a row-parallel product, the
+    sequence all-gathers of a sequence-sharded residual, the
+    vocab-parallel lookup and argmax, and the log-sum-exp merge of a
     sequence-sharded cache's partial attentions.  A dry placement
-    (`dry=True`) needs no process group: it is rank 0 of the mesh, its
+    (`dry=True`) needs no process group: it is one rank of the mesh, its
     collectives return the shapes the real ones would, and both kinds
     count the bytes each would send (`traffic`), for the planner
     (`launch/plan.py`).
@@ -36,9 +39,9 @@ import torch
 import torch.distributed as dist
 
 from ..tree import named_leaves, tree_map
-from .sharding import describe_mesh
+from .sharding import P, describe_mesh
 
-AXES = ("data", "model")        # the decode cell's mesh
+AXES = ("data", "model")        # a placed cell's mesh
 F32 = torch.float32
 
 
@@ -101,6 +104,23 @@ def local_shape(shape, spec, mesh) -> tuple:
     return tuple(out)
 
 
+def dedupe(spec, mesh):
+    """`spec` with every axis of more than one device that an earlier dim
+    took dropped from the later dim's entry (a pure-dp prefill's cache
+    rule binds "model" to the batch and to the KV heads: a spec JAX's
+    `NamedSharding` refuses, and `local_shape` too)."""
+    sizes = describe_mesh(mesh).shape
+    used: set = set()
+    out = []
+    for entry in tuple(spec):
+        axes = tuple(a for a in axes_of(entry)
+                     if a not in used or sizes[a] == 1)
+        used.update(axes)
+        out.append(None if not axes else axes[0] if len(axes) == 1
+                   else axes)
+    return P(*out)
+
+
 def local_shard(t, spec, mesh, coords: dict):
     """The block of `t` held at mesh `coords` under `spec` (a view)."""
     local = local_shape(t.shape, spec, mesh)
@@ -155,20 +175,31 @@ def spec_leaves(specs, prefix: str = ""):
 
 @dataclasses.dataclass(frozen=True)
 class LayerPlace:
-    """What the placed decode step hands one layer: the placement, the
-    layer's parameter specs and its cache's sequence entry."""
+    """What a placed step hands one layer: the placement, the layer's
+    parameter specs (a shared layer's: the shared block's) and its
+    cache's specs."""
     plc: "Placement"
     spec: dict
-    seq: object
+    cache: dict
+
+    @property
+    def seq(self):
+        """A decode KV cache's sequence entry (None for an SSM layer)."""
+        return self.cache["k"][2] if "k" in self.cache else None
 
 
 class Placement:
-    """One rank's view of a placed decode cell on a ("data", "model")
-    mesh.  Every rank of the default process group must construct it
-    (group creation is collective), unless `dry`."""
+    """One rank's view of a placed cell on a ("data", "model") mesh.
+    `seq` is the entry of the residual stream's sequence dim (a prefill
+    under context or sequence parallelism; None for decode) and
+    `moe_groups` the number of MoE token groups of the whole step (the
+    reference's |moe_g|).  Every rank of the default process group must
+    construct it (group creation is collective), unless `dry` (then it
+    is global rank `rank` of the mesh)."""
 
     def __init__(self, mesh, param_specs, cache_specs, batch_entry, *,
-                 dry: bool = False):
+                 seq=None, moe_groups: int = 1, dry: bool = False,
+                 rank: int = 0):
         self.mesh = mesh
         self.desc = describe_mesh(mesh)
         if self.desc.axis_names != AXES:
@@ -177,10 +208,12 @@ class Placement:
         self.param_specs = param_specs
         self.cache_specs = cache_specs
         self.batch_entry = batch_entry
+        self.seq = seq
+        self.moe_groups = moe_groups
         self.dry = dry
         self.traffic: collections.Counter = collections.Counter()
         if dry:
-            self.coords = {a: 0 for a in AXES}
+            self.coords = mesh_coords(self.desc, rank)
             self._groups = {}
         else:
             from ..launch.mesh import axis_group
@@ -196,8 +229,28 @@ class Placement:
         return shard_index(entry, self.desc, self.coords)
 
     def layer(self, i: int) -> LayerPlace:
-        return LayerPlace(self, self.param_specs["layers"][i],
-                          self.cache_specs[i]["k"][2])
+        spec = self.param_specs["layers"][i]
+        if spec is None:                # a shared_attn occurrence
+            spec = self.param_specs["shared"]
+        return LayerPlace(self, spec, self.cache_specs[i])
+
+    def split(self, entry):
+        """`entry` as the axes a computation splits heads (or ff, or
+        experts' work) over: None where it shares an axis with the batch
+        entry, whose ranks hold other rows (a pure-dp prefill under "ep"
+        keeps tp for the experts; its attention gathers the heads)."""
+        if set(axes_of(entry)) & set(axes_of(self.batch_entry)):
+            return None
+        return entry
+
+    def block(self, x, entry, dim: int):
+        """This rank's block along `dim` of `x` (whole along it) under
+        `entry`."""
+        n = self.count(entry)
+        if n == 1:
+            return x
+        size = x.shape[dim] // n
+        return x.narrow(dim, self.index(entry) * size, size)
 
     def _group(self, entry, ordered: bool):
         axes = axes_of(entry)
@@ -222,19 +275,22 @@ class Placement:
         dist.all_gather(parts, x, group=self._group(entry, True))
         return torch.cat(parts, dim)
 
-    def all_gather_many(self, xs, entry, dim: int) -> list:
-        """`all_gather` of each of `xs` (same shape but along `dim`) in
-        one collective."""
+    def all_gather_many(self, xs, entry, dim) -> list:
+        """`all_gather` of each of `xs` (one dtype) along `dim` (an int,
+        or one a tensor) in one collective."""
         n = self.count(entry)
         if n == 1:
             return list(xs)
-        sizes = [x.shape[dim] for x in xs]
-        parts = self.all_gather(torch.cat(xs, dim).unsqueeze(0), entry, 0)
-        out = []
-        for part in parts.split(sizes, dim + 1):     # (n, ..., size, ...)
-            part = part.movedim(0, dim)
-            out.append(part.reshape(*part.shape[:dim], -1,
-                                    *part.shape[dim + 2:]))
+        dims = [dim] * len(xs) if isinstance(dim, int) else list(dim)
+        parts = self.all_gather(torch.cat([x.reshape(-1) for x in xs])[None],
+                                entry, 0)                   # (n, total)
+        out, at = [], 0
+        for x, d in zip(xs, dims):
+            part = parts[:, at:at + x.numel()].reshape(n, *x.shape)
+            at += x.numel()
+            part = part.movedim(0, d)                     # (..., n, size, ...)
+            out.append(part.reshape(*x.shape[:d], n * x.shape[d],
+                                    *x.shape[d + 1:]))
         return out
 
     def all_reduce(self, x, entry):
@@ -253,13 +309,50 @@ class Placement:
         dist.all_reduce(y, group=self._group(entry, False))
         return y.to(x.dtype)
 
+    def reduce_scatter(self, x, entry, dim: int):
+        """The sum of `x` over `entry`'s axes, of which this rank keeps
+        its block along `dim` (`block`), added in float32 and returned in
+        `x`'s dtype.  NCCL reduce-scatters; gloo, which has no
+        reduce-scatter, all-reduces and cuts (the bytes counted are a
+        reduce-scatter's either way)."""
+        n = self.count(entry)
+        if n == 1:
+            return x
+        y = x.to(F32).movedim(dim, 0).contiguous()
+        self.traffic["reduce_scatter"] += \
+            (n - 1) * y.numel() * y.element_size() // n
+        if self.dry:
+            return self.block(x, entry, dim)
+        group = self._group(entry, True)
+        if dist.get_backend(group) == "nccl":
+            out = y.new_empty((y.shape[0] // n, *y.shape[1:]))
+            dist.reduce_scatter_tensor(out, y, group=group)
+        else:
+            if y.data_ptr() == x.data_ptr():
+                y = y.clone()
+            dist.all_reduce(y, group=group)
+            out = self.block(y, entry, 0)
+        return out.movedim(0, dim).to(x.dtype)
+
+    def take(self, w, spec, want):
+        """The block of weight `w` (this rank's block under `spec`) that
+        a computation laid out by `want` (one entry per dim) needs: each
+        dim whose entry differs is all-gathered whole over `spec`'s
+        entry, then cut to this rank's block under `want`'s."""
+        for dim, (have, need) in enumerate(zip(tuple(spec), tuple(want))):
+            if have == need:
+                continue
+            if have is not None:
+                w = self.all_gather(w, have, dim)
+            if need is not None:
+                w = self.block(w, need, dim)
+        return w
+
     def gather_axis(self, w, spec, axis: str = "data"):
         """`w` with every dim bound to `axis` alone all-gathered: the fsdp
         dims of a weight before its use."""
-        for dim, entry in enumerate(tuple(spec)):
-            if entry == axis:
-                w = self.all_gather(w, entry, dim)
-        return w
+        return self.take(w, spec, tuple(None if e == axis else e
+                                        for e in tuple(spec)))
 
     # ---- the placed decode path's own collectives ----
     def embed(self, table, tokens, spec):

@@ -25,21 +25,25 @@ one H100 a rank:
     plain causal core on meta would count all S^2 pairs; beside them the
     reference's `model_flops` (6 N D for train, 2 N D otherwise);
   * the collective bytes the placement implies per device: counted from
-    the placed decode step itself (`Placement(dry=True)`: the fsdp
-    gathers, the tp all-reduces, the vocab-parallel lookup and argmax and
-    the lse merge); for train, prefill and the mamba2 and zamba2 decode
-    cells, which the port does not place yet, a ring model of the fsdp
-    gathers (and, for train, the gradients' reduce-scatter) and the two
-    tp all-reduces a layer;
+    the placed decode or prefill step itself (`Placement(dry=True)`: the
+    fsdp gathers, the tp all-reduces and reduce-scatters, the sequence
+    gathers, the vocab-parallel lookup and argmax, the lse merge); for
+    train cells, which the port does not place yet, a ring model of the
+    fsdp gathers, the gradients' reduce-scatter and the two tp
+    all-reduces a layer;
   * roofline terms against the H100 SXM's published peaks (989 TFLOP/s
     bf16, 3.35 TB/s HBM, 450 GB/s NVLink each way) and the bottleneck;
     the smallest listed mesh that fits each (architecture, shape).
 
-A decode cell the port places (attention and MoE architectures) is
-counted per device from its placed step on rank 0's blocks; the other
-cells from the one-device step at the global batch, split evenly over
-the mesh (`flops_split`: "placed" or "even").  One JSON a cell goes to
-`--out` (default `build/plan`, which .gitignore lists).
+Decode and prefill cells are counted per device from their placed step
+(`steps.plan_cell`, `make_serve_step` / `make_prefill_step`'s path) on
+one rank's blocks: rank 0 for decode, the last rank for prefill (under
+context parallelism it holds the last sequence block, whose causal
+attention sees the most keys); a prefill's output cache blocks are
+among its transient bytes.  Train cells are counted from the
+one-device step at the global batch, split evenly over the mesh
+(`flops_split`: "placed" or "even").  One JSON a cell goes to `--out`
+(default `build/plan`, which .gitignore lists).
 """
 from __future__ import annotations
 
@@ -58,17 +62,17 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from ..configs import ARCH_IDS, get_config
 from ..configs.shapes import SHAPES, ShapeSpec, applicable, input_specs
-from ..distributed.placement import (Placement, axes_of, local_bytes,
-                                     local_shape, place, spec_leaves)
+from ..distributed.placement import (axes_of, local_bytes, local_shape,
+                                     place, spec_leaves)
 from ..distributed.sharding import MeshDesc
 from ..kernels import _build
 from ..models.config import ModelConfig
-from ..models.transformer import (cache_specs, decode_step, init_cache,
-                                  layer_blocks, param_shapes)
+from ..models.transformer import (decode_step, init_cache, layer_blocks,
+                                  param_shapes, prefill_placed)
 from ..optim import AdamWConfig, adamw_init
 from ..tree import named_leaves, tree_map
-from .steps import (TrainOptions, batch_entry, cell_binding,
-                    cell_param_specs, make_prefill_step, make_train_step)
+from .steps import (TrainOptions, cell_binding, cell_param_specs,
+                    make_train_step, placement_of, plan_cell)
 
 # one H100 SXM (NVIDIA data sheet, 700 W): dense bf16 tensor-core peak,
 # HBM3 bandwidth, NVLink 4 bandwidth each way, device memory
@@ -196,52 +200,51 @@ def _meta_tokens(rows: int):
     return torch.zeros(rows, dtype=torch.int32, device=META)
 
 
-def _decode_placed(cfg, shape, mesh, binding, pspecs, params) -> dict:
-    """The placed decode step of rank 0 of `mesh`, on meta blocks, with
-    a dry `Placement` (its collectives' bytes counted)."""
-    cache = init_cache(cfg, shape.batch, shape.seq, META)
-    cspecs = cache_specs(cache, mesh, dp_axes=binding["dp"],
-                         tp_axes=binding["tp"], seq_axes=binding["seq"])
-    entry = batch_entry(shape.batch, binding)
-    plc = Placement(mesh, pspecs, cspecs, entry, dry=True)
-    p_local = place(params, pspecs, mesh, plc.coords)
-    c_local = place(cache, cspecs, mesh, plc.coords)
-    rows = local_shape((shape.batch,), (entry,), mesh)[0]
-    got = count(lambda: decode_step(p_local, cfg, c_local,
-                                    _meta_tokens(rows), shape.seq - 1,
-                                    place=plc))
+def _placed(cfg, shape, mesh, recipe, params) -> dict:
+    """The placed decode or prefill step of one rank of `mesh` (rank 0 for
+    decode, the last for prefill), on meta blocks, with a dry
+    `Placement` (its collectives' bytes counted)."""
+    plan = plan_cell(cfg, shape, mesh, recipe)
+    rank = 0 if shape.kind == "decode" else mesh.size - 1
+    plc = placement_of(plan, dry=True, rank=rank)
+    p_local = place(params, plan.param_specs, mesh, plc.coords)
+    rows = local_shape((shape.batch,), (plan.batch_entry,), mesh)[0]
+    if shape.kind == "decode":
+        cache = init_cache(cfg, shape.batch, shape.seq, META)
+        c_local = place(cache, plan.cache_specs, mesh, plc.coords)
+        got = count(lambda: decode_step(p_local, cfg, c_local,
+                                        _meta_tokens(rows), shape.seq - 1,
+                                        place=plc))
+        got["cache"] = local_bytes(cache, plan.cache_specs, mesh)
+    else:
+        batch = {k: torch.empty((rows, *t.shape[1:]), dtype=t.dtype,
+                                device=META)
+                 for k, t in input_specs(cfg, shape).items()}
+        got = count(lambda: prefill_placed(
+            p_local, cfg, batch["tokens"], plc,
+            frontend_emb=batch.get("frontend_emb")))
     got["collective"] = dict(plc.traffic)
-    got["cache"] = local_bytes(cache, cspecs, mesh)
     return got
 
 
 def _even_step(cfg, shape, topts) -> dict:
-    """The one-device step of the cell at its global batch, on meta."""
+    """The one-device train step of the cell at its global batch, on
+    meta."""
     params = param_shapes(cfg)
-    specs = input_specs(cfg, shape)
-    if shape.kind == "train":
-        opt = adamw_init(params, topts.opt)
-        step = make_train_step(cfg, topts)
-        return count(lambda: step(params, opt, 0, specs))
-    if shape.kind == "prefill":
-        step = make_prefill_step(cfg)
-        return count(lambda: step(params, specs))
-    cache = init_cache(cfg, shape.batch, shape.seq, META)
-    return count(lambda: decode_step(params, cfg, cache,
-                                     _meta_tokens(shape.batch),
-                                     shape.seq - 1))
+    opt = adamw_init(params, topts.opt)
+    step = make_train_step(cfg, topts)
+    return count(lambda: step(params, opt, 0, input_specs(cfg, shape)))
 
 
-def _ring_collectives(cfg, shape, mesh, binding, pspecs, params,
+def _ring_collectives(cfg, mesh, binding, pspecs, params,
                       act_bytes) -> dict:
-    """Per-device collective bytes of a cell the port does not place, by
-    a ring model: each weight's fsdp shards gathered once in a prefill,
-    three times in a train step (forward, the remat recompute and the
-    backward) with its gradient reduce-scattered; all-reduces of the
-    (rows, seq, d_model) activations over tp, two an attention layer and
-    one a mamba2 layer, a forward (as many again in the backward; an
-    expert layer's all-to-all is counted as those all-reduces); a decode
-    step's fsdp gathers and tp all-reduces likewise, once."""
+    """Per-device collective bytes of a train cell, which the port does
+    not place yet, by a ring model: each weight's fsdp shards gathered
+    three times (forward, the remat recompute and the backward) and its
+    gradient reduce-scattered; all-reduces of the (rows, seq, d_model)
+    activations over tp, two an attention layer and one a mamba2 layer,
+    in the forward and as many in the backward (an expert layer's
+    all-to-all is counted as those all-reduces)."""
     sizes = binding["mesh"].shape
     fsdp = set(binding["fsdp"])
     specs_at = dict(spec_leaves(pspecs))
@@ -257,10 +260,8 @@ def _ring_collectives(cfg, shape, mesh, binding, pspecs, params,
     # after wo and w_down in an attention block, after out_proj in mamba2
     reduces = sum(1 if b.kind == "mamba2" else 2 for b in layer_blocks(cfg))
     reduce = reduces * act_bytes * 2 * _ring(tp)
-    if shape.kind == "train":
-        return {"all_gather": 3 * gather, "reduce_scatter": gather,
-                "all_reduce": 2 * reduce}
-    return {"all_gather": gather, "all_reduce": reduce}
+    return {"all_gather": 3 * gather, "reduce_scatter": gather,
+            "all_reduce": 2 * reduce}
 
 
 def plan_one(cfg: ModelConfig, shape: ShapeSpec, mesh_name: str, *,
@@ -280,8 +281,7 @@ def plan_one(cfg: ModelConfig, shape: ShapeSpec, mesh_name: str, *,
     params = param_shapes(cfg)
     pspecs = cell_param_specs(cfg, shape, binding, params)
     mem = {"params": local_bytes(params, pspecs, mesh)}
-    placed = shape.kind == "decode" and all(
-        b.kind in ("attn", "moe") for b in layer_blocks(cfg))
+    placed = shape.kind != "train"
     topts = TrainOptions(microbatch=microbatch, opt=AdamWConfig(
         moment_dtype=MOMENT_DTYPE.get(arch, "float32")))
     if shape.kind == "train":
@@ -291,25 +291,20 @@ def plan_one(cfg: ModelConfig, shape: ShapeSpec, mesh_name: str, *,
                                                  device=META), params)
         mem["moments"] = 2 * local_bytes(moments, pspecs, mesh)
     if placed:
-        got = _decode_placed(cfg, shape, mesh, binding, pspecs, params)
-        mem["cache"] = got.pop("cache")
+        got = _placed(cfg, shape, mesh, recipe, params)
+        if "cache" in got:
+            mem["cache"] = got.pop("cache")
         flops, transient = got["flops"], got["transient"]
         collective = got.pop("collective")
         split = "placed"
     else:
         got = _even_step(cfg, shape, topts)
         flops, transient = got["flops"] / n, got["transient"] / n
-        if shape.kind == "decode":
-            cache = init_cache(cfg, shape.batch, shape.seq, META)
-            mem["cache"] = local_bytes(cache, cache_specs(
-                cache, mesh, dp_axes=binding["dp"], tp_axes=binding["tp"],
-                seq_axes=binding["seq"]), mesh)
         dp = math.prod(mesh.shape[a] for a in binding["dp"])
-        seq = 1 if shape.kind == "decode" else shape.seq
-        act = shape.batch / dp * seq * cfg.d_model \
+        act = shape.batch / dp * shape.seq * cfg.d_model \
             * getattr(torch, cfg.dtype).itemsize
-        collective = _ring_collectives(cfg, shape, mesh, binding, pspecs,
-                                       params, act)
+        collective = _ring_collectives(cfg, mesh, binding, pspecs, params,
+                                       act)
         split = "even"
     resident = sum(mem.values())
     peak = resident + transient

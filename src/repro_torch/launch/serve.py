@@ -16,8 +16,9 @@ device they ran on.
 
 With `--mesh DATAxMODEL` (under torchrun, one process a rank) the
 requests are served by the placed decode step (`launch.steps.plan_cell`,
-`make_serve_step(plan=...)`): each rank holds only its blocks of the
-weights and of the KV cache, over NCCL with one rank a card
+`make_serve_step(plan=...)`), for every architecture (mamba2-1.3b's SSM
+heads and zamba2-7b's shared block included): each rank holds only its
+blocks of the weights and of the cache, over NCCL with one rank a card
 (``cuda:LOCAL_RANK``) or over gloo with ``--device cpu``.  Each rank
 prints its resident weight and cache bytes beside the tokens/s (over
 gloo the time is mostly host staging of the collectives, not a speed).

@@ -1,30 +1,33 @@
 """Step functions of the port (counterpart of `repro/launch/steps.py`):
-train, prefill and serve, and the cell planner of decode cells.  The
-train and prefill steps run on one device; `launch/train.py` runs the
-train step on every rank of a mesh and averages its gradients over the
-data-parallel ranks (`make_train_step(reduce=...)`), each rank holding
-every weight.  `plan_cell` places a decode cell's weights, KV cache and
-batch on a ("data", "model") mesh as the reference's does
-(`repro/launch/steps.py:144-207`), and `make_serve_step(cfg, plan=...)`
-serves it with each rank holding only its blocks.  The reference's
-`lower_cell` (XLA lowering) has no counterpart: `launch/plan.py` sizes a
-cell from the same specs instead.
+train, prefill and serve, and the cell planner of decode and prefill
+cells.  The train step runs on one device; `launch/train.py` runs it on
+every rank of a mesh and averages its gradients over the data-parallel
+ranks (`make_train_step(reduce=...)`), each rank holding every weight.
+`plan_cell` places a decode or prefill cell's weights, cache and batch
+on a ("data", "model") mesh as the reference's does
+(`repro/launch/steps.py:144-207`); `make_serve_step(cfg, plan=...)`
+serves a decode cell and `make_prefill_step(cfg, plan=...)` prefills,
+each rank holding only its blocks.  The reference's `lower_cell` (XLA
+lowering) has no counterpart: `launch/plan.py` sizes a cell from the
+same specs instead.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.distributed as dist
 
 from ..configs.shapes import ShapeSpec
-from ..distributed.placement import (Placement, local_shape, mesh_coords,
-                                     place)
+from ..distributed.placement import (Placement, dedupe, local_shape,
+                                     mesh_coords, place, shard_count)
 from ..distributed.sharding import P, describe_mesh
 from ..models.config import ModelConfig
 from ..models.transformer import (cache_specs, decode_step, forward,
                                   init_cache, layer_blocks, loss_fn,
-                                  param_shapes, param_specs)
+                                  param_shapes, param_specs,
+                                  prefill_cache_shapes, prefill_placed)
 from ..optim import AdamWConfig, adamw_update, cosine_schedule
 from ..tree import tree_leaves, tree_map
 from .mesh import axis_binding
@@ -102,11 +105,30 @@ def make_train_step(cfg, topts: TrainOptions, reduce=None):
     return train_step
 
 
-def make_prefill_step(cfg):
+def make_prefill_step(cfg, plan: "CellPlan | None" = None):
     """-> prefill_step(params, batch) -> (last logits (B, V), cache): the
     cache has one entry per layer, by block kind: {"k", "v"} (B, S, KV,
     hd) for attention; for mamba2 {"ssm", "conv"}, the state decode
-    continues from (`transformer.init_cache`'s layout)."""
+    continues from (`transformer.init_cache`'s layout).
+
+    With `plan` (`plan_cell`'s of a prefill cell, on a mesh over the
+    default process group; every rank must call this) the step's
+    arguments are this rank's blocks (`place_params`, `local_batch`) and
+    it returns its rows' last logits (B_local, V), whole over the vocab,
+    and its blocks of the cache (`plan.cache_specs`), what the
+    one-device step gives for them (`transformer.prefill_placed`).  The
+    step's `placement` attribute holds the rank's `Placement`."""
+    if plan is not None:
+        plc = placement_of(plan)
+
+        def placed_prefill(params, batch):
+            with torch.no_grad():
+                return prefill_placed(params, cfg, batch["tokens"], plc,
+                                      frontend_emb=batch.get("frontend_emb"))
+
+        placed_prefill.placement = plc
+        return placed_prefill
+
     def prefill_step(params, batch):
         with torch.no_grad():
             logits, cache = forward(params, cfg, batch["tokens"],
@@ -138,8 +160,7 @@ def make_serve_step(cfg, plan: "CellPlan | None" = None):
             return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
         return serve_step
-    plc = Placement(plan.mesh, plan.param_specs, plan.cache_specs,
-                    plan.batch_entry)
+    plc = placement_of(plan)
 
     def placed_step(params, cache, tokens, pos):
         with torch.no_grad():
@@ -156,10 +177,13 @@ def make_serve_step(cfg, plan: "CellPlan | None" = None):
 @dataclasses.dataclass
 class CellPlan:
     """What a placed cell's ranks share: the binding of the logical axes,
-    the `P` of every parameter and cache leaf, the batch's entry (its
-    rows over dp, or None: replicated) and the vocab shards' entry of the
-    logits.  `mesh` is a DeviceMesh (or a description whose ranks are
-    0..n-1 row-major)."""
+    the `P` of every parameter and cache leaf (a prefill's: of the cache
+    it returns), the batch's entry (its rows over dp, or None:
+    replicated), the vocab shards' entry of the logits (None: whole, as a
+    prefill returns them), the residual stream's sequence entry (a
+    prefill under context or sequence parallelism) and the number of MoE
+    token groups.  `mesh` is a DeviceMesh (or a description whose ranks
+    are 0..n-1 row-major)."""
     cfg: ModelConfig
     shape: ShapeSpec
     mesh: object
@@ -169,6 +193,17 @@ class CellPlan:
     batch_entry: object
     vocab_entry: object
     recipe: str = "tp"
+    seq_entry: object = None
+    moe_groups: int = 1
+
+
+def placement_of(plan: CellPlan, dry: bool = False,
+                 rank: int = 0) -> Placement:
+    """The rank's `Placement` of a planned cell (collective unless `dry`;
+    a dry one is global rank `rank`)."""
+    return Placement(plan.mesh, plan.param_specs, plan.cache_specs,
+                     plan.batch_entry, seq=plan.seq_entry,
+                     moe_groups=plan.moe_groups, dry=dry, rank=rank)
 
 
 def cell_binding(cfg: ModelConfig, shape: ShapeSpec, mesh,
@@ -186,12 +221,18 @@ def cell_binding(cfg: ModelConfig, shape: ShapeSpec, mesh,
     return binding
 
 
+@functools.lru_cache(maxsize=16)
+def _shapes(cfg: ModelConfig):
+    """`param_shapes`, kept: the specs only read it."""
+    return param_shapes(cfg)
+
+
 def cell_param_specs(cfg: ModelConfig, shape: ShapeSpec, binding: dict,
                      params=None):
     """`param_specs` of the cell's parameters (`param_shapes` unless
     given) under `binding`; decode takes the weight-stationary expert
     layout, as the reference's `plan_cell` does."""
-    return param_specs(params if params is not None else param_shapes(cfg),
+    return param_specs(params if params is not None else _shapes(cfg),
                        cfg, binding["mesh"], dp_axes=binding["dp"],
                        tp_axes=binding["tp"], fsdp_axes=binding["fsdp"],
                        vocab_axes=binding["vocab"],
@@ -211,37 +252,59 @@ def batch_entry(rows: int, binding: dict):
     return dp[0] if len(dp) == 1 else dp
 
 
+def _entry(axes: tuple, dim: int, mesh):
+    """`axes` as a spec entry where they divide `dim` (else None)."""
+    if not axes or dim % shard_count(tuple(axes), mesh):
+        return None
+    return axes[0] if len(axes) == 1 else tuple(axes)
+
+
 def plan_cell(cfg: ModelConfig, shape: ShapeSpec, mesh,
               recipe: str = "tp") -> CellPlan:
-    """Place a decode cell on a ("data", "model") mesh as the reference's
-    `plan_cell` decode branch does (`repro/launch/steps.py:191-207`):
-    `axis_binding(shape_kind="decode")`, `param_specs(moe_ff_sharded=
-    True)`, `cache_specs(seq_axes=binding["seq"])` over the cell's
-    (batch, seq) cache, and the batch over dp.  Needs no process group.
-    Train and prefill cells, and the mamba2 and shared-attention layers,
-    are not placed yet: they raise `NotImplementedError` naming their
-    ROADMAP item."""
-    if shape.kind != "decode":
+    """Place a decode or prefill cell on a ("data", "model") mesh as the
+    reference's `plan_cell` does (`repro/launch/steps.py:144-206`): the
+    binding of `cell_binding` (decode ignores the recipe; long_500k
+    binds the KV sequence over ("data", "model")), `param_specs`
+    (decode's weight-stationary experts, `moe_ff_sharded`), the batch
+    over dp where it divides, and `cache_specs(seq_axes=binding["seq"])`
+    over the cell's cache: a decode's (batch, seq) `init_cache`, a
+    prefill's output (`prefill_cache_shapes`, the reference's
+    `_prefill_cache_shape`), each spec `dedupe`d.  A prefill's residual stream is cut along
+    the sequence over the binding's sp axes that dp leaves (context
+    parallelism, or Megatron-style sequence parallelism where sp = tp),
+    its logits come back whole, and its MoE layers route in |moe_g|
+    token groups.  Needs no process group.  Train cells are not placed
+    yet: they raise `NotImplementedError` naming their ROADMAP item."""
+    if shape.kind == "train":
         raise NotImplementedError(
-            f"placement of {shape.kind} cells (FSDP gathers and "
-            "reduce-scatters, TP in the backward) is ROADMAP Queue 1, "
-            "item 'train and prefill placement'")
-    kinds = {b.kind for b in layer_blocks(cfg)} - {"attn", "moe"}
-    if kinds:
-        raise NotImplementedError(
-            f"placement of {sorted(kinds)} layers (mamba2-1.3b, zamba2-7b) "
-            "is ROADMAP Queue 1, item 'mamba2 and zamba2 placement'")
+            "placement of train cells (autograd through the collectives, "
+            "reduce-scattered gradients, AdamW on shards) is ROADMAP "
+            "Queue 1, item 'placed training'")
     binding = cell_binding(cfg, shape, mesh, recipe)
+    m = binding["mesh"]
     pspecs = cell_param_specs(cfg, shape, binding)
-    cache = init_cache(cfg, shape.batch, shape.seq, torch.device("meta"))
-    cspecs = cache_specs(cache, binding["mesh"], dp_axes=binding["dp"],
-                         tp_axes=binding["tp"], seq_axes=binding["seq"])
-    vocab = pspecs["embed"][0] if cfg.tie_embeddings \
-        else pspecs["lm_head"][1]
+    if shape.kind == "decode":
+        cache = init_cache(cfg, shape.batch, shape.seq, torch.device("meta"))
+    else:
+        cache = prefill_cache_shapes(cfg, shape.batch, shape.seq)
+    cspecs = [{k: dedupe(spec, m) for k, spec in layer.items()}
+              for layer in cache_specs(cache, m, dp_axes=binding["dp"],
+                                       tp_axes=binding["tp"],
+                                       seq_axes=binding["seq"])]
+    if shape.kind == "decode":
+        vocab = pspecs["embed"][0] if cfg.tie_embeddings \
+            else pspecs["lm_head"][1]
+        seq, groups = None, 1
+    else:
+        vocab = None
+        seq = _entry(tuple(a for a in binding["sp"]
+                           if a not in binding["dp"]), shape.seq, m)
+        groups = shard_count(tuple(binding["moe_g"]), m)
     return CellPlan(cfg=cfg, shape=shape, mesh=mesh, binding=binding,
                     param_specs=pspecs, cache_specs=cspecs,
                     batch_entry=batch_entry(shape.batch, binding),
-                    vocab_entry=vocab, recipe=recipe)
+                    vocab_entry=vocab, recipe=recipe, seq_entry=seq,
+                    moe_groups=groups)
 
 
 def _coords(plan: CellPlan, rank: int | None) -> dict:
@@ -257,8 +320,9 @@ def place_params(plan: CellPlan, params, rank: int | None = None,
 
 def place_cache(plan: CellPlan, cache, rank: int | None = None,
                 device=None):
-    """This rank's blocks of a full decode cache (`init_cache` of the
-    cell's batch and seq), in fresh storage."""
+    """This rank's blocks of a full cache of the cell (a decode's
+    `init_cache` of its batch and seq, a prefill's output), in fresh
+    storage."""
     return place(cache, plan.cache_specs, plan.binding["mesh"],
                  _coords(plan, rank), device)
 
@@ -280,3 +344,10 @@ def local_rows(plan: CellPlan, x, rank: int | None = None):
     spec = P(plan.batch_entry, *([None] * (x.dim() - 1)))
     return place({"x": x}, {"x": spec}, plan.binding["mesh"],
                  _coords(plan, rank))["x"]
+
+
+def local_batch(plan: CellPlan, batch: dict, rank: int | None = None):
+    """This rank's rows of every tensor of a batch dict (tokens, and a
+    frontend stub's embeddings), whole along the rest: the reference's
+    batch spec (`_batch_specs`)."""
+    return {k: local_rows(plan, x, rank) for k, x in batch.items()}

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from ..distributed.placement import axes_of
 from ..distributed.sharding import FSDP, TP
 from ..kernels import ops
 from ..kernels.ref import quantize_kv
@@ -91,9 +92,12 @@ def _qkv(p, x, positions, cfg):
 
 
 def attn_block(p, x, cfg, window: int | None = None, positions=None,
-               mlp_fn=None):
+               mlp_fn=None, place=None):
     """Training/prefill forward.  x: (B, S, d).  Returns (y, (k, v)) with
-    k/v (B, S, KV, hd) after RoPE."""
+    k/v (B, S, KV, hd) after RoPE.  With `place` (a
+    `distributed.placement.LayerPlace`) see `_attn_block_placed`."""
+    if place is not None:
+        return _attn_block_placed(p, x, cfg, window, mlp_fn, place)
     B, S, d = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device).expand(B, S)
@@ -216,3 +220,107 @@ def _attn_decode_placed(p, x, cache_k, cache_v, pos, cfg, mlp_fn, slot,
                plc.gather_axis(p["w_up"], s["w_up"]),
                plc.gather_axis(p["w_down"], s["w_down"]))
     return x + plc.all_reduce(y, s["w_down"][0])
+
+
+def _kv_of_heads(k, v, cfg, h0: int, n_q: int):
+    """The KV heads that q heads [h0, h0 + n_q) read (head h reads KV
+    head h // G), from k/v holding every KV head: a contiguous slice
+    where each KV head serves the same number of them, else one KV head
+    per q head (G = 1)."""
+    G = cfg.n_heads // cfg.n_kv_heads
+    idx = [h // G for h in range(h0, h0 + n_q)]
+    lo, hi = idx[0], idx[-1] + 1
+    if n_q % (hi - lo) == 0 and idx == [lo + i // (n_q // (hi - lo))
+                                        for i in range(n_q)]:
+        return k[:, :, lo:hi], v[:, :, lo:hi]
+    at = torch.tensor(idx, device=k.device)
+    return k.index_select(2, at), v.index_select(2, at)
+
+
+def _attn_block_placed(p, x, cfg, window, mlp_fn, lp):
+    """`attn_block` on one rank of a placed prefill (the reference's
+    `attn_block` under `plan_cell`'s prefill shardings).  x: this rank's
+    rows (B, S_local, d), its block of the sequence under `plc.seq`.
+
+    Each weight's fsdp dims are gathered before use (`Placement.take`).
+    Where `param_specs` splits the q heads over an axis (tp) that does not
+    also cut the batch (`Placement.split`; else the heads are gathered
+    and the layer is local to the rank's rows), the rank
+    runs its heads over the whole sequence: with a sequence-sharded
+    residual (sp = tp, Megatron-style) the normed input is all-gathered
+    along the sequence first and `wo`'s row-parallel product
+    reduce-scattered back to the rank's block, else all-reduced.  Its KV
+    heads are its block where `wk` splits (KV % tp == 0), else the ones
+    its q heads read, by global head index (`_kv_of_heads`).  Where the
+    heads are whole and the sequence is cut (context parallelism), the
+    rank computes q, k, v of its own tokens, all-gathers k and v along
+    the sequence and runs its query block through the flash kernel at
+    its q_offset.  The SwiGLU is column- then row-parallel over the ff
+    dim where that is split (with the same gather and reduce-scatter),
+    else local to the rank's tokens; `mlp_fn` (the MoE MLP) takes the
+    rank's tokens.  The K/V handed to the cache are the whole sequence's
+    (B, S, heads, hd), fitted to the cache's spec of the KV-head dim."""
+    plc, s = lp.plc, lp.spec
+    seq = plc.seq
+    B, Sl, d = x.shape
+    hd = cfg.head_dim
+    hq, hk = plc.split(tuple(s["wq"])[1]), plc.split(tuple(s["wk"])[1])
+    if hq is None and hk is not None:
+        raise ValueError("KV heads split where the q heads are not")
+    h = rms_norm(x, p["norm1"])
+    whole = seq is not None and hq is not None     # gather the sequence
+    if whole:
+        if axes_of(hq) != axes_of(seq):
+            raise ValueError(f"heads over {hq} and sequence over {seq}")
+        h = plc.all_gather(h, seq, 1)
+    off = 0 if whole or seq is None else plc.index(seq) * Sl
+    Sq = h.shape[1]
+    positions = (off + torch.arange(Sq, device=x.device)).expand(B, Sq)
+
+    def proj(name, heads):
+        w = plc.take(p[name], s[name], (None, heads, None))
+        return (h @ w.reshape(d, -1)).view(B, Sq, w.shape[1], hd)
+
+    q = rope(proj("wq", hq), positions, cfg.rope_theta)
+    k = rope(proj("wk", hk), positions, cfg.rope_theta)
+    v = proj("wv", hk)
+    if seq is not None and not whole:              # context parallelism
+        k, v = plc.all_gather_many([k, v], seq, 1)
+    if hq is not None and hk is None:
+        kq, vq = _kv_of_heads(k, v, cfg, plc.index(hq) * q.shape[2],
+                              q.shape[2])
+    else:
+        kq, vq = k, v
+    c = min(cfg.flash_chunk, k.shape[1])
+    o = flash_attention(q, kq.contiguous(), vq.contiguous(), causal=True,
+                        window=window, q_offset=off, q_chunk=c, kv_chunk=c)
+    wo = plc.take(p["wo"], s["wo"], (hq, None, None))
+    y = o.reshape(B, Sq, -1) @ wo.reshape(-1, d)
+    x = x + _row_out(plc, y, hq, seq if whole else None)
+    h = rms_norm(x, p["norm2"])
+    if mlp_fn is not None:
+        x = x + mlp_fn(h)
+    else:
+        hf = plc.split(tuple(s["w_gate"])[1])
+        wide = seq is not None and hf is not None
+        if wide:
+            h = plc.all_gather(h, seq, 1)
+        y = swiglu(h, plc.take(p["w_gate"], s["w_gate"], (None, hf)),
+                   plc.take(p["w_up"], s["w_up"], (None, hf)),
+                   plc.take(p["w_down"], s["w_down"], (hf, None)))
+        x = x + _row_out(plc, y, hf, seq if wide else None)
+    cs = lp.cache
+    k, v = (plc.take(t, (cs["k"][0], None, hk), tuple(cs["k"])[:3])
+            for t in (k, v))
+    return x, (k.contiguous(), v.contiguous())
+
+
+def _row_out(plc, y, split, seq):
+    """A row-parallel product's partial sums `y` over `split` (None:
+    whole) on tokens gathered along `seq` (None: not gathered) -> this
+    rank's tokens, summed."""
+    if split is None:
+        return y if seq is None else plc.block(y, seq, 1)
+    if seq is None:
+        return plc.all_reduce(y, split)
+    return plc.reduce_scatter(y, split, 1)

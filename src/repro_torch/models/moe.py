@@ -204,3 +204,92 @@ def moe_ffn_placed(p, x, cfg, plc, spec):
         n = x.shape[0]
         y = y[plc.index(plc.batch_entry) * n:][:n]
     return y.to(x.dtype)
+
+
+def moe_ffn_prefill_placed(p, h, cfg, plc, spec):
+    """`moe_ffn` of a placed prefill (capacity-dropping, the reference's
+    token groups), in the prefill layout (`moe_specs(ff_sharded=False)`):
+    experts over tp where E divides it, else the ff dim; d_model over
+    fsdp, gathered before use.  h: this rank's tokens (B, S_local, d),
+    rows over `plc.batch_entry`, the sequence over `plc.seq`.
+
+    The reference cuts the step's T tokens, in (row, position) order, into
+    G = `plc.moe_groups` groups of T / G and slots and drops within each
+    (`repro/models/moe.py:85-94`).  The ranks that split the expert work
+    (the tp axes) must see the same tokens, and a group must be whole:
+    the rank all-gathers its tokens along the sequence (`plc.seq`) and
+    along the rows over the batch axes that the experts are split over,
+    which leaves a contiguous run of whole groups.  Each group routes,
+    takes its slots of this rank's experts (`dispatch`, C = `capacity`
+    of the group), runs them on this rank's slice of the weights, and
+    each token gathers its kept slots in ascending expert order; the
+    float32 partial sums go back to the rank's tokens by a reduce-scatter
+    over the tp axes (an all-reduce and a cut where two dims were
+    gathered)."""
+    from ..distributed.placement import AXES, axes_of
+    ws = tuple(spec["w_gate"])
+    e_entry, f_entry = ws[0], ws[2]
+    split = set(axes_of(e_entry) + axes_of(f_entry))
+    split_entry = tuple(a for a in AXES if a in split) or None
+    batch = axes_of(plc.batch_entry)
+    rows = tuple(a for a in batch if a in split)
+    if rows and batch[len(batch) - len(rows):] != rows:
+        raise ValueError(f"experts over {rows} do not gather contiguous "
+                         f"rows of a batch over {batch}")
+    gathered = []
+    x = h
+    if rows:
+        gathered.append((0, rows))
+        x = plc.all_gather(x, rows, 0)
+    if plc.seq is not None:
+        gathered.append((1, plc.seq))
+        x = plc.all_gather(x, plc.seq, 1)
+    Bg, Sg, d = x.shape
+    T = h.shape[0] * plc.count(plc.batch_entry) * h.shape[1] \
+        * plc.count(plc.seq)
+    G = plc.moe_groups if T % plc.moe_groups == 0 else 1
+    if (Bg * Sg * G) % T:
+        raise ValueError(f"{Bg * Sg} gathered tokens are no whole number "
+                         f"of the step's {G} groups of {T // G}")
+    n_groups = Bg * Sg * G // T
+    xf = x.reshape(n_groups, -1, d)
+    Tg = xf.shape[1]
+    E, K = cfg.n_experts, cfg.top_k
+    C = capacity(Tg, cfg)
+    router = plc.take(p["router"], spec["router"], (None, None))
+    w_gate = plc.take(p["w_gate"], spec["w_gate"], (e_entry, None, f_entry))
+    w_up = plc.take(p["w_up"], spec["w_up"], (e_entry, None, f_entry))
+    w_down = plc.take(p["w_down"], spec["w_down"], (e_entry, f_entry, None))
+    El = w_gate.shape[0]
+    e0 = plc.index(e_entry) * El
+    ys = []
+    for xg in xf:
+        gates, eidx = route(router, xg, cfg)
+        order, starts, a_idx, valid = dispatch(eidx, E, C)
+        a_idx, valid = a_idx[e0 * C:(e0 + El) * C], valid[e0 * C:(e0 + El)
+                                                          * C]
+        tok = torch.where(valid, a_idx // K, 0)
+        eb = (xg[tok] * valid[:, None].to(xg.dtype)).reshape(El, C, d)
+        g = torch.bmm(eb, w_gate)
+        u = torch.bmm(eb, w_up)
+        hh = F.silu(g.to(F32)).to(h.dtype) * u
+        yb = torch.bmm(hh, w_down).reshape(El * C, d)
+        e_t, by_expert = torch.sort(eidx, dim=-1, stable=True)
+        rank = torch.gather(ranks(eidx, order, starts), 1, by_expert)
+        hit = (rank < C) & (e_t >= e0) & (e_t < e0 + El)
+        slot = torch.where(hit, (e_t - e0) * C + rank, 0)
+        w = torch.gather(gates, 1, by_expert) * hit
+        contrib = yb[slot].to(F32) * w[..., None]            # (Tg, K, d)
+        y = torch.zeros(Tg, d, dtype=F32, device=h.device)
+        for k in range(K):
+            y = y + contrib[:, k]
+        ys.append(y)
+    y = torch.stack(ys).reshape(Bg, Sg, d)
+    if len(gathered) == 1 and split_entry is not None \
+            and set(axes_of(gathered[0][1])) == split:
+        y = plc.reduce_scatter(y, split_entry, gathered[0][0])
+    else:
+        y = plc.all_reduce(y, split_entry)
+        for dim, entry in gathered:
+            y = plc.block(y, entry, dim)
+    return y.to(h.dtype)

@@ -19,6 +19,10 @@ and every occurrence applies them, so that each tensor is one leaf of
 the tree (one gradient, one AdamW update, one checkpoint entry); each
 occurrence keeps its own KV cache, as the reference's `init_cache` gives.
 Vocab sizes are padded to a multiple of 256.
+
+Placed (`distributed/placement.py`): `decode_step(place=)` and
+`prefill_placed` run one rank's blocks of a cell `launch/steps.py:
+plan_cell` placed, every block kind through its placed branch.
 """
 from __future__ import annotations
 
@@ -263,13 +267,39 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, device) -> list:
     return [layer(b) for b in layer_blocks(cfg)]
 
 
+def prefill_cache_shapes(cfg: ModelConfig, batch: int, seq: int) -> list:
+    """The shapes of `forward(..., return_cache=True)`'s cache on the meta
+    device (the reference's `_prefill_cache_shape`): {"k", "v"} (batch,
+    seq, n_kv_heads, head_dim) for every attention layer (every shared
+    occurrence its own), mamba2 {"ssm" (batch, nh, ns, hp) float32,
+    "conv" (batch, K-1, conv_dim)}."""
+    dt = getattr(torch, cfg.dtype)
+    meta = torch.device("meta")
+
+    def layer(b):
+        if b.kind == "mamba2":
+            return {"ssm": torch.empty(batch, cfg.ssm_heads, cfg.ssm_state,
+                                       cfg.ssm_head_dim, dtype=F32,
+                                       device=meta),
+                    "conv": torch.empty(batch, cfg.ssm_conv - 1,
+                                        cfg.d_inner + 2 * cfg.ssm_state,
+                                        dtype=dt, device=meta)}
+        kv = (batch, seq, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": torch.empty(kv, dtype=dt, device=meta),
+                "v": torch.empty(kv, dtype=dt, device=meta)}
+
+    return [layer(b) for b in layer_blocks(cfg)]
+
+
 def cache_specs(cache, mesh, dp_axes=("data",), tp_axes=("model",),
                 seq_axes=None) -> list:
-    """Concrete `P`s of a decode cache (`init_cache`'s layout): KV caches
-    and their int8 scales batch over dp and sequence over `seq_axes`
-    (default tp; long_500k binds ("data", "model")); SSM states batch
-    over dp, heads (ssm) or channels (conv) over tp.  An axis applies
-    only where it divides the dim."""
+    """Concrete `P`s of a cache, the reference's rule dim for dim: "k" and
+    "v" (and the int8 scales) batch over dp on dim 0 and dim 2 over
+    `seq_axes` (default tp; long_500k binds ("data", "model")), which in
+    a decode cache (`init_cache`: (B, KV, S, hd)) is the sequence and in
+    a prefill's (`prefill_cache_shapes`: (B, S, KV, hd)) the KV heads;
+    SSM states batch over dp, heads (ssm) or channels (conv) over tp.  An
+    axis applies only where it divides the dim."""
     sizes = describe_mesh(mesh).shape
     seq_axes = tuple(seq_axes if seq_axes is not None else tp_axes)
 
@@ -285,7 +315,7 @@ def cache_specs(cache, mesh, dp_axes=("data",), tp_axes=("model",),
 
     def one(name, t):
         sh = t.shape
-        if name in ("k", "v"):                # (B, KV, S, hd)
+        if name in ("k", "v"):                # (B, KV, S, hd) / (B, S, KV, hd)
             return P(ax(dp, sh[0]), None, ax(seq_axes, sh[2]), None)
         if name in ("k_scale", "v_scale"):    # (B, KV, S)
             return P(ax(dp, sh[0]), None, ax(seq_axes, sh[2]))
@@ -334,20 +364,24 @@ def _decode_step_placed(params, cfg, cache, tokens, pos, plc):
     """`decode_step` on one rank of a placed decode cell: `params`,
     `cache` and `tokens` are this rank's blocks (`placement.place` by the
     plan's specs).  The embedding lookup is vocab-parallel
-    (`Placement.embed`); each layer runs `attn_decode` under its
-    `LayerPlace`, a windowed ring's slot and valid length taken on the
-    whole ring (its length the local one times the sequence shards); a
-    `moe` layer's MLP is `moe.moe_ffn_placed`.  The final norm is
-    replicated and the head's d_model dim gathered, so the logits come
-    back vocab-sharded over "model": (B_local, V_padded / tp).  Mamba2
-    and `shared_attn` layers are not placed yet (ROADMAP Queue 1)."""
+    (`Placement.embed`); each layer runs under its `LayerPlace` (a shared
+    occurrence gets the shared block's weights and specs, its own
+    cache): `attn_decode`, a windowed ring's slot and valid length taken
+    on the whole ring (its length the local one times the sequence
+    shards), a `moe` layer's MLP `moe.moe_ffn_placed`; a mamba2 layer
+    `mamba2_step` on the rank's heads.  The final norm is replicated and
+    the head's d_model dim gathered, so the logits come back
+    vocab-sharded over "model": (B_local, V_padded / tp)."""
     specs = plc.param_specs
     x = plc.embed(params["embed"], tokens, specs["embed"])
     for i, ((b, p), c) in enumerate(zip(layer_params(params, cfg), cache)):
-        if b.kind not in ("attn", "moe"):
-            raise NotImplementedError(f"placed decode of {b.kind} layers "
-                                      "(ROADMAP Queue 1)")
         lp = plc.layer(i)
+        if b.kind == "mamba2":
+            x, (ssm, conv) = mamba2_step(p, x, (c["ssm"], c["conv"]), cfg,
+                                         place=lp)
+            c["ssm"].copy_(ssm)
+            c["conv"].copy_(conv)
+            continue
         mlp_fn = None
         if b.kind == "moe":
             def mlp_fn(h, p=p, spec=lp.spec["moe"]):
@@ -363,3 +397,68 @@ def _decode_step_placed(params, cfg, cache, tokens, pos, plc):
     else:
         head, spec = params["lm_head"], specs["lm_head"]
     return x @ plc.gather_axis(head, spec)
+
+
+def _forward_placed(params, cfg, tokens, frontend_emb, plc):
+    """`forward_hidden` on one rank of a placed prefill, forward only:
+    `params` this rank's blocks, `tokens` its rows (B_local, S) whole
+    along the sequence (the reference's batch spec), `frontend_emb` its
+    rows of the stub prefix.  The rank takes its block of the sequence
+    under `plc.seq` (the residual stream's sequence sharding) and looks
+    its tokens up in the embedding table, gathered whole (a prefill's
+    tokens outnumber the table's rows a rank would otherwise gather).
+    Each layer runs under its `LayerPlace`: the attention block
+    (`attention._attn_block_placed`) with a `moe` layer's MLP
+    `moe.moe_ffn_prefill_placed`, or the mamba2 mixer on the rank's heads
+    (`mamba2._mixer_placed`).  -> (the final normed hidden of the rank's
+    tokens (B_local, S_local, d), this rank's cache blocks, the table)."""
+    specs = plc.param_specs
+    S = tokens.shape[1]
+    n = plc.count(plc.seq)
+    if S % n:
+        raise ValueError(f"a prompt of {S} tokens does not split {n} ways")
+    Sl = S // n
+    off = plc.index(plc.seq) * Sl
+    table = plc.take(params["embed"], specs["embed"], (None, None))
+    x = table[tokens[:, off:off + Sl].long()]
+    if frontend_emb is not None:      # this block's part of the prefix
+        m = min(max(frontend_emb.shape[1] - off, 0), Sl)
+        x = torch.cat([frontend_emb[:, off:off + m].to(x.dtype), x[:, m:]],
+                      dim=1)
+    caches = []
+    for i, (b, p) in enumerate(layer_params(params, cfg)):
+        lp = plc.layer(i)
+        if b.kind == "mamba2":
+            x, (ssm, conv) = mamba2_mixer(p, x, cfg, place=lp)
+            caches.append({"ssm": ssm, "conv": conv})
+            continue
+        mlp_fn = None
+        if b.kind == "moe":
+            def mlp_fn(h, p=p, spec=lp.spec["moe"]):
+                return moe.moe_ffn_prefill_placed(p["moe"], h, cfg, plc,
+                                                  spec)
+        x, (k, v) = attn_block(p, x, cfg, window=b.window, mlp_fn=mlp_fn,
+                               place=lp)
+        caches.append({"k": k, "v": v})
+    return rms_norm(x, params["final_norm"]), caches, table
+
+
+def prefill_placed(params, cfg: ModelConfig, tokens, plc, frontend_emb=None):
+    """A placed prefill on one rank (`_forward_placed`) -> (the last
+    position's logits of the rank's rows (B_local, V_padded), whole over
+    the vocab, the same on every rank holding those rows; this rank's
+    cache blocks).  The last position lives on the last sequence block:
+    its hidden is all-gathered along the sequence; the head is gathered
+    whole."""
+    x, caches, table = _forward_placed(params, cfg, tokens, frontend_emb,
+                                       plc)
+    last = x[:, -1]
+    if plc.seq is not None:
+        last = plc.all_gather(last[None], plc.seq, 0)[-1]
+    if cfg.tie_embeddings:
+        head = table.T
+    else:
+        del table
+        head = plc.take(params["lm_head"], plc.param_specs["lm_head"],
+                        (None, None))
+    return last @ head, caches

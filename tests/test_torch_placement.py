@@ -2,14 +2,17 @@
 plan=...)`, `distributed/placement.py`) on gloo CPU ranks.
 
 Each smoke config is served for 20 steps (past mixtral's and gemma3's
-16-slot rings) from the reference's weights (`params_from_reference`)
-on meshes (1, 2), (2, 2) and (1, 4), every rank holding only its blocks
-of the weights and the KV cache; at every step the vocab-sharded logits,
+16-slot rings) from seeded weights (the port's `init_params`, handed to
+the reference by `params_to_reference`) on meshes (1, 2), (2, 2) and (1, 4), every rank holding only its blocks
+of the weights and the cache; at every step the vocab-sharded logits,
 gathered, are held to the one-process port within 1e-5 relative and to
 the reference's `decode_step` within 1e-4, and the greedy tokens to the
-one-process port's.  Each rank's resident bytes are held to
-`local_bytes`.  A long_500k-style cell (batch 1) binds the KV sequence
-over ("data", "model").  The decode kernel's new row lse and empty shard
+one-process port's.  mamba2 and zamba2 (SSM heads over "model", the
+conv window's contiguous blocks, zamba2's shared block at two
+occurrences with a KV cache each) also hold every rank's cache blocks to
+`place` of the one-process cache at every step.  Each rank's resident
+bytes are held to `local_bytes`.  long_500k-style cells (batch 1) of
+gemma3 and zamba2 bind the KV sequence over ("data", "model").  The decode kernel's new row lse and empty shard
 are held to the plain versions here (their CUDA side is in
 `tests/test_torch_gpu.py`)."""
 import dataclasses
@@ -24,8 +27,8 @@ import torch
 from repro.configs import smoke_config as jsmoke_config
 from repro.models import transformer as jtransformer
 from repro_torch.configs import get_config, smoke_config
-from repro_torch.configs.shapes import SHAPES
-from repro_torch.convert import params_from_reference
+from repro_torch.configs.shapes import SHAPES, ShapeSpec
+from repro_torch.convert import params_to_reference
 from repro_torch.distributed import placement
 from repro_torch.distributed.sharding import MeshDesc, P
 from repro_torch.kernels import ops, ref
@@ -41,10 +44,13 @@ CASES = {"llama3": ("llama3-8b", {}),
          "qwen3": ("qwen3-moe-235b-a22b", {}),
          "mixtral": ("mixtral-8x22b", {}),
          "gemma3": ("gemma3-4b", {}),
-         "llama3-int8": ("llama3-8b", {"kv_quant": True})}
+         "llama3-int8": ("llama3-8b", {"kv_quant": True}),
+         "mamba2": ("mamba2-1.3b", {}),
+         "zamba2": ("zamba2-7b", {})}
+SSM = ("mamba2", "zamba2")      # their caches are checked at every step
 MESHES = [(1, 2), (2, 2), (1, 4)]
-# a long_500k-style cell: batch 1, the KV sequence over ("data", "model")
-LONG = ("gemma3", (2, 2))
+# long_500k-style cells: batch 1, the KV sequence over ("data", "model")
+LONG = {"gemma3": (2, 2), "zamba2": (2, 2)}
 
 
 def configs(case):
@@ -65,32 +71,38 @@ def served(tmp_path_factory):
     want = {}
     for case in CASES:
         cfg, jcfg = configs(case)
-        tree = jax.tree.map(np.asarray,
-                            jtransformer.init_params(jax.random.key(0), jcfg))
-        params = params_from_reference(tree, cfg, CPU)
+        params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                         CPU)
+        tree = jax.tree.map(lambda t: jnp.asarray(t.numpy()),
+                            params_to_reference(params, cfg))
         torch.save(params, root / f"{case}.pt")
-        for batch in ((B, 1) if case == LONG[0] else (B,)):
+        jstep = jax.jit(lambda c, t, p, tree=tree, jcfg=jcfg:
+                        jtransformer.decode_step(tree, jcfg, c, t, p))
+        for batch in ((B, 1) if case in LONG else (B,)):
             cache = transformer.init_cache(cfg, batch, S_MAX, CPU)
             jcache = jtransformer.init_cache(jcfg, batch, S_MAX)
-            jstep = jax.jit(lambda c, t, p, tree=tree, jcfg=jcfg:
-                            jtransformer.decode_step(tree, jcfg, c, t, p))
-            port, refs = [], []
+            port, refs, states = [], [], []
             for pos in range(STEPS):
-                toks = tokens[pos, :batch]
+                toks = tokens[pos, :batch] % cfg.vocab
                 port.append(transformer.decode_step(
                     params, cfg, cache, torch.from_numpy(toks), pos).numpy())
                 jl, jcache = jstep(jcache, jnp.asarray(toks), jnp.int32(pos))
                 refs.append(np.asarray(jl))
+                if case in SSM:
+                    states.append([{k: t.clone() for k, t in c.items()}
+                                   for c in cache])
+            if states:
+                torch.save(states, root / f"{case}_{batch}_states.pt")
             want[case, batch] = (np.stack(port), np.stack(refs))
     (root / "cases.json").write_text(json.dumps(
         {"cases": {k: [a, o] for k, (a, o) in CASES.items()},
-         "B": B, "S": S_MAX, "steps": STEPS, "long": LONG[0]}))
+         "B": B, "S": S_MAX, "steps": STEPS, "ssm": SSM}))
     got = {}
     for sizes in MESHES:
         d = tmp_path_factory.mktemp("ranks")
         (d / "root").write_text(str(root))
         body = _RANK.replace("SIZES", repr(sizes)).replace(
-            "LONG_MESH", repr(sizes == LONG[1]))
+            "LONG_CASES", repr([c for c, m in LONG.items() if m == sizes]))
         got[sizes] = run_ranks(d, sizes[0] * sizes[1], body, timeout=240)
     return want, got
 
@@ -110,8 +122,7 @@ spec = json.loads((root / "cases.json").read_text())
 tokens = torch.from_numpy(np.load(root / "tokens.npy"))
 mesh = MeshDesc(("data", "model"), SIZES)
 runs = [(case, spec["B"], "decode_32k") for case in spec["cases"]]
-if LONG_MESH:
-    runs.append((spec["long"], 1, "long_500k"))
+runs += [(case, 1, "long_500k") for case in LONG_CASES]
 out = {}
 for case, batch, name in runs:
     arch, over = spec["cases"][case]
@@ -126,14 +137,26 @@ for case, batch, name in runs:
     plc = step.placement
     rows = steps.local_rows(plan, torch.arange(batch)).tolist()
     logits, toks = [], []
+    states = torch.load(root / f"{case}_{batch}_states.pt") \
+        if case in spec["ssm"] else None
+    state_err = {}
     for pos in range(spec["steps"]):
-        mine = steps.local_rows(plan, tokens[pos, :batch])
+        mine = steps.local_rows(plan, tokens[pos, :batch] % cfg.vocab)
+        if pos == spec["steps"] - 1:        # for the serve step below
+            before = [{k: t.clone() for k, t in c.items()} for c in cache]
         lg = transformer.decode_step(params, cfg, cache, mine, pos, place=plc)
         toks.append(plc.argmax(lg, plan.vocab_entry).tolist())
         logits.append(plc.all_gather(lg, plan.vocab_entry, 1).tolist())
-    # the serve step itself, one more step, on a copy of the cache
-    nxt, _ = step(params, [{k: t.clone() for k, t in c.items()}
-                           for c in cache], mine, spec["steps"] - 1)
+        if states is not None:      # every leaf against place(one process)
+            for c, w in zip(cache, steps.place_cache(plan, states[pos])):
+                for k, t in c.items():
+                    assert t.shape == w[k].shape, (k, t.shape, w[k].shape)
+                    e = float((t - w[k]).abs().max()
+                              / w[k].abs().max().clamp(min=1e-30))
+                    state_err[k] = max(state_err.get(k, 0.0), e)
+    # the serve step itself: the last step again, on a copy of the cache
+    # as it was before that step
+    nxt, _ = step(params, before, mine, spec["steps"] - 1)
 
     def nbytes(tree):
         return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
@@ -142,8 +165,10 @@ for case, batch, name in runs:
         param_bytes=nbytes(params), cache_bytes=nbytes(cache),
         param_local_bytes=local_bytes(full, plan.param_specs, mesh),
         cache_local_bytes=local_bytes(cache0, plan.cache_specs, mesh),
-        param_full_bytes=nbytes(full), seq=plan.cache_specs[-1]["k"][2],
-        traffic=dict(plc.traffic))
+        param_full_bytes=nbytes(full), traffic=dict(plc.traffic),
+        seq=next((c["k"][2] for c in reversed(plan.cache_specs)
+                  if "k" in c), None),
+        state_err=state_err)
 # the serve CLI's placed path: the engine's schedule over two waves
 from repro_torch.launch.serve import serve_placed
 rng = np.random.default_rng(0)
@@ -162,8 +187,26 @@ forced = serve_placed(cfg, mesh, prompts, 5, batch=4,
                       device=torch.device("cpu"), teacher=teacher)
 out["forced"] = {str(k): [v, forced["gaps"][k]]
                  for k, v in forced["tokens"].items()}
+# zamba2 (mamba2 layers and the shared block) through the same path
+zcfg = smoke_config("zamba2-7b")
+zres = serve_placed(zcfg, mesh, prompts % zcfg.vocab, 5, batch=4,
+                    device=torch.device("cpu"))
+out["serve_zamba2"] = {str(k): v for k, v in zres["tokens"].items()}
 report(out)
 """
+
+
+def engine_tokens(arch) -> dict:
+    """`ServeEngine`'s new tokens of the serve runs' eight requests."""
+    from repro_torch.serving.engine import Request, ServeEngine
+    cfg = smoke_config(arch)
+    eng = ServeEngine(cfg, batch=4, max_len=6 + 5 + 8, seed=0, device=CPU)
+    rng = np.random.default_rng(0)
+    prompts = np.stack([rng.integers(0, smoke_config("llama3-8b").vocab, 6)
+                        for _ in range(8)]) % cfg.vocab
+    for rid in range(8):
+        eng.submit(Request(rid=rid, prompt=list(prompts[rid]), max_new=5))
+    return {str(r.rid): r.out for r in eng.run()}
 
 
 def test_serve_placed_gives_the_engines_tokens(served):
@@ -171,15 +214,11 @@ def test_serve_placed_gives_the_engines_tokens(served):
     four requests: every request's new tokens are `ServeEngine`'s on the
     same seeded weights and prompts, each from the rank that holds its
     row; and forced on the engine's tokens (`teacher`), every step's
-    argmax is the forced token (logit gap 0)."""
-    from repro_torch.serving.engine import Request, ServeEngine
-    cfg = smoke_config("llama3-8b")
-    eng = ServeEngine(cfg, batch=4, max_len=6 + 5 + 8, seed=0, device=CPU)
-    rng = np.random.default_rng(0)
-    for rid in range(8):
-        eng.submit(Request(rid=rid, prompt=list(rng.integers(0, cfg.vocab,
-                                                             6)), max_new=5))
-    want = {str(r.rid): r.out for r in eng.run()}
+    argmax is the forced token (logit gap 0).  zamba2 (mamba2 layers and
+    the shared block) serves the engine's tokens through the same
+    path."""
+    want = engine_tokens("llama3-8b")
+    zwant = engine_tokens("zamba2-7b")
     _, got = served
     for sizes in MESHES:
         seen = {}
@@ -187,6 +226,10 @@ def test_serve_placed_gives_the_engines_tokens(served):
             for rid, toks in res["serve"].items():
                 assert seen.setdefault(rid, toks) == toks
         assert seen == want, sizes
+        zseen = {}
+        for res in got[sizes]:
+            zseen.update(res["serve_zamba2"])
+        assert zseen == zwant, sizes
         # forced on the engine's tokens: the argmax is the teacher's at
         # every step, a gap of 0
         for res in got[sizes]:
@@ -216,8 +259,8 @@ def test_placed_decode_matches_one_process_and_reference(served, case,
         assert rel_err(logits, port[:, rows]) <= 1e-5
         assert np.abs(logits - reference[:, rows]).max() <= 1e-4
         assert r["tokens"] == port[:, rows].argmax(-1).tolist()
-        # the same step again on a copy of the cache (the slot rewritten
-        # with the same token): the argmax of that step's rows
+        # the last step again on a copy of the cache from before it: the
+        # argmax of that step's rows
         assert r["step_tokens"] == r["tokens"][-1]
     # the batch splits over "data" and every row is served once
     served_rows = sorted({i for res in got[sizes]
@@ -263,25 +306,49 @@ def test_llama3_weights_split_four_ways_at_1x4(served):
         assert r["cache_bytes"] == cache_total // 4
 
 
-def test_long_cell_binds_the_sequence_over_data_and_model(served):
+@pytest.mark.parametrize("case", list(LONG))
+def test_long_cell_binds_the_sequence_over_data_and_model(served, case):
     """A long_500k-style cell (batch 1) on (2, 2): the KV sequence is cut
     4 ways over ("data", "model"), the batch replicated, and the logits
-    are the one-process port's and the reference's."""
+    are the one-process port's and the reference's (zamba2: each shared
+    occurrence's cache on sequence shards, its mamba2 layers' state on
+    the heads)."""
     want, got = served
-    port, reference = want[LONG[0], 1]
-    for res in got[LONG[1]]:
-        r = res[f"{LONG[0]}/long_500k"]
+    port, reference = want[case, 1]
+    for res in got[LONG[case]]:
+        r = res[f"{case}/long_500k"]
         assert r["seq"] == ["data", "model"]
         assert r["rows"] == [0]
         logits = np.asarray(r["logits"], np.float32)
         assert rel_err(logits, port) <= 1e-5
         assert np.abs(logits - reference).max() <= 1e-4
         assert r["tokens"] == port.argmax(-1).tolist()
-        # each rank holds a quarter of every layer's cache
-        assert r["cache_bytes"] * 4 == sum(
-            t.numel() * t.element_size() for c in transformer.init_cache(
-                smoke_config("gemma3-4b"), 1, S_MAX, "meta")
-            for t in c.values())
+        if case == "gemma3":        # a quarter of every layer's cache
+            assert r["cache_bytes"] * 4 == sum(
+                t.numel() * t.element_size() for c in transformer.init_cache(
+                    smoke_config("gemma3-4b"), 1, S_MAX, "meta")
+                for t in c.values())
+
+
+@pytest.mark.parametrize("sizes", MESHES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("case", SSM)
+def test_placed_ssm_cache_blocks_are_the_one_process_cache(served, case,
+                                                           sizes):
+    """mamba2 and zamba2: at every one of the 20 steps, each rank's ssm
+    state (its heads), conv window (its contiguous block of conv_dim,
+    which does not line up with the heads) and, for zamba2's shared
+    occurrences, K/V blocks equal `place` of the one-process cache
+    within 1e-5 relative (at batch 1 too, the long cell)."""
+    _, got = served
+    names = [f"{case}/decode_32k"] + (
+        [f"{case}/long_500k"] if LONG.get(case) == sizes else [])
+    for res in got[sizes]:
+        for name in names:
+            err = res[name]["state_err"]
+            assert {"ssm", "conv"} <= set(err), name
+            if case == "zamba2":
+                assert {"k", "v"} <= set(err), name
+            assert max(err.values()) <= 1e-5, (name, err)
 
 
 # ----------------------------------------------------------------------
@@ -326,18 +393,20 @@ def test_place_copies_each_block_into_its_own_storage():
     assert placement.local_bytes(full, specs, mesh) == 4 * 4 + 3 * 4
 
 
-def test_plan_cell_places_decode_only():
-    """Train and prefill cells, and the mamba2 and shared-attention
-    layers, are not placed yet: plan_cell says which ROADMAP item ports
-    them.  A decode cell follows the reference's decode branch."""
+def test_plan_cell_raises_only_for_train_cells():
+    """Train cells are not placed yet: plan_cell says which ROADMAP item
+    ports them.  Prefill cells and the mamba2 and zamba2 decode cells are
+    placed; a decode cell follows the reference's decode branch."""
     mesh = MeshDesc(("data", "model"), (2, 4))
     cfg = get_config("llama3-8b")
-    for name in ("train_4k", "prefill_32k"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            steps.plan_cell(cfg, SHAPES[name], mesh)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+        steps.plan_cell(cfg, SHAPES["train_4k"], mesh)
+    assert steps.plan_cell(cfg, SHAPES["prefill_32k"], mesh,
+                           "fsdp").cache_specs
     for arch in ("mamba2-1.3b", "zamba2-7b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            steps.plan_cell(get_config(arch), SHAPES["decode_32k"], mesh)
+        for name in ("decode_32k", "long_500k", "prefill_32k"):
+            p = steps.plan_cell(get_config(arch), SHAPES[name], mesh)
+            assert p.shape.name == name
     plan = steps.plan_cell(cfg, SHAPES["decode_32k"], mesh)
     assert plan.binding["seq"] == ("model",)
     assert plan.batch_entry == "data" and plan.vocab_entry == "model"
@@ -351,6 +420,38 @@ def test_plan_cell_places_decode_only():
                            mesh)
     assert long.binding["seq"] == ("data", "model")
     assert long.batch_entry is None
+    zamba = steps.plan_cell(get_config("zamba2-7b"), SHAPES["long_500k"],
+                            mesh)
+    assert {tuple(c["k"][2]) for c in zamba.cache_specs if "k" in c} == {
+        ("data", "model")}
+    assert {tuple(c["ssm"]) for c in zamba.cache_specs if "ssm" in c} == {
+        (None, "model", None, None)}
+
+
+def test_zamba2_shared_block_is_placed_once():
+    """zamba2's one shared block is one subtree of the specs
+    (`param_specs["shared"]`), counted once by `local_bytes`; every
+    shared occurrence's `Placement.layer` hands it the shared specs and
+    its own cache's."""
+    cfg = smoke_config("zamba2-7b")
+    mesh = MeshDesc(("data", "model"), (1, 2))
+    plan = steps.plan_cell(cfg, ShapeSpec("d", "decode", 24, 4), mesh)
+    params = transformer.param_shapes(cfg)
+    blocks = transformer.layer_blocks(cfg)
+    shared = [i for i, b in enumerate(blocks) if b.kind == "shared_attn"]
+    assert len(shared) == 2
+    assert all(plan.param_specs["layers"][i] is None for i in shared)
+    one = placement.local_bytes(params["shared"], plan.param_specs["shared"],
+                                mesh)
+    rest = {k: v for k, v in params.items() if k != "shared"}
+    rest_specs = {k: v for k, v in plan.param_specs.items() if k != "shared"}
+    assert placement.local_bytes(params, plan.param_specs, mesh) == \
+        placement.local_bytes(rest, rest_specs, mesh) + one
+    plc = steps.placement_of(plan, dry=True)
+    for i in shared:
+        lp = plc.layer(i)
+        assert lp.spec is plan.param_specs["shared"]
+        assert lp.cache is plan.cache_specs[i] and lp.seq == "model"
 
 
 # ----------------------------------------------------------------------

@@ -126,6 +126,41 @@ def test_placed_decode_flops_and_collectives_split_with_the_mesh():
         * 32 * cfg.head_dim * cfg.n_layers
 
 
+def test_prefill_and_ssm_decode_cells_are_counted_placed():
+    """Prefill cells and the mamba2 and zamba2 decode cells are counted
+    from their placed step (collectives counted, not a ring model): a
+    pure-dp prefill on (1, 2) does half the one-device FLOPs and sends
+    only the fsdp gathers; the context-parallel one (batch 1) also
+    gathers K/V, and its last rank, counted, does more than half (its
+    causal block sees the most keys); an SSM decode cell all-gathers and
+    all-reduces."""
+    cfg = smoke_config("llama3-8b")
+    one = plan.plan_one(cfg, ShapeSpec("prefill_32k", "prefill", 64, 2),
+                        "1x1", recipe="fsdp")
+    dp = plan.plan_one(cfg, ShapeSpec("prefill_32k", "prefill", 64, 2),
+                       "1x2", recipe="fsdp")
+    cp = plan.plan_one(cfg, ShapeSpec("prefill_32k", "prefill", 64, 1),
+                       "1x2", recipe="fsdp")
+    for rec in (one, dp, cp):
+        assert rec["flops_split"] == "placed"
+        assert rec["collective_model"] == "counted"
+        assert "cache" not in rec["bytes_per_device"]
+    assert one["collective_bytes_per_device"] == 0
+    assert set(dp["collective_by_kind"]) == {"all_gather"}
+    assert abs(dp["flops_per_device"] / one["flops_per_device"] - 0.5) < 0.01
+    assert cp["kernel_flops"]["flash_attention"] \
+        > dp["kernel_flops"]["flash_attention"] / 2
+    assert cp["binding"]["sp"] == ["model"]
+    for arch in ("mamba2-1.3b", "zamba2-7b"):
+        rec = plan.plan_one(smoke_config(arch),
+                            ShapeSpec("decode_32k", "decode", 32, 4), "1x2")
+        assert rec["flops_split"] == "placed", arch
+        assert rec["collective_by_kind"]["all_gather"] > 0, arch
+        assert rec["collective_by_kind"]["all_reduce"] > 0, arch
+    train = plan.plan_one(cfg, ShapeSpec("train_4k", "train", 16, 4), "1x2")
+    assert train["collective_model"] == "ring model"
+
+
 def test_kernel_flops_on_meta_are_analytic():
     """On the meta device the wrappers return their outputs' shapes and
     add the kernel's own FLOP count: causal flash counts the visible

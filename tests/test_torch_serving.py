@@ -334,7 +334,8 @@ for name in ("repro_torch.launch.train", "repro_torch.launch.steps",
              "repro_torch.distributed", "repro_torch.distributed.sharding",
              "repro_torch.distributed.compression",
              "repro_torch.distributed.pipeline",
-             "repro_torch.distributed.placement", "repro_torch.launch.plan"):
+             "repro_torch.distributed.placement", "repro_torch.launch.plan",
+             "repro_torch.launch.profile_placed"):
     assert name in sys.modules, name
 print(len(names), "modules")
 """

@@ -110,3 +110,32 @@ def test_decode_check(B, H, KVH, D, valid, B_card, drop):
                        v.double()).reshape(B, H, D).to(BF16)
     agree = cs.decode_agrees([got], want, cs.TOL[BF16])
     assert agree["ok"] != drop, agree
+
+
+def test_placed_check_rejects_a_conv_block_one_channel_off():
+    """`chip_smoke.cache_block_err`, the placed checks' cache gate (every
+    leaf within 1e-5 of `place` of the one-process cache): it passes each
+    rank's own blocks of a mamba2 decode cache on a (1, 2) mesh, and
+    rejects a rank whose conv window holds its contiguous block of
+    conv_dim one channel off (rank 0's one channel on, rank 1's one
+    back)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.distributed.sharding import MeshDesc
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    cfg = smoke_config("mamba2-1.3b")
+    plan = steps.plan_cell(cfg, ShapeSpec("d", "decode", 12, 4),
+                           MeshDesc(("data", "model"), (1, 2)))
+    g = torch.Generator().manual_seed(4)
+    want = [{k: torch.randn(t.shape, generator=g) for k, t in c.items()}
+            for c in transformer.init_cache(cfg, 4, 12, "cpu")]
+    for rank in range(2):
+        mine = steps.place_cache(plan, want, rank=rank)
+        err = cs.cache_block_err(plan, mine, want, rank)
+        assert set(err) == {"ssm", "conv"} and max(err.values()) == 0.0
+        cb = mine[0]["conv"].shape[2]
+        start = rank * cb + (1 if rank == 0 else -1)
+        off = [dict(c) for c in mine]
+        off[0]["conv"] = want[0]["conv"][:, :, start:start + cb].clone()
+        assert max(cs.cache_block_err(plan, off, want, rank).values()) > 1e-5
