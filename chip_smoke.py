@@ -110,8 +110,9 @@ nineteen phases, each printing one JSON line:
            2 steps a recipe, its losses the train phase's;
            `compressed_allreduce` on that group, the int8 payload against
            the numpy rule; two gloo ranks sharing the card (stablelm-3b
-           at 8 of 32 layers, one 4096-token row a rank) against one
-           process, and compression at world 2;
+           at 8 of 32 layers, one 4096-token row a rank, the placed
+           train cell of the "tp" recipe) against one process, and
+           compression at world 2;
   placed   two gloo ranks sharing the card on a (1, 2) mesh, each holding
            its blocks of the weights and caches (`plan_cell`,
            `serve.serve_placed`, `make_prefill_step(plan=)`): llama3-8b
@@ -128,7 +129,19 @@ nineteen phases, each printing one JSON line:
            logits and every cache block) of llama3-8b and mamba2-1.3b at
            4 layers and qwen3-moe at 2; each rank's weights against
            `local_bytes` and the memory its cells allocate, the flash,
-           ssd and decode launches of every placed run;
+           ssd and decode launches of every placed run; placed training
+           (`make_train_step(plan=)`): float32 checks of 2 steps at
+           batch 1 of 512 tokens against one process (both steps' loss
+           and gradient norm, every parameter and moment block through
+           16 float64 Gaussian projections of it): stablelm-3b at 4
+           layers under "fsdp" (context parallel) and "tp" (sp = tp),
+           mamba2-1.3b at 4 layers under "fsdp" (its residual replicated
+           over "model"), qwen3-moe at 1 layer under "ep"; a bf16 timing
+           of stablelm-3b at 8 layers, 2 steps of 2 x 4096 tokens under
+           "fsdp" (a row a rank, every weight gathered for its use): s a
+           step, tokens/s a rank, each step's collective bytes against
+           the planner's dry count, each rank's bytes against
+           `local_bytes` and its peak against the planner's;
   plan     the planner (`launch/plan.py`) under 1x1: each model above, its
            parameter bytes against memory_allocated after init_params,
            and its peak estimates beside peaks measured by earlier runs.
@@ -219,6 +232,15 @@ PLACED_DEADLINE, PLACED_LOGIT_SCALE = 900, 8.0
 # placed prefills: a 4096-token prompt at batch 1; mamba2 and zamba2
 # served 8 new tokens from the first 16 of the serve run's prompts
 PLACED_PREFILL, PLACED_SSM_PROMPT, PLACED_SSM_NEW = 4096, 16, 8
+# placed training: float32 checks of 2 steps at batch 1 of 512 tokens (two
+# mamba2 chunks; qwen3's 1-layer state fills 60 GB whatever the length)
+# against one process, each rank's blocks compared through 16 float64
+# Gaussian projections each (their difference's mean square estimates
+# the squared L2 norm of the blocks' difference, spread sqrt(2 / 16));
+# one bf16 timing: stablelm-3b at 8 of 32 layers, 2 steps of 2 x 4096
+PLACED_TRAIN_STEPS, PLACED_TRAIN_SEQ, PLACED_SKETCH = 2, 512, 16
+PLACED_TIMING_LAYERS, PLACED_TIMING_BATCH = 8, 2
+SKETCH_CHUNK = 1 << 21
 
 
 def emit(phase: str, **fields) -> None:
@@ -2417,19 +2439,24 @@ dist.init_process_group("gloo", init_method="tcp://localhost:" + sys.argv[3],
                         rank=rank, world_size=world,
                         timeout=datetime.timedelta(seconds=120))
 from repro_torch.configs import get_config
+from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.kernels import ops
+from repro_torch.launch import steps
 from repro_torch.launch import train as T
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.train import train
+from repro_torch.tree import tree_map
 dev = torch.device("cuda", 0)
-own, dp_mean = [], T.dp_mean
-def spy(group, n):                  # this rank's loss before the dp mean
-    reduce = dp_mean(group, n)
-    def spied(loss, grads):
-        own.append(float(loss))
-        return reduce(loss, grads)
+own, make = [], T.make_train_step
+def spy(*args, **kw):               # this rank's own loss of each step
+    step = make(*args, **kw)
+    def spied(*a):
+        out = step(*a)
+        own.append(float(out[2]["rank_loss"]))
+        return out
+    spied.placement = step.placement
     return spied
-T.dp_mean = spy
+T.make_train_step = spy
 cfg = cs.layers_cut(get_config("stablelm-3b"), cs.MD_RANK_LAYERS)
 mesh = make_mesh((world, 1), ("data", "model"))
 ops.reset_launches()
@@ -2440,6 +2467,11 @@ del opt
 res = dict(losses=hist["loss"], own_losses=own, step_s=hist["step_s"],
            flash_launches=ops.LAUNCHES["flash_attention"],
            max_memory_allocated=torch.cuda.max_memory_allocated(dev))
+# the whole trained weights (each rank holds its blocks of them)
+plan = steps.plan_cell(cfg, ShapeSpec("train", "train", cs.TRAIN_SEQ,
+                                      world), mesh, "tp")
+params = tree_map(steps.placement_of(plan).gather_whole, params,
+                  plan.param_specs)
 grads = cs.rank_grads(cfg, params, dev, rank, world)
 res["compress"] = cs.compress_check(grads, cs.checked_names(), rank,
                                     world)
@@ -2452,11 +2484,12 @@ def gloo_ranks_run(dev, world: int = 2) -> dict:
     """`world` gloo ranks sharing the card (NCCL takes one rank a device),
     each a subprocess under one deadline: stablelm-3b cut to
     MD_RANK_LAYERS layers, global batch `world` x TRAIN_SEQ (a row a
-    rank) for MD_TRAIN_STEPS steps, against one process's run of the
-    same cut (the dp mean of the loss) and against one process's loss on
-    each rank's own row (each rank's loss before the reduce), at the
-    weights of each step; then `compressed_allreduce` over gloo on the
-    card."""
+    rank) for MD_TRAIN_STEPS steps of the placed train cell (the "tp"
+    recipe on a (world, 1) mesh: the weights' d_model cut over "data"),
+    against one process's run of the same cut (the global loss) and
+    against one process's loss on each rank's own row (the rank's share
+    of the loss rescaled to its tokens, `rank_loss`), at the weights of
+    each step; then `compressed_allreduce` over gloo on the card."""
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import TrainOptions
     from repro_torch.launch.train import train
@@ -2622,6 +2655,7 @@ def placed_cfgs() -> dict:
     from repro_torch.configs import get_config
     llama, mamba = get_config("llama3-8b"), get_config("mamba2-1.3b")
     zamba, qwen = get_config(ZAMBA_ARCH), get_config(MOE_ARCH)
+    stable = get_config("stablelm-3b")
 
     def f32(cfg):
         return dataclasses.replace(cfg, dtype="float32")
@@ -2630,7 +2664,11 @@ def placed_cfgs() -> dict:
             "llama3_f32": f32(layers_cut(llama, PLACED_CHECK_LAYERS)),
             "mamba2_f32": f32(layers_cut(mamba, PLACED_CHECK_LAYERS)),
             "zamba2_f32": f32(zamba2_short(zamba)),
-            "qwen3_f32": f32(layers_cut(qwen, PLACED_MOE_LAYERS))}
+            "qwen3_f32": f32(layers_cut(qwen, PLACED_MOE_LAYERS)),
+            # placed training
+            "stablelm_f32": f32(layers_cut(stable, PLACED_CHECK_LAYERS)),
+            "qwen3_train_f32": f32(layers_cut(qwen, 1)),
+            "stablelm_timing": layers_cut(stable, PLACED_TIMING_LAYERS)}
 
 
 # float32 checks: decode (PLACED_CHECK_STEPS steps of BATCH rows) and
@@ -2640,6 +2678,23 @@ PLACED_DECODE_CHECKS = ("llama3_f32", "qwen3_f32", "mamba2_f32",
 PLACED_PREFILL_CHECKS = {"llama3_f32": "fsdp", "mamba2_f32": "fsdp",
                          "qwen3_f32": "ep"}
 PLACED_PREFILLS = {"llama3": "fsdp", "mamba2": "fsdp", "qwen3": "ep"}
+# float32 train checks: name -> (model, recipe), batch 1 on (1, 2):
+# context parallel, the sequence-sharded residual of sp = tp, the SSM's
+# residual replicated over "model", expert parallelism
+PLACED_TRAIN_CHECKS = {"stablelm_fsdp": ("stablelm_f32", "fsdp"),
+                       "stablelm_tp": ("stablelm_f32", "tp"),
+                       "mamba2_fsdp": ("mamba2_f32", "fsdp"),
+                       "qwen3_ep": ("qwen3_train_f32", "ep")}
+# each block's estimated error against its tree: 1e-5, but mamba2's.  Its
+# gradients come back through the scan, whose decays magnify a rounding
+# of its input by 1e2-1e5 (PR 23); placed, each rank sums its heads'
+# share of the residual's gradient apart from the other's, so two
+# placements, or one process and a placement, round the gradient of the
+# embedding (most of the tree) 1e-5 apart at full width whatever the
+# order (measured on an H100: 8.5e-6 in m and 2.3e-5 in v after one step
+# from the same weights, where the loss and gradient norm agree within
+# 1.8e-6)
+PLACED_TRAIN_TOL = {"mamba2_fsdp": 1e-4}
 
 
 def placed_check_tokens(vocab: int) -> np.ndarray:
@@ -2800,6 +2855,249 @@ def placed_prefill(name: str, cfg, recipe: str, world: int, dev,
     return out
 
 
+def train_topts():
+    """The placed train checks' options: the reference's defaults, whose
+    warmup takes the first steps at 1/100 and 2/100 of the peak
+    learning rate.  AdamW moves each weight by up to the learning rate
+    whatever its gradient, so an element whose gradient is a nearly
+    cancelling sum moves by a rounding-sized accident; at the peak rate
+    (3e-4 at the first step, a 1.5 % change of a weight of d ** -0.5 at
+    full width) the second step's gradients of two runs drift apart by
+    1e-4 of their tree on one card (mamba2-1.3b), at 3e-6 they stay
+    within its rounding."""
+    from repro_torch.launch.steps import TrainOptions
+    return TrainOptions()
+
+
+def train_batch(vocab: int, rows: int, seq: int, dev) -> dict:
+    tok = np.random.default_rng(9).integers(0, vocab, (rows, seq + 1))
+    tok = torch.from_numpy(tok.astype(np.int32)).to(dev)
+    return {"tokens": tok[:, :-1].contiguous(),
+            "labels": tok[:, 1:].contiguous()}
+
+
+def train_plan(cfg, recipe: str, rows: int, seq: int, world: int):
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.distributed.sharding import MeshDesc
+    from repro_torch.launch import steps
+    return steps.plan_cell(cfg, ShapeSpec("train_4k", "train", seq, rows),
+                           MeshDesc(("data", "model"), (1, world)), recipe)
+
+
+def sketch(t, seed: int) -> tuple[float, torch.Tensor]:
+    """(the L2 norm of `t`, PLACED_SKETCH Gaussian projections of it), in
+    float64, the projections drawn on the card from `seed` a slice at a
+    time: the same numbers for the same block in any process, so that
+    two blocks' sketches differ by the sketch of their difference."""
+    x = t.detach().reshape(-1)
+    g = torch.Generator(device=x.device)
+    g.manual_seed(seed)
+    out = torch.zeros(PLACED_SKETCH, dtype=torch.float64, device=x.device)
+    sq = torch.zeros((), dtype=torch.float64, device=x.device)
+    for i in range(0, x.numel(), SKETCH_CHUNK):
+        c = x[i:i + SKETCH_CHUNK].double()
+        out += torch.randn(PLACED_SKETCH, c.numel(), generator=g,
+                           dtype=torch.float64, device=x.device) @ c
+        sq += c.square().sum()
+    return float(sq.sqrt()), out.cpu()
+
+
+TRAIN_KINDS = ("params", "m", "v")
+
+
+def state_sketches(params, opt) -> dict:
+    """{kind: {leaf: sketch}} of a placed state (or of one rank's views of
+    a whole one), seeded by kind and leaf."""
+    from repro_torch.tree import named_leaves
+    trees = {"params": params, "m": opt["m"], "v": opt["v"]}
+    return {kind: {name: sketch(t, 1_000_003 * k + i) for i, (name, t) in
+                   enumerate(named_leaves(trees[kind]))}
+            for k, kind in enumerate(TRAIN_KINDS)}
+
+
+def sketch_errs(got: dict, want: dict) -> dict:
+    """Per kind, the worst leaf's estimated L2 norm of the blocks'
+    difference (the root mean square of the sketches' difference)
+    relative to the L2 norm of this rank's blocks of the wanted tree, and
+    relative to the wanted block's own."""
+    out = {}
+    for kind in TRAIN_KINDS:
+        tree = math.sqrt(sum(n ** 2 for n, _ in want[kind].values()))
+        est = {name: float((got[kind][name][1] - w).square().mean().sqrt())
+               for name, (_, w) in want[kind].items()}
+        worst = max(est, key=est.get)
+        own = max(est, key=lambda n: est[n] / max(want[kind][n][0], 1e-30))
+        out[kind] = dict(leaf=worst, rel_tree=est[worst] / tree, own_leaf=own,
+                         rel_own=est[own] / max(want[kind][own][0], 1e-30))
+    return out
+
+
+def placed_train_one_process(dev, work: Path) -> None:
+    """The float32 train checks on one process, before the ranks start:
+    PLACED_TRAIN_STEPS steps of each model from the seeded weights; each
+    step's loss and gradient norm, and for each check and rank the
+    sketches of that rank's blocks of the parameters and moments after
+    each step (`train_<check>_<rank>.pt`)."""
+    from repro_torch.distributed.placement import local_shard, spec_leaves
+    from repro_torch.launch import steps
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_map_with_path
+
+    cfgs = placed_cfgs()
+    topts = train_topts()
+    for model in dict.fromkeys(m for m, _ in PLACED_TRAIN_CHECKS.values()):
+        cfg = cfgs[model]
+        g = torch.Generator(device=dev)
+        g.manual_seed(0)
+        params = init_params(cfg, g, dev)
+        opt = adamw_init(params, topts.opt)
+        step = steps.make_train_step(cfg, topts)
+        batch = train_batch(cfg.vocab, 1, PLACED_TRAIN_SEQ, dev)
+        checks = {name: train_plan(cfg, recipe, 1, PLACED_TRAIN_SEQ,
+                                   PLACED_WORLD)
+                  for name, (m_, recipe) in PLACED_TRAIN_CHECKS.items()
+                  if m_ == model}
+        torch.cuda.reset_peak_memory_stats(dev)
+        losses, norms = [], []
+        sketches = {(name, r): [] for name in checks
+                    for r in range(PLACED_WORLD)}
+        for i in range(PLACED_TRAIN_STEPS):
+            params, opt, m = step(params, opt, i, batch)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            for name, plan in checks.items():
+                mesh = plan.binding["mesh"]
+                specs = dict(spec_leaves(plan.param_specs))
+                for r in range(PLACED_WORLD):
+                    at = {"data": 0, "model": r}
+
+                    def view(tree):
+                        return tree_map_with_path(lambda n, t: local_shard(
+                            t, specs[n], mesh, at), tree)
+                    sketches[(name, r)].append(state_sketches(
+                        view(params), {"m": view(opt["m"]),
+                                       "v": view(opt["v"])}))
+        peak = torch.cuda.max_memory_allocated(dev)
+        for (name, r), sk in sketches.items():
+            torch.save(dict(losses=losses, norms=norms, peak=peak,
+                            sketches=sk), work / f"train_{name}_{r}.pt")
+        del params, opt, step, batch, sketches
+        torch.cuda.empty_cache()
+
+
+def placed_train_check(name: str, model: str, recipe: str, work: Path,
+                       world: int, dev) -> dict:
+    """One float32 train check on this rank: its blocks of the seeded
+    weights and zero moments, PLACED_TRAIN_STEPS placed steps at batch 1
+    of PLACED_TRAIN_SEQ tokens, each step's loss and gradient norm and
+    the final blocks' sketches against one process's; the bytes it holds
+    against `local_bytes`, and the flash and ssd launches."""
+    import torch.distributed as dist
+    from repro_torch.distributed.placement import local_bytes
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.optim import adamw_init
+
+    cfg = placed_cfgs()[model]
+    topts = train_topts()
+    plan = train_plan(cfg, recipe, 1, PLACED_TRAIN_SEQ, world)
+    base = torch.cuda.memory_allocated(dev)
+    params = placed_params(plan, cfg, world, dev)
+    opt = adamw_init(params, topts.opt)
+    resident = nbytes(params) + nbytes([opt["m"], opt["v"]])
+    torch.cuda.reset_peak_memory_stats(dev)
+    step = steps.make_train_step(cfg, topts, plan)
+    batch = steps.local_batch(plan, train_batch(cfg.vocab, 1,
+                                                PLACED_TRAIN_SEQ, dev))
+    want = torch.load(work / f"train_{name}_{dist.get_rank()}.pt")
+    ops.reset_launches()
+    losses, norms, errs = [], [], []
+    for i in range(PLACED_TRAIN_STEPS):
+        params, opt, m = step(params, opt, i, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        with torch.no_grad():       # not counted: the kernels ran above
+            launches = dict(ops.LAUNCHES)
+            errs.append(sketch_errs(state_sketches(params, opt),
+                                    want["sketches"][i]))
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    out = dict(
+        model=cfg.name, layers=cfg.n_layers, recipe=recipe,
+        seq_entry=plan.seq_entry, batch_entry=plan.batch_entry,
+        tp=list(plan.binding["tp"]), tokens=PLACED_TRAIN_SEQ,
+        losses=losses, norms=norms, one_process_losses=want["losses"],
+        one_process_norms=want["norms"],
+        loss_rel_err=max(abs(a - b) / abs(b) for a, b in
+                         zip(losses + norms, want["losses"] + want["norms"])),
+        block_errs=errs, resident_bytes=resident,
+        local_bytes=3 * local_bytes(param_shapes(cfg), plan.param_specs,
+                                    plan.binding["mesh"]),
+        peak_bytes=peak, one_process_peak=want["peak"],
+        flash_launches=launches["flash_attention"],
+        ssd_launches=launches["ssd_scan"],
+        traffic=dict(step.placement.traffic))
+    del params, opt, step, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def placed_train_timing(world: int, dev) -> dict:
+    """The bf16 timing on this rank: stablelm-3b at PLACED_TIMING_LAYERS
+    layers under "fsdp" (the dry run's recipe; PLACED_TIMING_BATCH rows
+    of TRAIN_SEQ tokens, a row a rank, every weight cut over both axes
+    and gathered for its use), PLACED_TRAIN_STEPS steps, each timed
+    between barriers and its collectives' bytes counted."""
+    import torch.distributed as dist
+    from repro_torch.distributed.placement import local_bytes
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.optim import adamw_init
+
+    cfg = placed_cfgs()["stablelm_timing"]
+    topts = steps.TrainOptions()
+    plan = train_plan(cfg, "fsdp", PLACED_TIMING_BATCH, TRAIN_SEQ, world)
+    base = torch.cuda.memory_allocated(dev)
+    params = placed_params(plan, cfg, world, dev)
+    opt = adamw_init(params, topts.opt)
+    resident = nbytes(params) + nbytes([opt["m"], opt["v"]])
+    torch.cuda.reset_peak_memory_stats(dev)
+    step = steps.make_train_step(cfg, topts, plan)
+    batch = steps.local_batch(plan, train_batch(
+        cfg.vocab, PLACED_TIMING_BATCH, TRAIN_SEQ, dev))
+    plc = step.placement
+    ops.reset_launches()
+    step_s, traffic, losses = [], [], []
+    for i in range(PLACED_TRAIN_STEPS):
+        before = dict(plc.traffic)
+        dist.barrier()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, i, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize(dev)
+        step_s.append(time.perf_counter() - t0)
+        traffic.append({k: v - before.get(k, 0)
+                        for k, v in plc.traffic.items()})
+    p_bytes = local_bytes(param_shapes(cfg), plan.param_specs,
+                          plan.binding["mesh"])
+    out = dict(model=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype,
+               recipe="fsdp", rows=batch["tokens"].shape[0], seq=TRAIN_SEQ,
+               batch_entry=plan.batch_entry, losses=losses, step_s=step_s,
+               tokens_per_s=[batch["tokens"].numel() / t for t in step_s],
+               traffic=traffic, resident_bytes=resident,
+               local_bytes=p_bytes + 2 * p_bytes * 4
+               // torch.empty(0, dtype=getattr(torch, cfg.dtype))
+               .element_size(),
+               peak_bytes=torch.cuda.max_memory_allocated(dev) - base,
+               flash_launches=ops.LAUNCHES["flash_attention"])
+    del params, opt, step, batch
+    torch.cuda.empty_cache()
+    return out
+
+
 def placed_rank(work: str, world: int) -> dict:
     """One gloo rank of the `placed` phase on cuda:0 (a (1, world) mesh):
     the float32 decode and prefill checks, llama3-8b in bf16 through
@@ -2845,6 +3143,10 @@ def placed_rank(work: str, world: int) -> dict:
     for name, recipe in PLACED_PREFILLS.items():
         out[f"{name}_prefill"] = placed_prefill(name, cfgs[name], recipe,
                                                 world, dev)
+    out["train_timing"] = placed_train_timing(world, dev)
+    for name, (model, recipe) in PLACED_TRAIN_CHECKS.items():
+        out[f"train_{name}"] = placed_train_check(name, model, recipe, work,
+                                                  world, dev)
     return out
 
 
@@ -2890,6 +3192,7 @@ def placed_one_process(dev, work: Path, engine_tokens: dict) -> None:
         torch.save((logits.cpu(), host(cache)), work / f"{name}_prefill.pt")
         del params, cache, logits
         torch.cuda.empty_cache()
+    placed_train_one_process(dev, work)
     rng = np.random.default_rng(0)                 # as `serve_run` draws
     prompts = [[int(t) for t in rng.integers(0, cfgs["llama3"].vocab,
                                              PROMPT)]
@@ -2943,6 +3246,7 @@ def placed_phase(dev, power: str, engine_tokens: dict) -> dict:
     from repro_torch.configs.shapes import ShapeSpec
     from repro_torch.distributed.placement import spec_leaves
     from repro_torch.distributed.sharding import MeshDesc
+    from repro_torch.launch import plan as planner
     from repro_torch.launch import steps
     from repro_torch.models.transformer import layer_blocks, param_shapes
     from repro_torch.tree import named_leaves
@@ -3006,10 +3310,30 @@ def placed_phase(dev, power: str, engine_tokens: dict) -> dict:
               for name in PLACED_DECODE_CHECKS}
     prefill_checks = {name: [rk[f"{name}_prefill"] for rk in ranks]
                       for name in PLACED_PREFILL_CHECKS}
+    train_checks = {name: [rk[f"train_{name}"] for rk in ranks]
+                    for name in PLACED_TRAIN_CHECKS}
+    timing = [rk["train_timing"] for rk in ranks]
+    planned = planner.plan_one(
+        cfgs["stablelm_timing"], ShapeSpec("train_4k", "train", TRAIN_SEQ,
+                                           PLACED_TIMING_BATCH),
+        f"1x{PLACED_WORLD}", recipe="fsdp", arch="stablelm-3b")
+    train_timing = dict(
+        ranks=timing, planned_collective=planned["collective_by_kind"],
+        planned_bytes=planned["bytes_per_device"],
+        gathered_bytes=[[t.get("all_gather", 0) for t in r["traffic"]]
+                        for r in timing],
+        planned_gathered_bytes=planned["collective_by_kind"].get(
+            "all_gather", 0),
+        step_s=[r["step_s"] for r in timing],
+        tokens_per_s_a_rank=[r["tokens_per_s"] for r in timing],
+        peak_over_planned=[r["peak_bytes"] / planned["bytes_per_device"][
+            "peak"] for r in timing])
     emit("placed", name=torch.cuda.get_device_name(dev), power_limit=power,
          world=PLACED_WORLD, mesh=[1, PLACED_WORLD], serve=serve,
          ssm_serve=ssm_serve, prefills=prefills, float32_checks=checks,
-         float32_prefill_checks=prefill_checks, ranks_s=ranks_s,
+         float32_prefill_checks=prefill_checks,
+         float32_train_checks=train_checks, train_timing=train_timing,
+         ranks_s=ranks_s,
          phase_s=time.perf_counter() - t0,
          timing_note="gloo ranks sharing one card: every collective is "
                      "staged through the host; the times are no speed")
@@ -3066,6 +3390,42 @@ def placed_phase(dev, power: str, engine_tokens: dict) -> dict:
                 for r in prefills["llama3"]) and all(
                 r["seq_entry"] is None and r["tp"] == ["model"]
                 for r in prefills["mamba2"]),
+        "float32 train checks within 1e-5 of one process on every rank: "
+        "loss and gradient norm of both steps, every parameter and moment "
+        "block after each step (estimated from its sketches, against its "
+        "tree; mamba2's 1e-4, PLACED_TRAIN_TOL)": all(
+            r["loss_rel_err"] <= 1e-5
+            and all(e["rel_tree"] <= PLACED_TRAIN_TOL.get(name, 1e-5)
+                    for step in r["block_errs"] for e in step.values())
+            for name, c in train_checks.items() for r in c),
+        "placed train: every rank holds local_bytes of parameters and "
+        "moments": all(r["resident_bytes"] == r["local_bytes"]
+                       for c in list(train_checks.values()) + [timing]
+                       for r in c),
+        "placed train: flash once per attention layer, ssd once per mamba2 "
+        "layer, in the forward and the recompute of each step": all(
+            r["flash_launches"] == 2 * PLACED_TRAIN_STEPS * sum(
+                b.kind != "mamba2" for b in layer_blocks(
+                    cfgs[PLACED_TRAIN_CHECKS[name][0]]))
+            and r["ssd_launches"] == 2 * PLACED_TRAIN_STEPS * sum(
+                b.kind == "mamba2" for b in layer_blocks(
+                    cfgs[PLACED_TRAIN_CHECKS[name][0]]))
+            for name, c in train_checks.items() for r in c) and all(
+            r["flash_launches"] == 2 * PLACED_TRAIN_STEPS
+            * PLACED_TIMING_LAYERS for r in timing),
+        "placed train bf16 timing: finite losses, each step's collective "
+        "bytes the planner's dry count": all(
+            all(math.isfinite(x) for x in r["losses"])
+            and all(t == planned["collective_by_kind"] for t in r["traffic"])
+            for r in timing),
+        "placed train: context parallel, sp = tp, the SSM's replicated "
+        "residual and expert parallelism among the checks": all(
+            r["seq_entry"] == "model" and r["tp"] == []
+            for r in train_checks["stablelm_fsdp"]) and all(
+            r["seq_entry"] == "model" and r["tp"] == ["model"]
+            for r in train_checks["stablelm_tp"]) and all(
+            r["seq_entry"] is None and r["tp"] == ["model"]
+            for r in train_checks["mamba2_fsdp"]),
         # bf16 with random weights: near-flat logits, so a tie within bf16
         # rounding can go either way; forced on the engine's tokens, the
         # placed argmax may differ from the engine's only at such a tie

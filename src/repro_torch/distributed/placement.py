@@ -1,7 +1,7 @@
-"""Placement of parameters and caches across the ranks of a mesh, and the
-collectives of the placed decode and prefill paths (the port's
-counterpart of what `jax.device_put` with a `NamedSharding` and the SPMD
-partitioner do in the reference's `plan_cell`,
+"""Placement of parameters, moments and caches across the ranks of a
+mesh, and the collectives of the placed decode, prefill and train paths
+(the port's counterpart of what `jax.device_put` with a `NamedSharding`
+and the SPMD partitioner do in the reference's `plan_cell`,
 `repro/launch/steps.py:144-207`).
 
 A spec is a `sharding.P`: one entry per dim, None (replicated), a mesh
@@ -28,6 +28,16 @@ index = i_0 * n_1 + i_1 for axes (a_0, a_1).
     collectives return the shapes the real ones would, and both kinds
     count the bytes each would send (`traffic`), for the planner
     (`launch/plan.py`).
+  * Under autograd the collectives differentiate (`_AllGather`,
+    `_AllReduce`, `_ReduceScatter`, which `take`, `gather_axis` and
+    `all_gather_many` reach).  One rule covers every placed path: the
+    global loss is the sum over ranks of the ranks' losses, so each
+    collective's backward is its transpose under that sum (all-gather
+    and reduce-scatter swap, all-reduce is its own), run on the same
+    group and counted in `traffic` as the forward's; a `block` is a
+    local narrow.  A parameter's gradient is then its local gradient
+    summed over the ranks that hold the same block (`reduce_grads`), and
+    the clip norm counts each block once (`grad_norm`).
 """
 from __future__ import annotations
 
@@ -180,7 +190,7 @@ class LayerPlace:
     cache's specs."""
     plc: "Placement"
     spec: dict
-    cache: dict
+    cache: dict | None          # None: a train step (no cache)
 
     @property
     def seq(self):
@@ -232,7 +242,8 @@ class Placement:
         spec = self.param_specs["layers"][i]
         if spec is None:                # a shared_attn occurrence
             spec = self.param_specs["shared"]
-        return LayerPlace(self, spec, self.cache_specs[i])
+        return LayerPlace(self, spec, None if self.cache_specs is None
+                          else self.cache_specs[i])
 
     def split(self, entry):
         """`entry` as the axes a computation splits heads (or ff, or
@@ -260,13 +271,40 @@ class Placement:
                              f"{key}")
         return self._groups[key].group
 
-    # ---- collectives (each a no-op over one rank) ----
+    # ---- collectives (each a no-op over one rank; under autograd each
+    # differentiates, its backward the transpose on the same group) ----
     def all_gather(self, x, entry, dim: int):
         """The blocks of `x` of every rank along `entry`'s axes,
         concatenated along `dim` in shard order."""
-        n = self.count(entry)
-        if n == 1:
+        if self.count(entry) == 1:
             return x
+        if _grad(x):
+            return _AllGather.apply(x, self, entry, dim)
+        return self._all_gather(x, entry, dim)
+
+    def all_reduce(self, x, entry):
+        """The sum of `x` over `entry`'s axes, added in float32 and
+        returned in `x`'s dtype (a new tensor)."""
+        if self.count(entry) == 1:
+            return x
+        if _grad(x):
+            return _AllReduce.apply(x, self, entry)
+        return self._all_reduce(x, entry)
+
+    def reduce_scatter(self, x, entry, dim: int):
+        """The sum of `x` over `entry`'s axes, of which this rank keeps
+        its block along `dim` (`block`), added in float32 and returned in
+        `x`'s dtype.  NCCL reduce-scatters; gloo, which has no
+        reduce-scatter, all-reduces and cuts (the bytes counted are a
+        reduce-scatter's either way)."""
+        if self.count(entry) == 1:
+            return x
+        if _grad(x):
+            return _ReduceScatter.apply(x, self, entry, dim)
+        return self._reduce_scatter(x, entry, dim)
+
+    def _all_gather(self, x, entry, dim: int):
+        n = self.count(entry)
         self.traffic["all_gather"] += (n - 1) * x.numel() * x.element_size()
         if self.dry:
             return torch.cat([x] * n, dim)
@@ -274,6 +312,36 @@ class Placement:
         parts = [torch.empty_like(x) for _ in range(n)]
         dist.all_gather(parts, x, group=self._group(entry, True))
         return torch.cat(parts, dim)
+
+    def _all_reduce(self, x, entry):
+        n = self.count(entry)
+        y = x.to(F32).contiguous()
+        self.traffic["all_reduce"] += \
+            2 * (n - 1) * y.numel() * y.element_size() // n
+        if self.dry:
+            return x
+        if y.data_ptr() == x.data_ptr():
+            y = y.clone()
+        dist.all_reduce(y, group=self._group(entry, False))
+        return y.to(x.dtype)
+
+    def _reduce_scatter(self, x, entry, dim: int):
+        n = self.count(entry)
+        y = x.to(F32).movedim(dim, 0).contiguous()
+        self.traffic["reduce_scatter"] += \
+            (n - 1) * y.numel() * y.element_size() // n
+        if self.dry:
+            return self.block(x, entry, dim)
+        group = self._group(entry, True)
+        if dist.get_backend(group) == "nccl":
+            out = y.new_empty((y.shape[0] // n, *y.shape[1:]))
+            dist.reduce_scatter_tensor(out, y, group=group)
+        else:
+            if y.data_ptr() == x.data_ptr():
+                y = y.clone()
+            dist.all_reduce(y, group=group)
+            out = self.block(y, entry, 0).clone()     # frees the rest
+        return out.movedim(0, dim).to(x.dtype)
 
     def all_gather_many(self, xs, entry, dim) -> list:
         """`all_gather` of each of `xs` (one dtype) along `dim` (an int,
@@ -292,47 +360,6 @@ class Placement:
             out.append(part.reshape(*x.shape[:d], n * x.shape[d],
                                     *x.shape[d + 1:]))
         return out
-
-    def all_reduce(self, x, entry):
-        """The sum of `x` over `entry`'s axes, added in float32 and
-        returned in `x`'s dtype (a new tensor)."""
-        n = self.count(entry)
-        if n == 1:
-            return x
-        y = x.to(F32).contiguous()
-        self.traffic["all_reduce"] += \
-            2 * (n - 1) * y.numel() * y.element_size() // n
-        if self.dry:
-            return x
-        if y.data_ptr() == x.data_ptr():
-            y = y.clone()
-        dist.all_reduce(y, group=self._group(entry, False))
-        return y.to(x.dtype)
-
-    def reduce_scatter(self, x, entry, dim: int):
-        """The sum of `x` over `entry`'s axes, of which this rank keeps
-        its block along `dim` (`block`), added in float32 and returned in
-        `x`'s dtype.  NCCL reduce-scatters; gloo, which has no
-        reduce-scatter, all-reduces and cuts (the bytes counted are a
-        reduce-scatter's either way)."""
-        n = self.count(entry)
-        if n == 1:
-            return x
-        y = x.to(F32).movedim(dim, 0).contiguous()
-        self.traffic["reduce_scatter"] += \
-            (n - 1) * y.numel() * y.element_size() // n
-        if self.dry:
-            return self.block(x, entry, dim)
-        group = self._group(entry, True)
-        if dist.get_backend(group) == "nccl":
-            out = y.new_empty((y.shape[0] // n, *y.shape[1:]))
-            dist.reduce_scatter_tensor(out, y, group=group)
-        else:
-            if y.data_ptr() == x.data_ptr():
-                y = y.clone()
-            dist.all_reduce(y, group=group)
-            out = self.block(y, entry, 0)
-        return out.movedim(0, dim).to(x.dtype)
 
     def take(self, w, spec, want):
         """The block of weight `w` (this rank's block under `spec`) that
@@ -353,6 +380,52 @@ class Placement:
         dims of a weight before its use."""
         return self.take(w, spec, tuple(None if e == axis else e
                                         for e in tuple(spec)))
+
+    # ---- a placed train step's gradients and leaves ----
+    def replicated(self, spec):
+        """The entry of the mesh axes (of more than one device) that
+        `spec` leaves a tensor replicated over, in the mesh's order, or
+        None."""
+        used = {a for e in tuple(spec) for a in axes_of(e)}
+        axes = tuple(a for a in AXES
+                     if a not in used and self.desc.shape[a] > 1)
+        return None if not axes else axes[0] if len(axes) == 1 else axes
+
+    def reduce_grads(self, grads: list, specs: list) -> list:
+        """Each leaf's local gradient summed over the ranks that hold the
+        same block of it (the axes its spec leaves it replicated on), in
+        float32: one all-reduce for all the leaves of one such entry.
+        A leaf held by one rank keeps its gradient as it is."""
+        out = list(grads)
+        by_entry: dict = {}
+        for i, spec in enumerate(specs):
+            entry = self.replicated(spec)
+            if entry is not None:
+                by_entry.setdefault(entry, []).append(i)
+        for entry, idx in by_entry.items():
+            flat = self.all_reduce(torch.cat(
+                [grads[i].reshape(-1).to(F32) for i in idx]), entry)
+            at = 0
+            for i in idx:
+                n = grads[i].numel()
+                out[i] = flat[at:at + n].view(grads[i].shape)
+                at += n
+        return out
+
+    def grad_norm(self, grads: list, specs: list):
+        """The global L2 norm of gradients placed by `specs` (each summed
+        over its replicas, `reduce_grads`): each leaf's float32 sum of
+        squares counted on the first rank of its replicas only, summed
+        over the leaves in tree order and all-reduced over the mesh."""
+        sq = sum(g.to(F32).square().sum() if self.index(self.replicated(s))
+                 == 0 else torch.zeros((), dtype=F32, device=g.device)
+                 for g, s in zip(grads, specs))
+        return torch.sqrt(self.all_reduce(sq, AXES))
+
+    def gather_whole(self, t, spec):
+        """Leaf `t` (this rank's block under `spec`) whole on every
+        rank."""
+        return self.take(t, spec, (None,) * t.dim())
 
     # ---- the placed decode path's own collectives ----
     def embed(self, table, tokens, spec):
@@ -421,3 +494,59 @@ class Placement:
         merged = merge_partials([(p[..., :-1], torch.ones_like(p[..., -1]),
                                   p[..., -1]) for p in parts])
         return merged.to(out.dtype)
+
+
+def _grad(x) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _fresh(out, x):
+    """`out`, or a copy where a dry collective handed back `x` or a view
+    of it (a custom Function's output may not alias its input)."""
+    if out is x or out._base is x or (x._base is not None
+                                      and out._base is x._base):
+        return out.clone()
+    return out
+
+
+class _AllGather(torch.autograd.Function):
+    """`Placement.all_gather`; backward: the gradient reduce-scattered
+    over the same axes, each rank keeping its block's sum."""
+
+    @staticmethod
+    def forward(ctx, x, plc, entry, dim):
+        ctx.args = (plc, entry, dim)
+        return plc._all_gather(x, entry, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        plc, entry, dim = ctx.args
+        return plc._reduce_scatter(g, entry, dim), None, None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    """`Placement.all_reduce`; backward: the gradient all-reduced."""
+
+    @staticmethod
+    def forward(ctx, x, plc, entry):
+        ctx.args = (plc, entry)
+        return _fresh(plc._all_reduce(x, entry), x)
+
+    @staticmethod
+    def backward(ctx, g):
+        plc, entry = ctx.args
+        return _fresh(plc._all_reduce(g, entry), g), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """`Placement.reduce_scatter`; backward: the gradient all-gathered."""
+
+    @staticmethod
+    def forward(ctx, x, plc, entry, dim):
+        ctx.args = (plc, entry, dim)
+        return _fresh(plc._reduce_scatter(x, entry, dim), x)
+
+    @staticmethod
+    def backward(ctx, g):
+        plc, entry, dim = ctx.args
+        return plc._all_gather(g, entry, dim), None, None, None

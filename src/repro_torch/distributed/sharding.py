@@ -20,16 +20,16 @@ group.  `P` is the port's PartitionSpec: a tuple, so a spec compares
 equal to the reference's as ``tuple(ref) == tuple(port)``.
 
 Placement is explicit, not by constraint: `shard` checks its dims and
-returns its input.  A placed decode cell (`launch/steps.py:plan_cell`)
-gives each rank its blocks of the weights, the KV cache and the batch
-(`distributed/placement.py`), and the placed decode path splits its
-activations itself: a rank's batch rows over dp, its q/k/v heads, the
-MLP's ff slice and its experts over tp, the KV sequence over `seq`, and
-the logits' vocab over tp, with the gathers and all-reduces between
-(`models/attention.py:_attn_decode_placed`, `models/moe.py:
-moe_ffn_placed`, `models/transformer.py:_decode_step_placed`).  Train
-and prefill place nothing yet: the train launcher runs data parallelism
-over the dp ranks with replicated weights (`launch/train.py`).
+returns its input.  A placed cell (`launch/steps.py:plan_cell`) gives
+each rank its blocks of the weights (a train cell's AdamW moments too),
+the KV cache and the batch (`distributed/placement.py`), and the placed
+decode, prefill and train paths split their activations themselves: a
+rank's batch rows over dp, its q/k/v heads, the MLP's ff slice and its
+experts over tp, a prefill's or train step's residual sequence over sp,
+the KV sequence over `seq`, the logits' vocab over tp, with the gathers,
+all-reduces and reduce-scatters between (`models/attention.py`,
+`models/moe.py`, `models/mamba2.py`, `models/transformer.py`); a train
+step differentiates through them.
 """
 from __future__ import annotations
 

@@ -12,11 +12,11 @@ one H100 a rank:
 
   * bytes of parameters, gradients and AdamW moments (train) and of the
     KV cache (decode), each `placement.local_bytes` over the cell's
-    specs (`steps.cell_param_specs`, `cache_specs`), the reference's
-    recipe (`DEFAULT_RECIPE`) and moment dtype (`MOMENT_DTYPE`); the
-    transient bytes of the step, counted on the meta device by following
-    every tensor the step makes until it is freed; and their sum, the
-    peak estimate, against 80 GB (`fits`);
+    specs (`steps.plan_cell`), the reference's recipe (`DEFAULT_RECIPE`)
+    and moment dtype (`MOMENT_DTYPE`); the transient bytes of the step,
+    counted on the meta device by following every tensor the step makes
+    until it is freed (a train step's gradients among them); and the
+    peak estimate, resident plus transient, against 80 GB (`fits`);
   * the step's FLOPs, counted on the meta device with
     `torch.utils.flop_counter.FlopCounterMode`, to which the kernels add
     their analytic counts (`kernels._build.META_FLOPS`: the decode kernel
@@ -24,32 +24,28 @@ one H100 a rank:
     pairs its masks let through, the ssd scan's chunk products), where a
     plain causal core on meta would count all S^2 pairs; beside them the
     reference's `model_flops` (6 N D for train, 2 N D otherwise);
-  * the collective bytes the placement implies per device: counted from
-    the placed decode or prefill step itself (`Placement(dry=True)`: the
-    fsdp gathers, the tp all-reduces and reduce-scatters, the sequence
-    gathers, the vocab-parallel lookup and argmax, the lse merge); for
-    train cells, which the port does not place yet, a ring model of the
-    fsdp gathers, the gradients' reduce-scatter and the two tp
-    all-reduces a layer;
+  * the collective bytes per device, counted from the placed step itself
+    (`Placement(dry=True)`: the fsdp gathers, the tp all-reduces and
+    reduce-scatters, the sequence gathers, the vocab-parallel lookup and
+    argmax, the lse merge; in a train step also the remat recompute's
+    collectives, the backward's transposes, the gradients' sums over
+    their replicas and the clip norm's all-reduce);
   * roofline terms against the H100 SXM's published peaks (989 TFLOP/s
     bf16, 3.35 TB/s HBM, 450 GB/s NVLink each way) and the bottleneck;
     the smallest listed mesh that fits each (architecture, shape).
 
-Decode and prefill cells are counted per device from their placed step
-(`steps.plan_cell`, `make_serve_step` / `make_prefill_step`'s path) on
-one rank's blocks: rank 0 for decode, the last rank for prefill (under
-context parallelism it holds the last sequence block, whose causal
-attention sees the most keys); a prefill's output cache blocks are
-among its transient bytes.  Train cells are counted from the
-one-device step at the global batch, split evenly over the mesh
-(`flops_split`: "placed" or "even").  One JSON a cell goes to `--out`
+Every cell is counted per device from its placed step (`steps.plan_cell`
+and `make_serve_step`, `make_prefill_step` or `make_train_step`'s path)
+on one rank's blocks: rank 0 for decode, the last rank for prefill and
+train (under context parallelism it holds the last sequence block, whose
+causal attention sees the most keys); a prefill's output cache blocks
+are among its transient bytes.  One JSON a cell goes to `--out`
 (default `build/plan`, which .gitignore lists).
 """
 from __future__ import annotations
 
 import argparse
 import json
-import math
 import os
 import sys
 import time
@@ -62,8 +58,7 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from ..configs import ARCH_IDS, get_config
 from ..configs.shapes import SHAPES, ShapeSpec, applicable, input_specs
-from ..distributed.placement import (axes_of, local_bytes, local_shape,
-                                     place, spec_leaves)
+from ..distributed.placement import local_bytes, local_shape, place
 from ..distributed.sharding import MeshDesc
 from ..kernels import _build
 from ..models.config import ModelConfig
@@ -71,8 +66,8 @@ from ..models.transformer import (decode_step, init_cache, layer_blocks,
                                   param_shapes, prefill_placed)
 from ..optim import AdamWConfig, adamw_init
 from ..tree import named_leaves, tree_map
-from .steps import (TrainOptions, cell_binding, cell_param_specs,
-                    make_train_step, placement_of, plan_cell)
+from .steps import (TrainOptions, local_batch, make_train_step,
+                    placement_of, plan_cell)
 
 # one H100 SXM (NVIDIA data sheet, 700 W): dense bf16 tensor-core peak,
 # HBM3 bandwidth, NVLink 4 bandwidth each way, device memory
@@ -192,24 +187,22 @@ def count(fn) -> dict:
                 transient=live.peak)
 
 
-def _ring(n: int) -> float:
-    return (n - 1) / n
-
-
 def _meta_tokens(rows: int):
     return torch.zeros(rows, dtype=torch.int32, device=META)
 
 
-def _placed(cfg, shape, mesh, recipe, params) -> dict:
-    """The placed decode or prefill step of one rank of `mesh` (rank 0 for
-    decode, the last for prefill), on meta blocks, with a dry
-    `Placement` (its collectives' bytes counted)."""
-    plan = plan_cell(cfg, shape, mesh, recipe)
+def _placed(cfg, shape, plan, params, topts) -> dict:
+    """The placed step of one rank of the cell's mesh (rank 0 for decode,
+    the last for prefill and train), on meta blocks, with a dry
+    `Placement` (its collectives' bytes counted): a decode step, a
+    prefill, or a train step with its AdamW update on the rank's moments
+    (made before the count: resident)."""
+    mesh = plan.binding["mesh"]
     rank = 0 if shape.kind == "decode" else mesh.size - 1
     plc = placement_of(plan, dry=True, rank=rank)
     p_local = place(params, plan.param_specs, mesh, plc.coords)
-    rows = local_shape((shape.batch,), (plan.batch_entry,), mesh)[0]
     if shape.kind == "decode":
+        rows = local_shape((shape.batch,), (plan.batch_entry,), mesh)[0]
         cache = init_cache(cfg, shape.batch, shape.seq, META)
         c_local = place(cache, plan.cache_specs, mesh, plc.coords)
         got = count(lambda: decode_step(p_local, cfg, c_local,
@@ -217,51 +210,17 @@ def _placed(cfg, shape, mesh, recipe, params) -> dict:
                                         place=plc))
         got["cache"] = local_bytes(cache, plan.cache_specs, mesh)
     else:
-        batch = {k: torch.empty((rows, *t.shape[1:]), dtype=t.dtype,
-                                device=META)
-                 for k, t in input_specs(cfg, shape).items()}
-        got = count(lambda: prefill_placed(
-            p_local, cfg, batch["tokens"], plc,
-            frontend_emb=batch.get("frontend_emb")))
+        batch = local_batch(plan, input_specs(cfg, shape), rank)
+        if shape.kind == "prefill":
+            got = count(lambda: prefill_placed(
+                p_local, cfg, batch["tokens"], plc,
+                frontend_emb=batch.get("frontend_emb")))
+        else:
+            opt = adamw_init(p_local, topts.opt)
+            step = make_train_step(cfg, topts, plan, placement=plc)
+            got = count(lambda: step(p_local, opt, 0, batch))
     got["collective"] = dict(plc.traffic)
     return got
-
-
-def _even_step(cfg, shape, topts) -> dict:
-    """The one-device train step of the cell at its global batch, on
-    meta."""
-    params = param_shapes(cfg)
-    opt = adamw_init(params, topts.opt)
-    step = make_train_step(cfg, topts)
-    return count(lambda: step(params, opt, 0, input_specs(cfg, shape)))
-
-
-def _ring_collectives(cfg, mesh, binding, pspecs, params,
-                      act_bytes) -> dict:
-    """Per-device collective bytes of a train cell, which the port does
-    not place yet, by a ring model: each weight's fsdp shards gathered
-    three times (forward, the remat recompute and the backward) and its
-    gradient reduce-scattered; all-reduces of the (rows, seq, d_model)
-    activations over tp, two an attention layer and one a mamba2 layer,
-    in the forward and as many in the backward (an expert layer's
-    all-to-all is counted as those all-reduces)."""
-    sizes = binding["mesh"].shape
-    fsdp = set(binding["fsdp"])
-    specs_at = dict(spec_leaves(pspecs))
-    gather = 0.0
-    for name, t in named_leaves(params):
-        n = math.prod(sizes[a] for e in specs_at[name] for a in axes_of(e)
-                      if a in fsdp)
-        whole = t.numel() * t.element_size() / math.prod(
-            sizes[a] for e in specs_at[name] for a in axes_of(e)
-            if a not in fsdp)
-        gather += whole * _ring(n)
-    tp = math.prod(sizes[a] for a in binding["tp"])
-    # after wo and w_down in an attention block, after out_proj in mamba2
-    reduces = sum(1 if b.kind == "mamba2" else 2 for b in layer_blocks(cfg))
-    reduce = reduces * act_bytes * 2 * _ring(tp)
-    return {"all_gather": 3 * gather, "reduce_scatter": gather,
-            "all_reduce": 2 * reduce}
 
 
 def plan_one(cfg: ModelConfig, shape: ShapeSpec, mesh_name: str, *,
@@ -277,39 +236,30 @@ def plan_one(cfg: ModelConfig, shape: ShapeSpec, mesh_name: str, *,
     t0 = time.perf_counter()
     recipe = recipe or recipe_for(arch, shape.name)
     n = mesh.size
-    binding = cell_binding(cfg, shape, mesh, recipe, microbatch)
     params = param_shapes(cfg)
-    pspecs = cell_param_specs(cfg, shape, binding, params)
-    mem = {"params": local_bytes(params, pspecs, mesh)}
-    placed = shape.kind != "train"
+    plan = plan_cell(cfg, shape, mesh, recipe,
+                     microbatch=microbatch if shape.kind == "train" else 1)
+    binding = plan.binding
+    mem = {"params": local_bytes(params, plan.param_specs, mesh)}
     topts = TrainOptions(microbatch=microbatch, opt=AdamWConfig(
         moment_dtype=MOMENT_DTYPE.get(arch, "float32")))
+    extra = {}
     if shape.kind == "train":
-        mem["grads"] = mem["params"]
         mdt = getattr(torch, topts.opt.moment_dtype)
         moments = tree_map(lambda t: torch.empty(t.shape, dtype=mdt,
                                                  device=META), params)
-        mem["moments"] = 2 * local_bytes(moments, pspecs, mesh)
-    if placed:
-        got = _placed(cfg, shape, mesh, recipe, params)
-        if "cache" in got:
-            mem["cache"] = got.pop("cache")
-        flops, transient = got["flops"], got["transient"]
-        collective = got.pop("collective")
-        split = "placed"
-    else:
-        got = _even_step(cfg, shape, topts)
-        flops, transient = got["flops"] / n, got["transient"] / n
-        dp = math.prod(mesh.shape[a] for a in binding["dp"])
-        act = shape.batch / dp * shape.seq * cfg.d_model \
-            * getattr(torch, cfg.dtype).itemsize
-        collective = _ring_collectives(cfg, mesh, binding, pspecs, params,
-                                       act)
-        split = "even"
+        mem["moments"] = 2 * local_bytes(moments, plan.param_specs, mesh)
+        # made and freed inside the step: among its transient bytes
+        extra["grads"] = mem["params"]
+    got = _placed(cfg, shape, plan, params, topts)
+    if "cache" in got:
+        mem["cache"] = got.pop("cache")
+    flops, transient = got["flops"], got["transient"]
+    collective = got.pop("collective")
     resident = sum(mem.values())
     peak = resident + transient
     coll = sum(collective.values())
-    touched = resident + (mem["params"] + mem.get("moments", 0)
+    touched = resident + (extra["grads"] + mem["params"] + mem["moments"]
                           if shape.kind == "train" else 0)
     terms = {"compute": flops / PEAK_FLOPS, "memory": touched / HBM_BW,
              "collective": coll / NVLINK_BW}
@@ -323,16 +273,16 @@ def plan_one(cfg: ModelConfig, shape: ShapeSpec, mesh_name: str, *,
         "microbatch": microbatch,
         "binding": {k: list(v) for k, v in binding.items()
                     if k not in ("mesh", "recipe")},
-        "bytes_per_device": dict(mem, resident=resident,
+        "bytes_per_device": dict(mem, **extra, resident=resident,
                                  transient=transient, peak=peak),
         "fits": peak <= HBM_BYTES, "hbm_bytes": HBM_BYTES,
-        "flops_per_device": flops, "flops_split": split,
+        "flops_per_device": flops, "flops_split": "placed",
         "flops_counted": got["counted"], "kernel_flops": got["kernels"],
         "model_flops_global": mf,
         "useful_flops_ratio": mf / (flops * n) if flops else 0.0,
         "collective_bytes_per_device": coll,
         "collective_by_kind": collective,
-        "collective_model": "counted" if placed else "ring model",
+        "collective_model": "counted",
         "memory_bytes_per_device": touched,
         "roofline_terms_s": terms,
         "bottleneck": max(terms, key=terms.get),

@@ -19,12 +19,12 @@ Runs on ``cuda`` unless given ``--device cpu``, and raises without CUDA.
     are logged and counted;
   * failure injection for tests (`inject_failure_at`): raises after the
     step (and any checkpoint write) completes, like a preempted worker;
-  * over a mesh (`--mesh`, under torchrun): data parallelism over the
-    binding's dp ranks (NCCL on the cards, gloo with ``--device cpu``).
-    Weights are replicated on every rank: the reference's SPMD placement
-    of weights along `param_specs` (tensor parallelism over "model",
-    FSDP over "data") is not ported, so both recipes differ only in
-    which axes carry the batch.
+  * over a mesh (`--mesh`, under torchrun; NCCL on the cards, gloo with
+    ``--device cpu``): the train cell placed as the reference's
+    `plan_cell` places it (`launch.steps.plan_cell`; recipes "tp",
+    "fsdp", "ep"), each rank holding only its blocks of the weights, the
+    gradients and both AdamW moments; checkpoints stay the reference's
+    whole tree, so a run saved on one mesh resumes on another.
 """
 from __future__ import annotations
 
@@ -38,6 +38,7 @@ import torch.distributed as dist
 
 from ..checkpoint import CheckpointManager
 from ..configs import PORTED, get_config, smoke_config
+from ..configs.shapes import ShapeSpec
 from ..convert import (opt_state_from_reference, opt_state_to_reference,
                        params_from_reference, params_to_reference)
 from ..data.lm_pipeline import DataConfig, LMPipeline
@@ -45,10 +46,9 @@ from ..device import resolve_device, to_device
 from ..models.transformer import init_params
 from ..optim import adamw_init
 from ..tree import tree_map
-from .mesh import axis_binding, axis_group, make_mesh
-from .steps import TrainOptions, make_train_step
-
-F32 = torch.float32
+from .mesh import make_mesh
+from .steps import (TrainOptions, local_batch, make_train_step,
+                    place_opt_state, place_params, plan_cell)
 
 
 class StragglerMonitor:
@@ -77,22 +77,6 @@ def _state(params, opt, cfg) -> dict:
             "opt": opt_state_to_reference(opt, cfg)}
 
 
-def dp_mean(group, n: int):
-    """-> reduce(loss, grads): the mean of the loss and of every gradient
-    over the `n` ranks of `group`, summed in float32 and divided by n,
-    each gradient cast back to its dtype (with n = 1 the step's own
-    numbers, bit for bit)."""
-    def mean(t):
-        x = t.to(F32, copy=True)
-        dist.all_reduce(x, group=group)
-        return (x / torch.tensor(float(n), device=x.device)).to(t.dtype)
-
-    def reduce(loss, grads):
-        return mean(loss), tree_map(mean, grads)
-
-    return reduce
-
-
 def train(cfg, *, steps: int, global_batch: int, seq_len: int,
           mesh=None, recipe: str = "tp", topts: TrainOptions | None = None,
           ckpt_dir: str | None = None, ckpt_every: int = 50,
@@ -103,33 +87,36 @@ def train(cfg, *, steps: int, global_batch: int, seq_len: int,
 
     With a `mesh` (a DeviceMesh over the default process group, which
     the caller has initialised: torchrun, or a test's launcher), every
-    rank runs this function.  The binding is `launch.mesh.axis_binding`
-    for `recipe` at the microbatch's rows, as the reference's
-    `plan_cell` gives it.  The global batch is split in order over the
-    binding's dp ranks (`LMPipeline.batch_at(step, shard, num_shards)`);
-    ranks that differ only along the other axes compute the same rows
-    (under "tp" on a model axis larger than 1 they repeat each other's
-    work until weights are placed).
-    Gradients and the loss are averaged over the dp ranks (`dp_mean`),
-    so `history` holds the global batch's loss on every rank.  Weights
-    and optimizer state are replicated: the reference's placement of a
-    train cell's weights by `param_specs` (tp over "model", fsdp over
-    "data") is not ported; only decode cells are placed
-    (`launch.steps.plan_cell`).  A rank's MoE layers route its own rows as one token group
-    (`models.moe.moe_ffn`).  Rank 0 writes checkpoints; every rank
-    restores them.  A rank runs on ``cuda:LOCAL_RANK`` unless `device`
-    says otherwise."""
+    rank runs this function on the train cell that `steps.plan_cell`
+    places for `recipe` at the global batch and sequence (the binding of
+    the microbatch's rows, as the reference's `train(mesh=)` gets it):
+    the rank draws the whole seeded model, keeps its blocks of the
+    parameters and of the AdamW moments (the reference's `device_put`
+    onto the cell's shardings) and trains on its rows of each global
+    batch (`steps.local_batch`) with the placed step
+    (`make_train_step(plan=)`), whose `history` losses are the global
+    batch's, the same on every rank.  It returns the rank's blocks.
+    A checkpoint is the reference's whole tree: to save, every leaf is
+    gathered whole, one at a time, and rank 0 writes; to restore, every
+    rank reads the tree and keeps its blocks, so a run saved on one mesh
+    resumes on another.  A rank runs on ``cuda:LOCAL_RANK`` unless
+    `device` says otherwise."""
     if mesh is not None and device is None:
         device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
     device = resolve_device(device)
     topts = topts or TrainOptions(total_steps=steps)
-    shard, num_shards, reduce, rank0 = 0, 1, None, True
+    plan, rank0 = None, True
     if mesh is not None:
-        shard, num_shards, reduce = _data_parallel(
-            cfg, mesh, recipe, global_batch // max(topts.microbatch, 1),
-            device)
+        if not dist.is_initialized():
+            raise RuntimeError("train(mesh=...) needs torch.distributed "
+                               "initialised on every rank")
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        plan = plan_cell(cfg, ShapeSpec("train", "train", seq_len,
+                                        global_batch),
+                         mesh, recipe, microbatch=topts.microbatch)
         rank0 = dist.get_rank() == 0
-    step_fn = make_train_step(cfg, topts, reduce)
+    step_fn = make_train_step(cfg, topts, plan)
     data = LMPipeline(DataConfig(vocab=cfg.vocab, seq_len=seq_len,
                                  global_batch=global_batch, seed=seed))
     g = torch.Generator(device=device)
@@ -153,14 +140,19 @@ def train(cfg, *, steps: int, global_batch: int, seq_len: int,
                 print(f"[train] resumed from step {start - 1}", flush=True)
             if mesh is not None:    # no rank writes before all have read
                 dist.barrier()
+        if plan is not None:        # keep this rank's blocks
+            params = place_params(plan, params)
+            opt = place_opt_state(plan, opt)
         for step in range(start, steps):
             t0 = time.perf_counter()
             batch = {k: to_device(v, device) for k, v in
-                     data.batch_at(step, shard, num_shards).items()}
+                     data.batch_at(step).items()}
             if cfg.frontend:
                 batch["frontend_emb"] = torch.zeros(
-                    (global_batch // num_shards, 8, cfg.d_model),
+                    (global_batch, 8, cfg.d_model),
                     dtype=getattr(torch, cfg.dtype), device=device)
+            if plan is not None:
+                batch = local_batch(plan, batch)
             params, opt, metrics = step_fn(params, opt, step, batch)
             loss = float(metrics["loss"])          # waits for the step
             dt = time.perf_counter() - t0
@@ -176,37 +168,34 @@ def train(cfg, *, steps: int, global_batch: int, seq_len: int,
                       flush=True)
             if not np.isfinite(loss):
                 raise FloatingPointError(f"loss diverged @ {step}")
-            if mgr and rank0 and (step + 1) % ckpt_every == 0:
-                mgr.save(step, _state(params, opt, cfg),
-                         extra={"step": step})
+            if mgr and (step + 1) % ckpt_every == 0:
+                _save(mgr, step, params, opt, cfg, plan, step_fn, rank0)
             if inject_failure_at is not None and step == inject_failure_at:
                 raise RuntimeError(f"injected failure @ {step}")
         # the last step's checkpoint, unless the loop just wrote it (or
         # resumed from it): saving a step twice would rename onto it
-        if mgr and rank0 and steps > start and steps % ckpt_every:
-            mgr.save(steps - 1, _state(params, opt, cfg),
-                     extra={"step": steps - 1})
+        if mgr and steps > start and steps % ckpt_every:
+            _save(mgr, steps - 1, params, opt, cfg, plan, step_fn, rank0)
     finally:
         if mgr:
             mgr.wait()
     return params, opt, history
 
 
-def _data_parallel(cfg, mesh, recipe: str, batch: int, device):
-    """The binding of `mesh` for `recipe` (as the reference's `plan_cell`
-    gives it for a train cell of `batch` rows a microbatch) -> (this
-    rank's dp index, the dp size, `dp_mean` over the dp group)."""
-    if not dist.is_initialized():
-        raise RuntimeError("train(mesh=...) needs torch.distributed "
-                           "initialised on every rank")
-    if device.type == "cuda":
-        torch.cuda.set_device(device)
-    has_ssm = any(b.kind == "mamba2" for _, blocks in cfg.stages
-                  for b in blocks)
-    b = axis_binding(mesh, shape_kind="train", recipe=recipe, batch=batch,
-                     allow_sp=not has_ssm)
-    dp = axis_group(mesh, b["dp"])
-    return dp.index, dp.size, dp_mean(dp.group, dp.size)
+def _save(mgr, step, params, opt, cfg, plan, step_fn, rank0: bool):
+    """Checkpoint `step`: over a mesh every rank gathers each leaf whole,
+    one at a time, onto the host, and rank 0 writes the tree."""
+    if plan is not None:
+        plc = step_fn.placement
+
+        def whole(t, spec):
+            w = plc.gather_whole(t.detach(), spec)
+            return w.to("cpu", copy=True) if rank0 else None
+
+        params = tree_map(whole, params, plan.param_specs)
+        opt = tree_map(whole, opt, plan.opt_specs)
+    if rank0:
+        mgr.save(step, _state(params, opt, cfg), extra={"step": step})
 
 
 def parse_mesh(text: str) -> tuple[tuple, tuple]:
@@ -229,7 +218,7 @@ def main(argv=None):
     ap.add_argument("--mesh", default=None,
                     help="e.g. data=4,model=2 (run under torchrun; the "
                          "sizes multiply to the world size)")
-    ap.add_argument("--recipe", default="tp", choices=["tp", "fsdp"])
+    ap.add_argument("--recipe", default="tp", choices=["tp", "fsdp", "ep"])
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", action="store_true")

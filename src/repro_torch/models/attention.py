@@ -259,7 +259,11 @@ def _attn_block_placed(p, x, cfg, window, mlp_fn, lp):
     dim where that is split (with the same gather and reduce-scatter),
     else local to the rank's tokens; `mlp_fn` (the MoE MLP) takes the
     rank's tokens.  The K/V handed to the cache are the whole sequence's
-    (B, S, heads, hd), fitted to the cache's spec of the KV-head dim."""
+    (B, S, heads, hd), fitted to the cache's spec of the KV-head dim;
+    a train step's layer (no cache specs) returns None for them.  Under
+    autograd every collective differentiates (`distributed/placement.py`):
+    the gathers of the weights and of K/V reduce-scatter their
+    gradients, the all-reduces all-reduce them."""
     plc, s = lp.plc, lp.spec
     seq = plc.seq
     B, Sl, d = x.shape
@@ -310,6 +314,8 @@ def _attn_block_placed(p, x, cfg, window, mlp_fn, lp):
                    plc.take(p["w_down"], s["w_down"], (hf, None)))
         x = x + _row_out(plc, y, hf, seq if wide else None)
     cs = lp.cache
+    if cs is None:                                 # a train step
+        return x, None
     k, v = (plc.take(t, (cs["k"][0], None, hk), tuple(cs["k"])[:3])
             for t in (k, v))
     return x, (k.contiguous(), v.contiguous())

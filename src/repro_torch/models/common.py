@@ -193,13 +193,14 @@ def _ce_sum(x, head, labels, z_loss):
 
 
 def chunked_cross_entropy(x, head, labels, *, chunk: int = 1024,
-                          z_loss: float = 1e-4):
+                          z_loss: float = 1e-4, denom: int | None = None):
     """CE without materialising (B, S, V) logits.
 
     x: (B, S, d) final hidden; head: (d, V); labels: (B, S) int.  Walks S
     in chunks; under autograd each chunk is checkpointed, so its logits
     are transient and recomputed in the backward.  Returns the mean loss
-    over B*S tokens (over the padded vocab, as the reference)."""
+    over B*S tokens (over the padded vocab, as the reference), or the
+    sum over them divided by `denom`."""
     B, S, _ = x.shape
     chunk = min(chunk, S)
     if S % chunk:
@@ -211,4 +212,4 @@ def chunked_cross_entropy(x, head, labels, *, chunk: int = 1024,
             total = total + checkpoint(_ce_sum, *args, use_reentrant=False)
         else:
             total = total + _ce_sum(*args)
-    return total / (B * S)
+    return total / (B * S if denom is None else denom)

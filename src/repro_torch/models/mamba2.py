@@ -259,7 +259,11 @@ def _mixer_placed(p, xin, cfg, lp):
     did, on the card, at mamba2-1.3b's width).  The cache: this
     rank's heads' final state and its block of the raw conv window (the
     last K-1 rows of [x, B, C], x's channels all-gathered), each fitted
-    to the cache's spec."""
+    to the cache's spec; a train step's layer (no cache specs) returns
+    None for them.  The scan is `_SSD` (the kernel forward, the plain
+    chunk scan's backward) and every collective differentiates, so the
+    replicated residual's gradient is each model rank's share: the loss
+    weighs a token held by r ranks 1/r (`transformer.loss_placed`)."""
     plc = lp.plc
     nh, hp, ns, K = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, \
         cfg.ssm_conv
@@ -283,10 +287,10 @@ def _mixer_placed(p, xin, cfg, lp):
     stream = _causal_conv(raw, w)
     xs, Bs, Cs = stream.split([dl, ns, ns], dim=-1)
     A = -torch.exp(plc.take(p["A_log"], lp.spec["A_log"], (hx,)).to(F32))
-    y, h_last = ops.ssd_scan_fwd(xs.reshape(B, nC, Q, nl, hp).contiguous(),
-                                 Bs.reshape(B, nC, Q, ns).contiguous(),
-                                 Cs.reshape(B, nC, Q, ns).contiguous(),
-                                 dt.reshape(B, nC, Q, nl), A)
+    y, h_last = _SSD.apply(xs.reshape(B, nC, Q, nl, hp).contiguous(),
+                           Bs.reshape(B, nC, Q, ns).contiguous(),
+                           Cs.reshape(B, nC, Q, ns).contiguous(),
+                           dt.reshape(B, nC, Q, nl), A)
     D = plc.take(p["D"], lp.spec["D"], (hx,)).to(F32)
     y = y.reshape(B, L, nl, hp) + D[:, None] * xs.reshape(B, L, nl, hp) \
         .to(F32)
@@ -301,12 +305,14 @@ def _mixer_placed(p, xin, cfg, lp):
     out = y @ plc.take(p["wout"], lp.spec["wout"], (None, None))
     if seq is not None:
         out = plc.block(out, seq, 1)
+    cs = lp.cache
+    if cs is None:                                 # a train step
+        return xin + out, None
     # the raw window: the last K-1 rows of [x, B, C] (zeros if L < K-1)
     tail = F.pad(raw, (0, 0, K - 1, 0))[:, -(K - 1):]
     xt, rest = tail.split([dl, 2 * ns], dim=-1)
     tail = torch.cat([plc.all_gather(xt, hx, 2) if hx is not None else xt,
                       rest], dim=-1)
-    cs = lp.cache
     conv = plc.block(tail, cs["conv"][2], 2).to(xin.dtype).contiguous()
     ssm = plc.take(h_last, (cs["ssm"][0], hx), cs["ssm"][:2]).contiguous()
     return xin + out, (ssm, conv)

@@ -120,10 +120,9 @@ def moe_ffn(p, x, cfg, dropless: bool = False):
     Token groups: the reference views the step's T tokens as G = |moe_g|
     groups, one per data shard (`repro/models/moe.py:85-94`), and slots
     and drops within each; capacity is per group.  Here all of `x` is
-    one group (G = 1).  Under `launch/train.py`'s data parallelism a
-    rank's `x` is its dp shard's rows, taken in order, which is the
-    reference's group of that shard, so the rows are never split again
-    here; on one device it is the reference's G = 1."""
+    one group (G = 1), the reference on one device; a placed cell routes
+    in the cell's |moe_g| groups (`moe_ffn_prefill_placed`, which the
+    placed prefill and train steps run)."""
     orig_shape = x.shape
     d = orig_shape[-1]
     xf = x.reshape(-1, d)

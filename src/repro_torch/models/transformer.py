@@ -20,9 +20,10 @@ the tree (one gradient, one AdamW update, one checkpoint entry); each
 occurrence keeps its own KV cache, as the reference's `init_cache` gives.
 Vocab sizes are padded to a multiple of 256.
 
-Placed (`distributed/placement.py`): `decode_step(place=)` and
-`prefill_placed` run one rank's blocks of a cell `launch/steps.py:
-plan_cell` placed, every block kind through its placed branch.
+Placed (`distributed/placement.py`): `decode_step(place=)`,
+`prefill_placed` and `loss_placed` run one rank's blocks of a cell
+`launch/steps.py:plan_cell` placed, every block kind through its placed
+branch.
 """
 from __future__ import annotations
 
@@ -399,8 +400,23 @@ def _decode_step_placed(params, cfg, cache, tokens, pos, plc):
     return x @ plc.gather_axis(head, spec)
 
 
+def _placed_block(b, p, x, cfg, lp):
+    """One layer of a placed prefill or train step on this rank -> (x,
+    its cache blocks, or None in a train step)."""
+    if b.kind == "mamba2":
+        x, c = mamba2_mixer(p, x, cfg, place=lp)
+        return x, None if c is None else {"ssm": c[0], "conv": c[1]}
+    mlp_fn = None
+    if b.kind == "moe":
+        def mlp_fn(h):
+            return moe.moe_ffn_prefill_placed(p["moe"], h, cfg, lp.plc,
+                                              lp.spec["moe"])
+    x, kv = attn_block(p, x, cfg, window=b.window, mlp_fn=mlp_fn, place=lp)
+    return x, None if kv is None else {"k": kv[0], "v": kv[1]}
+
+
 def _forward_placed(params, cfg, tokens, frontend_emb, plc):
-    """`forward_hidden` on one rank of a placed prefill, forward only:
+    """`forward_hidden` on one rank of a placed prefill or train step:
     `params` this rank's blocks, `tokens` its rows (B_local, S) whole
     along the sequence (the reference's batch spec), `frontend_emb` its
     rows of the stub prefix.  The rank takes its block of the sequence
@@ -410,8 +426,12 @@ def _forward_placed(params, cfg, tokens, frontend_emb, plc):
     Each layer runs under its `LayerPlace`: the attention block
     (`attention._attn_block_placed`) with a `moe` layer's MLP
     `moe.moe_ffn_prefill_placed`, or the mamba2 mixer on the rank's heads
-    (`mamba2._mixer_placed`).  -> (the final normed hidden of the rank's
-    tokens (B_local, S_local, d), this rank's cache blocks, the table)."""
+    (`mamba2._mixer_placed`).  A train step's placement has no cache
+    specs: its layers hand back no cache, and with ``cfg.remat ==
+    "block"`` under autograd each is checkpointed, as `forward_hidden`
+    does (its collectives run again in the recompute).  -> (the final
+    normed hidden of the rank's tokens (B_local, S_local, d), this
+    rank's cache blocks (None in a train step), the table)."""
     specs = plc.param_specs
     S = tokens.shape[1]
     n = plc.count(plc.seq)
@@ -425,22 +445,44 @@ def _forward_placed(params, cfg, tokens, frontend_emb, plc):
         m = min(max(frontend_emb.shape[1] - off, 0), Sl)
         x = torch.cat([frontend_emb[:, off:off + m].to(x.dtype), x[:, m:]],
                       dim=1)
+    train = plc.cache_specs is None
+    remat = train and cfg.remat == "block" and torch.is_grad_enabled()
     caches = []
     for i, (b, p) in enumerate(layer_params(params, cfg)):
-        lp = plc.layer(i)
-        if b.kind == "mamba2":
-            x, (ssm, conv) = mamba2_mixer(p, x, cfg, place=lp)
-            caches.append({"ssm": ssm, "conv": conv})
-            continue
-        mlp_fn = None
-        if b.kind == "moe":
-            def mlp_fn(h, p=p, spec=lp.spec["moe"]):
-                return moe.moe_ffn_prefill_placed(p["moe"], h, cfg, plc,
-                                                  spec)
-        x, (k, v) = attn_block(p, x, cfg, window=b.window, mlp_fn=mlp_fn,
-                               place=lp)
-        caches.append({"k": k, "v": v})
-    return rms_norm(x, params["final_norm"]), caches, table
+        if remat:       # p reaches the checkpointed call as an argument
+            x, c = checkpoint(_placed_block, b, p, x, cfg, plc.layer(i),
+                              use_reentrant=False)
+        else:
+            x, c = _placed_block(b, p, x, cfg, plc.layer(i))
+        caches.append(c)
+    return (rms_norm(x, params["final_norm"]), None if train else caches,
+            table)
+
+
+def loss_placed(params, cfg: ModelConfig, tokens, labels, plc,
+                frontend_emb=None, ce_chunk: int = 1024):
+    """This rank's share of `loss_fn` in a placed train step
+    (`_forward_placed` with no cache specs): the chunked cross-entropy
+    of its tokens against the head taken whole (a tied embedding's
+    gathered table, the one leaf for both uses), summed and divided by
+    its token count times the mesh's size.  Ranks that hold the same
+    tokens (the axes neither the batch nor the sequence is cut over: a
+    residual replicated over "model") each count them, so the sum of
+    every rank's share is the mean over the global batch, each token
+    once, and its gradient, summed over the ranks by the collectives'
+    transposes, is the one-process gradient.  `tokens` and `labels` are
+    the rank's rows (B_local, S), whole along the sequence."""
+    x, _, table = _forward_placed(params, cfg, tokens, frontend_emb, plc)
+    if cfg.tie_embeddings:
+        head = table.T
+    else:
+        del table
+        head = plc.take(params["lm_head"], plc.param_specs["lm_head"],
+                        (None, None))
+    B, Sl = x.shape[:2]
+    return chunked_cross_entropy(x, head, plc.block(labels, plc.seq, 1),
+                                 chunk=ce_chunk,
+                                 denom=B * Sl * plc.desc.size)
 
 
 def prefill_placed(params, cfg: ModelConfig, tokens, plc, frontend_emb=None):

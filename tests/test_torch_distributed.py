@@ -3,8 +3,9 @@ against the reference's on a one-device mesh and, at 2 and 4 ranks,
 against a numpy `_compress_one` (the int8 payload exact); `gpipe_apply`
 against the reference's (one stage in-process, four stages on four
 forced host devices in a subprocess) and the sequential stack; the
-meshes and process groups of `launch/mesh.py`; and data-parallel
-`train` on 8 ranks at mesh (4, 2) against the one-process run.
+meshes and process groups of `launch/mesh.py`; and placed `train` on 8
+ranks at mesh (4, 2) against the one-process run, and resumed from a
+checkpoint on another mesh.
 
 Every multi-rank case starts its ranks as subprocesses under one
 deadline (all are killed when it passes), each rank with one thread,
@@ -403,7 +404,7 @@ def test_debug_mesh_and_axis_groups(tmp_path):
 
 
 # ----------------------------------------------------------------------
-# data-parallel train on 8 ranks
+# placed train on 8 ranks, and across meshes
 # ----------------------------------------------------------------------
 _TRAIN = """
 import dataclasses
@@ -430,12 +431,15 @@ report(out)
 def test_train_on_eight_ranks_matches_one_process(tmp_path):
     """`tests/test_serving.py::test_multidevice_execution_subprocess`'s
     property on the port: llama3's smoke config 3 steps at global batch
-    8 under tp (dp over "data": 2 rows a rank) and fsdp (dp over both
-    axes: 1 row a rank), qwen3-moe's 2 steps under tp; every loss finite
-    and the same on every rank.  With no dropped assignment (llama3, and
-    qwen3 at cf = E/K) each loss is the one-process run's within 1e-5
-    relative; at cf 1.25 a rank's own rows are its token group, so drops
-    differ from one process's and only finiteness is held."""
+    8 under tp (dp over "data": 2 rows a rank, the weights' heads and ff
+    over "model", d_model over "data") and fsdp (dp over both axes: 1
+    row a rank, the weights over both), qwen3-moe's 2 steps under tp;
+    every rank holds its blocks only, and every loss is finite and the
+    same on every rank.  With no dropped assignment (llama3, and qwen3
+    at cf = E/K) each loss is the one-process run's within 1e-5
+    relative; at cf 1.25 the placed step routes in the cell's |moe_g|
+    token groups, as the reference's does, so drops differ from one
+    process's and only finiteness is held."""
     got = run_ranks(tmp_path, 8, _TRAIN, timeout=240)
     for r in range(1, 8):
         assert got[r] == got[0]
@@ -454,6 +458,48 @@ def test_train_on_eight_ranks_matches_one_process(tmp_path):
                     global_batch=8, seq_len=32, log_every=100, device="cpu")
     np.testing.assert_allclose(res[f"qwen3 cf {cf}"], h["loss"], rtol=1e-5)
     assert len(res["qwen3 cf 1.25"]) == 2
+
+
+_RESUME = """
+from repro_torch.configs import smoke_config
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.train import train
+mesh = make_mesh(SIZES, ("data", "model"))
+_, _, h = train(smoke_config("llama3-8b"), steps=STEPS, global_batch=4,
+                seq_len=16, mesh=mesh, recipe="tp", ckpt_dir=CKPT,
+                ckpt_every=1, resume=RESUME, log_every=100,
+                async_ckpt=False, device="cpu")
+report(h["loss"])
+"""
+
+
+def test_train_resumes_on_another_mesh(tmp_path):
+    """llama3's smoke config under "tp": 2 steps on a (1, 2) mesh with a
+    checkpoint each step, then resumed on (2, 2) to 3 steps.  The
+    checkpoint is the reference's whole tree, so the second mesh takes
+    its own blocks of it: its step-2 loss and the step-2 checkpoint are
+    one uninterrupted process's (1e-5)."""
+    ckpt = tmp_path / "ckpt"
+    for sizes, steps, resume in (((1, 2), 2, False), ((2, 2), 3, True)):
+        d = tmp_path / f"mesh_{sizes[0]}x{sizes[1]}"
+        d.mkdir()
+        got = run_ranks(d, sizes[0] * sizes[1], _RESUME.replace(
+            "SIZES", repr(sizes)).replace("STEPS", str(steps)).replace(
+            "CKPT", repr(str(ckpt))).replace("RESUME", str(resume)),
+            timeout=120)
+        assert all(r == got[0] for r in got)
+    assert len(got[0]) == 1                   # step 2 only
+    one = tmp_path / "one"
+    _, _, h = train(smoke_config("llama3-8b"), steps=3, global_batch=4,
+                    seq_len=16, ckpt_dir=str(one), log_every=100,
+                    async_ckpt=False, device="cpu")
+    np.testing.assert_allclose(got[0], h["loss"][2:], rtol=1e-5)
+    name = "step_00000002/arrays.npz"
+    with np.load(one / name) as want, np.load(ckpt / name) as have:
+        assert sorted(have.files) == sorted(want.files)
+        for k in want.files:
+            np.testing.assert_allclose(have[k], want[k], rtol=1e-5,
+                                       atol=1e-6, err_msg=k)
 
 
 def test_train_over_a_mesh_needs_a_process_group():

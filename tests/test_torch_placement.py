@@ -394,13 +394,21 @@ def test_place_copies_each_block_into_its_own_storage():
 
 
 def test_plan_cell_raises_only_for_train_cells():
-    """Train cells are not placed yet: plan_cell says which ROADMAP item
-    ports them.  Prefill cells and the mamba2 and zamba2 decode cells are
-    placed; a decode cell follows the reference's decode branch."""
+    """Every cell kind is placed now: a train cell with its moments'
+    specs and no cache; plan_cell raises only for a train cell whose
+    microbatches the dp ranks do not split (and microbatches of another
+    kind of cell).  Prefill cells and the mamba2 and zamba2 decode cells
+    are placed; a decode cell follows the reference's decode branch."""
     mesh = MeshDesc(("data", "model"), (2, 4))
     cfg = get_config("llama3-8b")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        steps.plan_cell(cfg, SHAPES["train_4k"], mesh)
+    train = steps.plan_cell(cfg, SHAPES["train_4k"], mesh)
+    assert train.cache_specs is None and train.batch_entry == "data"
+    assert train.opt_specs["m"] is train.param_specs
+    with pytest.raises(ValueError, match="microbatches"):
+        steps.plan_cell(cfg, ShapeSpec("t", "train", 64, 4), mesh,
+                        microbatch=4)
+    with pytest.raises(ValueError, match="microbatches"):
+        steps.plan_cell(cfg, SHAPES["prefill_32k"], mesh, microbatch=2)
     assert steps.plan_cell(cfg, SHAPES["prefill_32k"], mesh,
                            "fsdp").cache_specs
     for arch in ("mamba2-1.3b", "zamba2-7b"):

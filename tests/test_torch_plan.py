@@ -2,7 +2,8 @@
 counts against the reference's configs, its model FLOPs against the
 reference's formula, its per-device bytes against the blocks `place`
 gives each rank, the kernels' analytic FLOPs on the meta device, the
-placed decode step's counted collectives and the records it writes.
+placed steps' counted collectives (a train cell's against what gloo
+ranks send) and the records it writes.
 
 Only `repro.models.config` and the configs of the reference are imported:
 `repro.launch.dryrun` sets XLA_FLAGS to 512 host devices at import."""
@@ -107,7 +108,10 @@ def test_bytes_per_device_are_the_placed_blocks(arch, mesh):
         torch, cfg.dtype)).element_size()
     moment = getattr(torch, plan.MOMENT_DTYPE.get(arch, "float32"))
     assert tb["moments"] == 2 * moment.itemsize * elems
-    assert train["flops_split"] == "even"
+    # the gradients are made and freed inside the counted step
+    assert tb["peak"] == tb["params"] + tb["moments"] + tb["transient"]
+    assert tb["transient"] > tb["grads"]
+    assert train["flops_split"] == "placed"
 
 
 def test_placed_decode_flops_and_collectives_split_with_the_mesh():
@@ -158,7 +162,54 @@ def test_prefill_and_ssm_decode_cells_are_counted_placed():
         assert rec["collective_by_kind"]["all_gather"] > 0, arch
         assert rec["collective_by_kind"]["all_reduce"] > 0, arch
     train = plan.plan_one(cfg, ShapeSpec("train_4k", "train", 16, 4), "1x2")
-    assert train["collective_model"] == "ring model"
+    assert train["collective_model"] == "counted"
+
+
+_TRAIN_TRAFFIC = """
+from repro_torch.configs import smoke_config
+from repro_torch.configs.shapes import ShapeSpec
+from repro_torch.distributed.sharding import MeshDesc
+from repro_torch.launch import steps
+from repro_torch.models import transformer
+from repro_torch.optim import adamw_init
+out = {}
+for arch, recipe, batch in CELLS:
+    cfg = smoke_config(arch)
+    plan = steps.plan_cell(cfg, ShapeSpec("train_4k", "train", 16, batch),
+                           MeshDesc(("data", "model"), (1, 2)), recipe)
+    full = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                   torch.device("cpu"))
+    params = steps.place_params(plan, full)
+    topts = steps.TrainOptions()
+    step = steps.make_train_step(cfg, topts, plan)
+    tok = torch.zeros((batch, 16), dtype=torch.int32)
+    step(params, adamw_init(params, topts.opt), 0, steps.local_batch(
+        plan, {"tokens": tok, "labels": tok}))
+    out[arch + " " + recipe] = dict(step.placement.traffic)
+report(out)
+"""
+TRAIN_CELLS = [("llama3-8b", "fsdp", 1), ("llama3-8b", "tp", 4),
+               ("mamba2-1.3b", "fsdp", 1), ("qwen3-moe-235b-a22b", "ep", 4)]
+
+
+def test_train_cell_collectives_are_what_ranks_send(tmp_path):
+    """A train cell's counted collective bytes (the placed step of the
+    last rank under a dry `Placement` on meta blocks: forward, remat
+    recompute, backward, the gradients' sums over their replicas and the
+    clip norm) equal, kind by kind, what each of two gloo ranks' real
+    step sends: llama3 context parallel ("fsdp", batch 1) and under
+    "tp", mamba2's replicated residual, qwen3-moe under "ep"."""
+    from test_torch_distributed import run_ranks
+    got = run_ranks(tmp_path, 2, _TRAIN_TRAFFIC.replace(
+        "CELLS", repr(TRAIN_CELLS)), timeout=120)
+    for arch, recipe, batch in TRAIN_CELLS:
+        rec = plan.plan_one(smoke_config(arch), ShapeSpec(
+            "train_4k", "train", 16, batch), "1x2", recipe=recipe, arch=arch)
+        assert rec["collective_model"] == "counted"
+        for r in got:
+            assert r[f"{arch} {recipe}"] == rec["collective_by_kind"], (
+                arch, recipe)
+        assert rec["collective_by_kind"]["reduce_scatter"] > 0, arch
 
 
 def test_kernel_flops_on_meta_are_analytic():
