@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from `src/repro_torch/csrc` and runs
-nineteen phases, each printing one JSON line:
+twenty phases, each printing one JSON line:
 
   device   the card's name and power limit, and the kernels' build time;
   ptxas    registers and spill bytes of the flash, decode (float and
@@ -144,7 +144,22 @@ nineteen phases, each printing one JSON line:
            `local_bytes` and its peak against the planner's;
   plan     the planner (`launch/plan.py`) under 1x1: each model above, its
            parameter bytes against memory_allocated after init_params,
-           and its peak estimates beside peaks measured by earlier runs.
+           and its peak estimates beside peaks measured by earlier runs;
+  lsm      the HotRAP engine (`repro_torch.core`) with its sorted runs,
+           blooms, merged views and RALT records on the card: at
+           `default_config("tiny")` (22,528 keys of 1,000 B) `hotrap`
+           and `rocksdb_tiered` under the RO, RW, WH, UH and SR mixes on
+           hotspot-5% and `hotrap` RO on zipfian and uniform, 20,000 ops
+           each, every cell's RunResult (floats bit for bit), every op's
+           outcome and every level's runs against a CPU twin (a
+           subprocess that works while the card runs the phase's cells);
+           at `default_config("medium")` (64 MiB
+           FD : 640 MiB SD, 720,896 keys) `hotrap` and `rocksdb_tiered`
+           under hotspot-5% RO and RW, 200,000 ops each: load and run
+           walls, µs an op, host syncs an op (over a clone's first 20,000
+           ops), the engine's device bytes and the peak, StorageSim's
+           simulated ops/s and FD hit rate; HotRAP's RO run against its
+           CPU twin, and HotRAP above `rocksdb_tiered` in both.
 
 Kernel launches are counted from zero in each of the serve, tiered,
 tracker, prefill, train and int8 runs, in each part of the mamba2, moe,
@@ -241,6 +256,19 @@ PLACED_PREFILL, PLACED_SSM_PROMPT, PLACED_SSM_NEW = 4096, 16, 8
 PLACED_TRAIN_STEPS, PLACED_TRAIN_SEQ, PLACED_SKETCH = 2, 512, 16
 PLACED_TIMING_LAYERS, PLACED_TIMING_BATCH = 8, 2
 SKETCH_CHUNK = 1 << 21
+# lsm run: the engine at default_config("tiny") (22,528 keys of 1,000 B),
+# every cell 20,000 ops against its CPU twin; at default_config("medium")
+# (720,896 keys) 200,000 ops a cell (the reference's `full` profile),
+# host syncs counted over a clone's first 20,000 ops; the twin (a
+# subprocess started with the phase) given LSM_TWIN_DEADLINE s more once
+# the card's cells are done
+LSM_VALUE, LSM_TINY_OPS, LSM_SCALE_OPS, LSM_SYNC_OPS = 1000, 20_000, \
+    200_000, 20_000
+LSM_TINY_CELLS = ([(s, m, "hotspot") for s in ("hotrap", "rocksdb_tiered")
+                   for m in ("RO", "RW", "WH", "UH", "SR")]
+                  + [("hotrap", "RO", "zipfian"), ("hotrap", "RO", "uniform")])
+LSM_TWIN_SCALE_CELL, LSM_TWIN_DEADLINE = ("hotrap", "RO"), 600
+LSM_SCALE = "medium"
 
 
 def emit(phase: str, **fields) -> None:
@@ -3498,6 +3526,321 @@ def plan_line(dev, power: str) -> None:
         "requested": all(abs(r["ratio"] - 1) <= 0.01 for r in rows)})
 
 
+# ----------------------------------------------------------------------
+# lsm: the HotRAP engine (`repro_torch.core`) on the card
+# ----------------------------------------------------------------------
+def json_mismatches(want, got, path: str = "") -> list[str]:
+    """Paths where two JSON-like trees differ: a missing key, a length, a
+    type or a value.  Floats must be equal: one ulp apart is a
+    mismatch."""
+    if type(want) is not type(got):
+        return [f"{path}: {type(want).__name__} != {type(got).__name__}"]
+    if isinstance(want, dict):
+        out = [f"{path}/{k}: missing" for k in
+               sorted(set(want).symmetric_difference(got), key=str)]
+        for k in want:
+            if k in got:
+                out += json_mismatches(want[k], got[k], f"{path}/{k}")
+        return out
+    if isinstance(want, (list, tuple)):
+        if len(want) != len(got):
+            return [f"{path}: length {len(want)} != {len(got)}"]
+        return [m for i, (a, b) in enumerate(zip(want, got))
+                for m in json_mismatches(a, b, f"{path}[{i}]")]
+    if want != got and not (want != want and got != got):   # NaN == NaN
+        return [f"{path}: {want!r} != {got!r}"]
+    return []
+
+
+def lsm_outcomes(outcomes: list) -> dict:
+    """`run_workload`'s per-op outcomes as arrays: each get's (seq, vlen)
+    ((-1, -1) for a miss), each put's seq, each scan's records."""
+    gets, puts, scan_lens, scans = [], [], [], []
+    for r in outcomes:
+        if r is None or isinstance(r, tuple):
+            gets.append(r or (-1, -1))
+        elif isinstance(r, list):
+            scan_lens.append(len(r))
+            scans.extend(r)
+        else:
+            puts.append(r)
+    return {"gets": np.array(gets, np.int64).reshape(-1, 2),
+            "puts": np.array(puts, np.int64),
+            "scan_lens": np.array(scan_lens, np.int64),
+            "scans": np.array(scans, np.int64).reshape(-1, 3)}
+
+
+def lsm_digest(db, result, outcomes: list) -> dict:
+    """What a run must reproduce: `RunResult.to_json()`, every op's
+    outcome, and each level's runs (by content and position, never by
+    sid: sids come from a process-wide counter)."""
+    return {"result": result.to_json(), "outcomes": lsm_outcomes(outcomes),
+            "levels": [[(s.tier, s.level, s.keys.cpu().numpy(),
+                         s.seqs.cpu().numpy(), s.vlens.cpu().numpy())
+                        for s in level] for level in db.levels]}
+
+
+def lsm_mismatches(want: dict, got: dict) -> list[str]:
+    """Every difference between two `lsm_digest`s: result fields (floats
+    bit for bit), outcomes (the first differing get, put or scan record)
+    and level runs."""
+    out = json_mismatches(want["result"], got["result"], "result")
+    for name, a in want["outcomes"].items():
+        b = got["outcomes"][name]
+        if a.shape != b.shape:
+            out.append(f"outcomes/{name}: shape {a.shape} != {b.shape}")
+        elif not np.array_equal(a, b):
+            i = int(np.flatnonzero((a != b).reshape(len(a), -1).any(1))[0])
+            out.append(f"outcomes/{name}[{i}]: {a[i].tolist()} != "
+                       f"{b[i].tolist()}")
+    if [len(x) for x in want["levels"]] != [len(x) for x in got["levels"]]:
+        out.append("levels: table counts differ")
+    else:
+        for li, (wl, gl) in enumerate(zip(want["levels"], got["levels"])):
+            for j, (w, g) in enumerate(zip(wl, gl)):
+                if w[:2] != g[:2] or not all(
+                        np.array_equal(a, b) for a, b in zip(w[2:], g[2:])):
+                    out.append(f"levels[{li}][{j}] differs")
+    return out
+
+
+def count_syncs(fn):
+    """(fn(), the host syncs it made), counted by CUDA's sync debug
+    mode's warnings."""
+    import warnings
+    count = [0]
+
+    def seen(message, *args, **kw):
+        count[0] += "synchroniz" in str(message)
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = seen
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, count[0]
+
+
+def lsm_load(system: str, scale: str, device) -> tuple:
+    """A loaded engine of `system` at `scale` and its load's wall
+    seconds (deep copies give each cell the same start)."""
+    from repro_torch.core import runner
+    cfg = runner.default_config(scale)
+    n_keys = runner.db_key_count(cfg, LSM_VALUE)
+    db = runner.make_system(system, cfg, device=device)
+    t0 = time.perf_counter()
+    runner.load_db(db, n_keys, LSM_VALUE)
+    if db.device.type == "cuda":
+        torch.cuda.synchronize()
+    return db, n_keys, time.perf_counter() - t0
+
+
+def lsm_run(loaded, system: str, mix: str, dist: str, n_keys: int,
+            n_ops: int, syncs: bool = False) -> tuple:
+    """One cell on a clone of a loaded engine (its tensors copied on its
+    device): (engine, RunResult, outcomes, wall seconds, host syncs or
+    None)."""
+    import copy
+
+    from repro_torch.core import runner
+    from repro_torch.data import workloads
+    db = copy.deepcopy(loaded)
+    wl = workloads.ycsb(mix, workloads.KeyDist(dist, n_keys), n_ops,
+                        LSM_VALUE, seed=0)
+    outcomes: list = []
+    cuda = db.device.type == "cuda"
+
+    def go():
+        res = runner.run_workload(db, wl, name=system,
+                                  results_out=outcomes)
+        if cuda:
+            torch.cuda.synchronize()
+        return res
+
+    t0 = time.perf_counter()
+    res, n_syncs = count_syncs(go) if syncs else (go(), None)
+    return db, res, outcomes, time.perf_counter() - t0, n_syncs
+
+
+def lsm_twin(out_path: str) -> None:
+    """The CPU twin of the lsm phase's checked cells: every tiny cell and
+    the scale cell held to it, their digests pickled to `out_path`."""
+    import pickle
+    torch.set_num_threads(1)     # the engine's ops are small: one thread
+    digests, walls = {}, {}
+    loads: dict = {}
+    for system, mix, dist in LSM_TINY_CELLS:
+        if system not in loads:
+            db, n_keys, _ = lsm_load(system, "tiny", "cpu")
+            loads[system] = (db, n_keys)
+        loaded, n_keys = loads[system]
+        db, res, outs, wall, _ = lsm_run(loaded, system, mix, dist, n_keys,
+                                          LSM_TINY_OPS)
+        digests[("tiny", system, mix, dist)] = lsm_digest(db, res, outs)
+        walls[f"tiny/{system}/{mix}/{dist}"] = wall
+    system, mix = LSM_TWIN_SCALE_CELL
+    db, n_keys, load_s = lsm_load(system, LSM_SCALE, "cpu")
+    walls[f"{LSM_SCALE}/{system}/load"] = load_s
+    db, res, outs, wall, _ = lsm_run(db, system, mix, "hotspot", n_keys,
+                                      LSM_SCALE_OPS)
+    digests[(LSM_SCALE, system, mix, "hotspot")] = lsm_digest(db, res,
+                                                               outs)
+    walls[f"{LSM_SCALE}/{system}/{mix}"] = wall
+    with open(out_path, "wb") as f:
+        pickle.dump({"digests": digests, "walls": walls}, f)
+
+
+LSM_TWIN_SCRIPT = """
+import sys
+sys.path[:0] = [sys.argv[1], sys.argv[2]]
+import chip_smoke
+chip_smoke.lsm_twin(sys.argv[3])
+"""
+
+
+def start_lsm_twin(out_path: Path):
+    """The lsm phase's CPU twin, a subprocess that works while the card
+    runs the phase's cells."""
+    with open(out_path.with_suffix(".err"), "w") as err:
+        return subprocess.Popen(
+            [sys.executable, "-c", LSM_TWIN_SCRIPT, str(ROOT),
+             str(ROOT / "src"), str(out_path)], stdout=subprocess.DEVNULL,
+            stderr=err)
+
+
+def stop(proc) -> None:
+    if proc is not None and proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def engine_on_card(db) -> dict:
+    """Every tensor the engine holds (SSTables, blooms, GroupViews, RALT
+    runs) and whether all of them lie on the card."""
+    ts = db.tensors()
+    return {"tensors": len(ts), "on_cuda": all(t.is_cuda for t in ts),
+            "group_views": len(db._view_cache.views()),
+            "device_bytes": db.device_bytes()}
+
+
+def lsm_phase(dev, power: str) -> dict:
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        twin_out = Path(tmp) / "lsm_twin.pkl"
+        twin = start_lsm_twin(twin_out)
+        try:
+            return lsm_cells(dev, power, twin, twin_out)
+        finally:
+            stop(twin)
+
+
+def lsm_cells(dev, power: str, twin, twin_out: Path) -> dict:
+    """The engine at `default_config("tiny")` (22,528 keys of 1,000 B):
+    `hotrap` and `rocksdb_tiered` under the RO, RW, WH, UH and SR mixes
+    on hotspot-5% and `hotrap` under RO on zipfian and uniform, 20,000
+    ops each, every cell's digest (`lsm_digest`) against the CPU twin's;
+    then at `default_config("medium")` (64 MiB FD : 640 MiB SD, 720,896
+    keys): `hotrap` and `rocksdb_tiered` under hotspot-5% RO and RW,
+    200,000 ops each, timed, HotRAP's RO run against its CPU twin."""
+    import pickle
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize(dev)            # the context, if none yet
+    torch.cuda.reset_peak_memory_stats(dev)
+    tiny, failures, loads = {}, {}, {}
+    for system, mix, dist in LSM_TINY_CELLS:
+        if system not in loads:
+            loads[system] = lsm_load(system, "tiny", dev)
+        loaded, n_keys, _ = loads[system]
+        db, res, outs, wall, n_syncs = lsm_run(
+            loaded, system, mix, dist, n_keys, LSM_TINY_OPS, syncs=True)
+        key = ("tiny", system, mix, dist)
+        tiny[key] = (lsm_digest(db, res, outs), {
+            "cell": f"{system}/{mix}/{dist}", "wall_s": wall,
+            "syncs_per_op": n_syncs / LSM_TINY_OPS,
+            "fd_hit_rate": res.fd_hit_rate, "throughput": res.throughput,
+            **engine_on_card(db)})
+        del db
+    scale, scale_digest = [], None
+    tiny_loads = {s: v[2] for s, v in loads.items()}
+    del loads, loaded
+    for system in ("hotrap", "rocksdb_tiered"):
+        loaded, n_keys, load_s = lsm_load(system, LSM_SCALE, dev)
+        for mix in ("RO", "RW"):
+            db, res, outs, wall, _ = lsm_run(loaded, system, mix, "hotspot",
+                                              n_keys, LSM_SCALE_OPS)
+            if (system, mix) == LSM_TWIN_SCALE_CELL:
+                scale_digest = lsm_digest(db, res, outs)
+            # host syncs a run makes, counted over a clone's first ops
+            _, _, _, _, n_syncs = lsm_run(loaded, system, mix, "hotspot",
+                                          n_keys, LSM_SYNC_OPS, syncs=True)
+            scale.append({
+                "cell": f"{system}/{mix}/hotspot", "keys": n_keys,
+                "ops": LSM_SCALE_OPS, "load_wall_s": load_s,
+                "run_wall_s": wall, "us_per_op": wall / LSM_SCALE_OPS * 1e6,
+                "syncs_per_op": n_syncs / LSM_SYNC_OPS,
+                "sim_ops_per_s": res.throughput,
+                "fd_hit_rate": res.fd_hit_rate, **engine_on_card(db),
+                "max_memory_allocated": torch.cuda.max_memory_allocated(dev)})
+            del db
+    # the CPU twin has run beside the card's cells
+    try:
+        twin.wait(timeout=LSM_TWIN_DEADLINE)
+    finally:
+        stop(twin)
+    if twin.returncode:
+        err = twin_out.with_suffix(".err").read_text()
+        raise SystemExit(f"lsm twin exited {twin.returncode}:\n{err[-3000:]}")
+    with open(twin_out, "rb") as f:
+        twin_res = pickle.load(f)
+    for key, (digest, row) in tiny.items():
+        bad = lsm_mismatches(twin_res["digests"][key], digest)
+        row["equals_cpu_twin"] = not bad
+        if bad:
+            failures["/".join(key)] = bad[:5]
+    key = (LSM_SCALE,) + LSM_TWIN_SCALE_CELL + ("hotspot",)
+    bad = lsm_mismatches(twin_res["digests"][key], scale_digest)
+    if bad:
+        failures["/".join(key)] = bad[:5]
+    by = {r["cell"]: r for r in scale}
+    hot, tiered = by["hotrap/RO/hotspot"], by["rocksdb_tiered/RO/hotspot"]
+    out = {
+        "name": torch.cuda.get_device_name(dev), "power_limit": power,
+        "tiny": [row for _, row in tiny.values()],
+        "tiny_loads_wall_s": tiny_loads,
+        "scale": scale,
+        "scale_note": ("sim_ops_per_s and fd_hit_rate come from StorageSim's "
+                       "device model (paper Table 1), not from the card; "
+                       "wall times, syncs and bytes are the card's"),
+        "reduced": ("default_config('medium'): 64 MiB FD : 640 MiB SD, the "
+                    "paper's 10 GB : 100 GB at about 1/150, ratio kept"),
+        "twin_walls_s": twin_res["walls"], "failures": failures,
+        "phase_s": time.perf_counter() - t_phase}
+    emit("lsm", **out)
+    checks = {
+        "tiny_cells_equal_cpu_twin": all(
+            r["equals_cpu_twin"] for _, r in tiny.values()),
+        "scale_hotrap_ro_equals_cpu_twin": key_ok(failures, key),
+        "engine_tensors_on_cuda": all(
+            r["on_cuda"] and r["tensors"] > 0
+            for r in [row for _, row in tiny.values()] + scale),
+        "scan_views_on_cuda": all(
+            r["group_views"] > 0 for _, r in tiny.values()
+            if "/SR/" in r["cell"]),
+        "hotrap_beats_tiered_throughput":
+            hot["sim_ops_per_s"] > tiered["sim_ops_per_s"],
+        "hotrap_beats_tiered_fd_hit_rate":
+            hot["fd_hit_rate"] > tiered["fd_hit_rate"]}
+    fail_on("lsm", checks)
+    return out
+
+
+def key_ok(failures: dict, key: tuple) -> bool:
+    return "/".join(key) not in failures
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3561,6 +3904,8 @@ def main() -> int:
     placed_phase(dev, power, bf16_tokens)
     torch.cuda.empty_cache()
     plan_line(dev, power)
+    torch.cuda.empty_cache()
+    lsm_phase(dev, power)
     sources = {
         "ralt_update": ("src/repro_torch/csrc/ralt_score.cu",
                         "src/repro/kernels/ralt_score.py:78"),

@@ -1,0 +1,359 @@
+"""Load and run phases of a workload on one `TieredLSM`: the port of
+`repro.core.runner`.
+
+Mirrors the paper's methodology (§4.2): a load phase inserts the whole
+key space (shuffled), then the run phase executes the workload; reported
+throughput is ops / simulated-I/O-bound time over the final 10% of the
+run phase.  `BENCH_SCHEMA` and `RunResult.to_json()` are the
+reference's, field for field.  A sharded cluster is a later slice
+(ROADMAP Queue 1) and raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from ..data.workloads import (OP_INSERT, OP_READ, OP_SCAN, OP_UPDATE,
+                              Workload, load_keys)
+from ..obs import NULL_OBS, TierLatencyHistogram, jsonify
+from .baselines import SHARDS_ITEM, make_system
+from .lsm import LSMConfig, TieredLSM
+from .sstable import KEY_BYTES
+from .storage import MIB
+
+# Version tag for every BENCH_*.json the benchmarks write; bump when a
+# field changes meaning, add freely without bumping.
+BENCH_SCHEMA = "hotrap-bench/1"
+
+
+@dataclasses.dataclass
+class RunResult:
+    system: str
+    n_ops: int
+    sim_seconds: float          # whole run phase
+    tail_window_seconds: float  # final 10% of ops
+    throughput: float           # ops/s over final 10% (paper metric)
+    fd_hit_rate: float
+    latency: TierLatencyHistogram | None  # joint (fd, sd) device-time
+                                          # histogram of final-10%
+                                          # gets/scans (None when off)
+    stats: dict
+    storage: dict
+    scan_fd_hit_rate: float = 0.0   # scanned records served off FD, final 10%
+    scan_merge_ops_per_record: float = 0.0  # cursor pulls + merge compares
+                                            # per scanned record (whole run)
+    # --- effective admission / cluster settings ---
+    range_promo_frac: float = 0.0   # the run's whole-range admission knob
+    n_shards: int = 1               # shard count at the END of the run
+    shard_budget: dict | None = None  # HotBudget knobs (None: unsharded)
+    # --- dynamic repartitioning ---
+    n_repartitions: int = 0         # splits + merges during THIS run
+    migration_bytes: int = 0        # pre-copy reads + install writes
+    repartition: dict | None = None  # Repartitioner snapshot (None: off)
+    # --- durability ---
+    durability: dict | None = None   # WAL/manifest counters (None: off)
+    # --- observability plane ---
+    infl_fd: float = 1.0            # 1/(1-rho_FD): queueing inflation
+    infl_sd: float = 1.0            # 1/(1-rho_SD): applied at quantile
+                                    # time, so the histogram can store
+                                    # raw device deltas during the run
+    attribution: dict | None = None  # attribution summary (None: no obs)
+
+    # Quantiles of infl_fd*fd + infl_sd*sd over the joint histogram —
+    # each term is exact to one log-bin width (ratio ~1.075).
+    @property
+    def p50(self) -> float:
+        return self.latency.percentile(0.50, self.infl_fd, self.infl_sd) \
+            if self.latency is not None else 0.0
+
+    @property
+    def p99(self) -> float:
+        return self.latency.percentile(0.99, self.infl_fd, self.infl_sd) \
+            if self.latency is not None else 0.0
+
+    @property
+    def p999(self) -> float:
+        return self.latency.percentile(0.999, self.infl_fd, self.infl_sd) \
+            if self.latency is not None else 0.0
+
+    @property
+    def mean_latency(self) -> float:
+        h = self.latency
+        if h is None or h.count == 0:
+            return 0.0
+        return (h.sum_fd * self.infl_fd + h.sum_sd * self.infl_sd) / h.count
+
+    def to_json(self) -> dict:
+        """Schema-versioned JSON-safe digest (benchmarks' BENCH_*.json)."""
+        return jsonify({
+            "schema": BENCH_SCHEMA,
+            "system": self.system,
+            "n_ops": self.n_ops,
+            "sim_seconds": self.sim_seconds,
+            "tail_window_seconds": self.tail_window_seconds,
+            "throughput": self.throughput,
+            "fd_hit_rate": self.fd_hit_rate,
+            "scan_fd_hit_rate": self.scan_fd_hit_rate,
+            "scan_merge_ops_per_record": self.scan_merge_ops_per_record,
+            "range_promo_frac": self.range_promo_frac,
+            "n_shards": self.n_shards,
+            "shard_budget": self.shard_budget,
+            "n_repartitions": self.n_repartitions,
+            "migration_bytes": self.migration_bytes,
+            "repartition": self.repartition,
+            "durability": self.durability,
+            "latency": {
+                "p50": self.p50, "p99": self.p99, "p999": self.p999,
+                "mean": self.mean_latency,
+                "infl_fd": self.infl_fd, "infl_sd": self.infl_sd,
+                "hist": self.latency.to_json() if self.latency else None,
+            },
+            "attribution": self.attribution,
+            "stats": self.stats,
+            "storage": self.storage,
+        })
+
+
+def default_config(scale: str = "small") -> LSMConfig:
+    """Laptop-scaled versions of the paper's 10 GB FD : 100 GB SD setup."""
+    if scale == "tiny":        # tests
+        return LSMConfig(fd_size=2 * MIB, sd_size=20 * MIB,
+                         target_sstable_bytes=128 * 1024,
+                         memtable_bytes=128 * 1024,
+                         block_cache_bytes=64 * 1024)
+    if scale == "small":       # default benchmarks
+        return LSMConfig(fd_size=16 * MIB, sd_size=160 * MIB,
+                         target_sstable_bytes=512 * 1024,
+                         memtable_bytes=512 * 1024,
+                         block_cache_bytes=256 * 1024)
+    if scale == "medium":      # --full benchmarks
+        return LSMConfig(fd_size=64 * MIB, sd_size=640 * MIB,
+                         target_sstable_bytes=1 * MIB,
+                         memtable_bytes=1 * MIB,
+                         block_cache_bytes=1 * MIB)
+    raise ValueError(scale)
+
+
+def db_key_count(cfg: LSMConfig, value_len: int) -> int:
+    """#records so the loaded DB is ~ (fd+sd) * 10/11 full (paper: 110 GB
+    into a 10+100 GB hierarchy ≈ fully tiered)."""
+    total = cfg.fd_size + cfg.sd_size
+    return int(total / (KEY_BYTES + value_len))
+
+
+def _check_single(db) -> None:
+    if not isinstance(db, TieredLSM):
+        raise NotImplementedError(
+            f"only a single TieredLSM runs in the port; sharded clusters "
+            f"are not ported yet ({SHARDS_ITEM})")
+
+
+def load_db(db: TieredLSM, n_keys: int, value_len: int, seed: int = 0
+            ) -> None:
+    _check_single(db)
+    for k in load_keys(n_keys, seed):
+        db.put(int(k), value_len)
+    db.flush_all()
+
+
+@dataclasses.dataclass
+class _DriveCtx:
+    """Per-run plumbing shared by `_run_segment` calls."""
+    db: TieredLSM
+    obs: object
+    lat_hist: TierLatencyHistogram | None
+    track_attr: bool
+    collect_latency: bool
+    fresh_value: int
+    results_out: list | None
+
+
+def _run_segment(ctx: _DriveCtx, g0: int, keys: np.ndarray,
+                 scan_lens: np.ndarray, r_mask: np.ndarray,
+                 s_mask: np.ndarray, w_mask: np.ndarray,
+                 tail: bool) -> None:
+    """Execute one visibility-homogeneous workload segment starting at
+    global op index `g0`: point reads flow through one columnar
+    `multi_get`, writes through one `put_many` (seq assignment is
+    order-preserving), scans per op (their extent is data-dependent).
+    Reordering within the segment is sound because the caller's collide
+    check / run-length split guarantees the segment's reads cannot
+    observe its writes."""
+    db = ctx.db
+    obs = ctx.obs
+    r_sel = np.flatnonzero(r_mask)
+    if len(r_sel):
+        lat = (np.zeros((len(r_sel), 2)) if ctx.collect_latency else None)
+        res = db.multi_get(keys[g0 + r_sel], lat_out=lat)
+        if ctx.results_out is not None:
+            ro = ctx.results_out
+            # lint: allow-loop (oracle-capture scatter — tests only;
+            # per-op results are heterogeneous python objects)
+            for j, r in zip(r_sel.tolist(), res):
+                ro[g0 + j] = r
+        if ctx.collect_latency:
+            if tail:
+                ctx.lat_hist.add_many(lat[:, 0], lat[:, 1])
+            if ctx.track_attr:
+                obs.attr.commit_stashed(cutover=False, migrating=False)
+    dev = db.storage.dev
+    # lint: allow-loop (per-scan execution — each range's extent is
+    # data-dependent, so a scan is its own batch)
+    for j in np.flatnonzero(s_mask).tolist():
+        gi = g0 + j
+        f0 = s0 = 0.0
+        if ctx.collect_latency:
+            f0, s0 = dev["FD"].fg_time, dev["SD"].fg_time
+        out = db.scan(int(keys[gi]), int(scan_lens[gi]))
+        if ctx.results_out is not None:
+            ctx.results_out[gi] = out
+        if ctx.collect_latency:
+            fd_d = dev["FD"].fg_time - f0
+            sd_d = dev["SD"].fg_time - s0
+            if tail:
+                ctx.lat_hist.add(fd_d, sd_d)
+            if ctx.track_attr:
+                obs.attr.commit(fd_d + sd_d, cutover=False, migrating=False)
+    w_sel = np.flatnonzero(w_mask)
+    if len(w_sel):
+        seqs = db.put_many(keys[g0 + w_sel], ctx.fresh_value)
+        if ctx.results_out is not None:
+            ro = ctx.results_out
+            # lint: allow-loop (oracle-capture scatter — tests only)
+            for j, q in zip(w_sel.tolist(), np.asarray(seqs).tolist()):
+                ro[g0 + j] = q
+
+
+def run_workload(db, wl: Workload, name: str = "?",
+                 collect_latency: bool = True, chunk_ops: int = 2048,
+                 results_out: list | None = None) -> RunResult:
+    """Drive one workload through a TieredLSM.
+
+    Batched execution: the workload is sliced into struct-of-arrays
+    chunks of `chunk_ops` ops, each grouped by op kind and executed
+    through the engine's columnar batch APIs (`multi_get` moves the
+    chunk's read keys to the engine's device; `put_many`; scans per
+    op).  Chunk edges are forced at the final-10% boundary so the tail
+    accounting snapshot is exact; a chunk whose reads could observe its
+    writes (shared keys, or any scan sharing a chunk with a write) falls
+    back to exact run-length segments in op order.  `results_out`, when
+    given, is extended with each op's outcome in op order (get
+    hit/None, put seq, scan list).
+    """
+    _check_single(db)
+    fresh_value = wl.value_len
+    n = len(wl.ops)
+    tiers = ("FD", "SD")
+    lat_hist = TierLatencyHistogram() if collect_latency else None
+    obs = getattr(db, "_obs", NULL_OBS)
+    track_attr = obs.enabled and obs.attribution and collect_latency
+    obs_on = obs.enabled
+    t10_start_ops = int(n * 0.9)
+    busy90: dict = {}
+    gets90 = hits90 = scanned90 = scan_hits90 = 0
+    ops = np.ascontiguousarray(wl.ops, dtype=np.int64)
+    keys = np.ascontiguousarray(wl.keys, dtype=np.int64)
+    scan_lens = (np.ascontiguousarray(wl.scan_lens, dtype=np.int64)
+                 if wl.scan_lens is not None
+                 else np.zeros(n, dtype=np.int64))
+    if results_out is not None:
+        results_out.extend([None] * n)
+    ctx = _DriveCtx(db=db, obs=obs, lat_hist=lat_hist,
+                    track_attr=track_attr, collect_latency=collect_latency,
+                    fresh_value=fresh_value, results_out=results_out)
+    step = max(int(chunk_ops), 1)
+    cuts = sorted({t10_start_ops, n} | set(range(0, n, step)))
+    # lint: allow-loop (batch-bounded: one iteration per chunk of
+    # `chunk_ops` ops, executed through the engine's columnar
+    # multi_get/put_many batch calls below)
+    for c0, c1 in zip(cuts[:-1], cuts[1:]):
+        if c0 == t10_start_ops:
+            busy90 = {t: db.storage.dev[t].busy for t in tiers}
+            s = db.stats
+            gets90 = s.gets
+            hits90 = s.served_mem + s.served_fd + s.served_pc
+            scanned90 = s.scanned_records
+            scan_hits90 = (s.scan_served_mem + s.scan_served_fd
+                           + s.scan_served_pc)
+        co = ops[c0:c1]
+        w_mask = (co == OP_INSERT) | (co == OP_UPDATE)
+        r_mask = co == OP_READ
+        s_mask = co == OP_SCAN
+        tail = c0 >= t10_start_ops
+        # a whole chunk reorders into read/scan/write batches only when
+        # its reads provably cannot observe its writes
+        collide = w_mask.any() and (
+            s_mask.any()
+            or bool(np.isin(keys[c0:c1][r_mask],
+                            keys[c0:c1][w_mask]).any()))
+        if collide:
+            flips = np.flatnonzero(np.diff(w_mask.astype(np.int8))) + 1
+            edges = [0, *flips.tolist(), c1 - c0]
+            # lint: allow-loop (data-dependent run-length segmentation
+            # of a read/write-colliding chunk — rare; segments stay
+            # batched)
+            for a, b in zip(edges[:-1], edges[1:]):
+                _run_segment(ctx, c0 + a, keys, scan_lens,
+                             r_mask[a:b], s_mask[a:b], w_mask[a:b],
+                             tail)
+        else:
+            _run_segment(ctx, c0, keys, scan_lens, r_mask, s_mask,
+                         w_mask, tail)
+        if obs_on:
+            obs.on_ops(db, c1 - c0)
+    st = db.storage
+    total = st.sim_time
+    # Throughput = ops in window / bottleneck-device work in the window.
+    window = max(max(st.dev[t].busy - busy90.get(t, 0.0) for t in tiers),
+                 1e-12)
+    thr = (n - t10_start_ops) / window
+    # Tail latency (paper Fig. 8 metric: final 10% of the run): service
+    # time inflated by steady-state device utilisation (M/M/1-style
+    # 1/(1-rho)) — a saturated device queues, an idle one does not.
+    infl = {"FD": 1.0, "SD": 1.0}
+    if collect_latency:
+        # lint: allow-loop (two fixed tiers, not per-op data)
+        for t in tiers:
+            busy_t = st.dev[t].busy - busy90.get(t, 0.0)
+            rho = min(busy_t / window, 0.95)
+            infl[t] = 1.0 / (1.0 - rho)
+    # paper metric: FD hit rate over the *final 10%* of the run phase
+    stats = db.stats
+    gets_w = stats.gets - gets90
+    hits_w = (stats.served_mem + stats.served_fd
+              + stats.served_pc) - hits90
+    hit_final = hits_w / gets_w if gets_w else stats.fd_hit_rate
+    scanned_w = stats.scanned_records - scanned90
+    scan_hits_w = (stats.scan_served_mem + stats.scan_served_fd
+                   + stats.scan_served_pc) - scan_hits90
+    scan_hit_final = (scan_hits_w / scanned_w if scanned_w
+                      else stats.scan_fd_hit_rate)
+    attr_snap = obs.attr.summary() if track_attr else None
+    return RunResult(
+        system=name, n_ops=n, sim_seconds=total,
+        tail_window_seconds=window, throughput=thr,
+        fd_hit_rate=hit_final,
+        latency=lat_hist,
+        infl_fd=infl["FD"], infl_sd=infl["SD"],
+        attribution=attr_snap,
+        stats=dataclasses.asdict(stats),
+        storage=st.snapshot(),
+        scan_fd_hit_rate=scan_hit_final,
+        scan_merge_ops_per_record=stats.scan_merge_ops_per_record,
+        range_promo_frac=float(db.cfg.range_promo_frac),
+        n_shards=1, shard_budget=None, n_repartitions=0,
+        migration_bytes=0, repartition=None, durability=None)
+
+
+def bench_system(system: str, mix: str, dist, n_ops: int, value_len: int,
+                 scale: str = "small", seed: int = 0,
+                 cfg: LSMConfig | None = None, *,
+                 device=None) -> RunResult:
+    from ..data.workloads import ycsb
+    cfg = cfg or default_config(scale)
+    db = make_system(system, cfg, seed=seed, device=device)
+    n_keys = dist.n_keys
+    load_db(db, n_keys, value_len, seed)
+    wl = ycsb(mix, dist, n_ops, value_len, seed)
+    return run_workload(db, wl, name=system)

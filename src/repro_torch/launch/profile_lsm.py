@@ -1,0 +1,107 @@
+"""Host cost of the HotRAP engine (`repro_torch.core`) by function.
+
+    PYTHONPATH=src python -m repro_torch.launch.profile_lsm \\
+        [--system hotrap] [--mix RO] [--dist hotspot] [--scale medium] \\
+        [--ops 20000] [--device cuda]
+
+Loads `--system` at `runner.default_config(--scale)` with 1,000-byte
+values (timed), then drives `--ops` ops of the YCSB mix twice, each time
+on a copy of the loaded engine (`copy.deepcopy`: its tensors cloned on
+the device; the copy is not timed): once under cProfile (the run's wall
+under the profiler, and the functions of `repro_torch` with the most
+cumulative time), once counting the host syncs CUDA's sync debug mode
+reports.  On the CPU the engine runs on one torch thread.  Prints the
+card's name and power limit (on CUDA), then one JSON line.  It profiles
+whatever `repro_torch` is on the path, so `PYTHONPATH=<tree>/src`
+measures another tree.
+"""
+from __future__ import annotations
+
+import argparse
+import copy
+import cProfile
+import json
+import pstats
+import subprocess
+import time
+import warnings
+
+import torch
+
+from ..core import runner
+from ..data import workloads
+
+
+def _run(loaded, args, n_keys: int):
+    """The workload on a copy of the loaded engine (the copy untimed)."""
+    db = copy.deepcopy(loaded)
+    wl = workloads.ycsb(args.mix, workloads.KeyDist(args.dist, n_keys),
+                        args.ops, 1000, seed=0)
+    t0 = time.perf_counter()
+    res = runner.run_workload(db, wl, name=args.system)
+    if db.device.type == "cuda":
+        torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--system", default="hotrap")
+    ap.add_argument("--mix", default="RO")
+    ap.add_argument("--dist", default="hotspot")
+    ap.add_argument("--scale", default="medium")
+    ap.add_argument("--ops", type=int, default=20_000)
+    ap.add_argument("--device", default=None)
+    ap.add_argument("--top", type=int, default=25)
+    args = ap.parse_args(argv)
+    cfg = runner.default_config(args.scale)
+    n_keys = runner.db_key_count(cfg, 1000)
+    db = runner.make_system(args.system, cfg, device=args.device)
+    cuda = db.device.type == "cuda"
+    if not cuda:
+        torch.set_num_threads(1)     # many small ops: a pool costs more
+    t0 = time.perf_counter()
+    runner.load_db(db, n_keys, 1000)
+    if cuda:
+        torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    prof = cProfile.Profile()
+    prof.enable()
+    res, wall = _run(db, args, n_keys)
+    prof.disable()
+    stats = pstats.Stats(prof).stats
+    rows = sorted(((v[3], v[2], v[1], f"{k[0].split('repro_torch/')[-1]}:"
+                    f"{k[1]}({k[2]})") for k, v in stats.items()
+                   if "repro_torch" in k[0]), reverse=True)
+    out = {"system": args.system, "mix": args.mix, "dist": args.dist,
+           "scale": args.scale, "keys": n_keys, "ops": args.ops,
+           "device": str(db.device), "load_s": load_s, "run_s": wall,
+           "us_per_op": wall / args.ops * 1e6,
+           "fd_hit_rate": res.fd_hit_rate, "sim_ops_per_s": res.throughput,
+           "top_cumulative": [{"fn": name, "cum_s": cum, "self_s": own,
+                               "calls": calls}
+                              for cum, own, calls, name in rows[:args.top]]}
+    if cuda:
+        count = [0]
+
+        def seen(message, *a, **kw):
+            count[0] += "synchroniz" in str(message)
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = seen
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                _run(db, args, n_keys)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        out["syncs_per_op"] = count[0] / args.ops
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True,
+            text=True).stdout.strip())
+    print(json.dumps(out))
+
+
+if __name__ == "__main__":
+    main()

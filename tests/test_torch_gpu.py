@@ -1242,3 +1242,41 @@ def test_expert_cache_on_card_matches_cpu(cuda):
         if e >= 0:
             assert torch.equal(ecs[1].cache[s].cpu(), blobs[e])
     assert ecs[1].clock.promoted > 0
+
+
+@pytest.mark.parametrize("system,mix", [
+    ("hotrap", "RO"), ("hotrap", "UH"), ("hotrap", "SR"),
+    ("rocksdb_tiered", "RW"), ("rocksdb_fd", "WH"),
+    ("hotrap_noretain", "UH"), ("hotrap_nohotcheck", "RO")])
+def test_lsm_engine_on_card_matches_cpu(cuda, system, mix):
+    """The HotRAP engine (`repro_torch.core`) loaded and driven on the
+    card and on the CPU: the same RunResult (floats bit for bit), every
+    op's outcome, each level's runs, then the same answers to scalar
+    gets, deletes and scans; every engine tensor on the card."""
+    import dataclasses
+    import pickle
+
+    from repro_torch.core import runner
+    from repro_torch.data import workloads
+    cfg = dataclasses.replace(runner.default_config("tiny"),
+                              sd_size=8 << 20)
+    n_keys = runner.db_key_count(cfg, 1000)
+    wl = workloads.ycsb(mix, workloads.KeyDist("hotspot", n_keys),
+                        600 if mix == "SR" else 4000, 1000, seed=1)
+    got = []
+    for device in ("cpu", cuda):
+        db = runner.make_system(system, cfg, device=device)
+        runner.load_db(db, n_keys, 1000)
+        db = pickle.loads(pickle.dumps(db))
+        outs: list = []
+        res = runner.run_workload(db, wl, name=system, results_out=outs)
+        rng = np.random.default_rng(2)
+        scalar = [db.scan(k, 20) if k % 5 == 0 else
+                  db.delete(k) if k % 7 == 0 else db.get(k)
+                  for k in rng.integers(0, n_keys, 200).tolist()]
+        got.append((res.to_json(), outs, scalar, [
+            [(s.tier, s.keys.tolist(), s.seqs.tolist(), s.vlens.tolist())
+             for s in level] for level in db.levels],
+            dataclasses.asdict(db.stats), db.storage.snapshot()))
+    assert got[1] == got[0]
+    assert all(t.is_cuda for t in db.tensors())

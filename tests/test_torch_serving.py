@@ -335,7 +335,10 @@ for name in ("repro_torch.launch.train", "repro_torch.launch.steps",
              "repro_torch.distributed.compression",
              "repro_torch.distributed.pipeline",
              "repro_torch.distributed.placement", "repro_torch.launch.plan",
-             "repro_torch.launch.profile_placed"):
+             "repro_torch.launch.profile_placed",
+             "repro_torch.core.lsm", "repro_torch.core.ralt",
+             "repro_torch.core.runner", "repro_torch.core.baselines",
+             "repro_torch.data.workloads", "repro_torch.obs.metrics"):
     assert name in sys.modules, name
 print(len(names), "modules")
 """

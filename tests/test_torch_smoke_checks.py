@@ -139,3 +139,64 @@ def test_placed_check_rejects_a_conv_block_one_channel_off():
         off = [dict(c) for c in mine]
         off[0]["conv"] = want[0]["conv"][:, :, start:start + cb].clone()
         assert max(cs.cache_block_err(plan, off, want, rank).values()) > 1e-5
+
+
+# ----------------------------------------------------------------------
+# the lsm phase's comparison of the card's runs against the CPU twin's
+# ----------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def lsm_digest():
+    """A tiny HotRAP run's digest: 600 hotspot ops of the RW mix (gets,
+    puts), its RunResult and its levels."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)       # the engine's small ops: one thread
+    try:
+        db, n_keys, _ = cs.lsm_load("hotrap", "tiny", "cpu")
+        runs = [cs.lsm_run(db, "hotrap", "RW", "hotspot", n_keys, 600)
+                for _ in range(2)]
+    finally:
+        torch.set_num_threads(threads)
+    return tuple(cs.lsm_digest(db, res, outs)
+                 for db, res, outs, _, _ in runs)
+
+
+def test_lsm_check_passes_a_twin(lsm_digest):
+    want, got = lsm_digest
+    assert len(want["outcomes"]["gets"]) > 300
+    assert cs.lsm_mismatches(want, got) == []
+
+
+def test_lsm_check_rejects_a_one_ulp_float(lsm_digest):
+    """One RunResult float one ulp off (the throughput, then a latency
+    quantile deep in the tree) is a mismatch."""
+    import copy
+    want, _ = lsm_digest
+    for path in (("throughput",), ("latency", "p99")):
+        got = copy.deepcopy(want)
+        node = got["result"]
+        for k in path[:-1]:
+            node = node[k]
+        node[path[-1]] = float(np.nextafter(node[path[-1]], np.inf))
+        bad = cs.lsm_mismatches(want, got)
+        assert len(bad) == 1 and path[-1] in bad[0], bad
+
+
+def test_lsm_check_rejects_one_differing_get(lsm_digest):
+    import copy
+    want, _ = lsm_digest
+    for col in (0, 1):            # its seq, then its vlen
+        got = copy.deepcopy(want)
+        got["outcomes"]["gets"][123, col] += 1
+        bad = cs.lsm_mismatches(want, got)
+        assert bad == [f"outcomes/gets[123]: "
+                       f"{want['outcomes']['gets'][123].tolist()} != "
+                       f"{got['outcomes']['gets'][123].tolist()}"], bad
+
+
+def test_lsm_check_rejects_a_differing_run(lsm_digest):
+    import copy
+    want, _ = lsm_digest
+    got = copy.deepcopy(want)
+    li = next(i for i, lvl in enumerate(got["levels"]) if lvl)
+    got["levels"][li][0][3][7] += 1           # one seq of one table
+    assert cs.lsm_mismatches(want, got) == [f"levels[{li}][0] differs"]
