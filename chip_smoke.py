@@ -159,7 +159,19 @@ twenty phases, each printing one JSON line:
            walls, µs an op, host syncs an op (over a clone's first 20,000
            ops), the engine's device bytes and the peak, StorageSim's
            simulated ops/s and FD hit rate; HotRAP's RO run against its
-           CPU twin, and HotRAP above `rocksdb_tiered` in both.
+           CPU twin, and HotRAP above `rocksdb_tiered` in both.  Then
+           durability and clusters, each against the twin (RunResult,
+           every op's outcome, every shard's levels, memtables, seq,
+           fences, WAL state, topology records, `recovery_info`): tiny
+           `hotrap` with the WAL crashed mid-flush, mid-compaction and
+           mid-promotion-install during 20,000 RW ops, recovered, then
+           2,000 more ops; 4 hash shards with HotBudget under RO, RW and
+           SR; 2 range shards with the WAL forced through a split and a
+           merge, and crashed mid-migration-stream and mid-cutover; at
+           `medium` the `configs/hotrap_kv.py` cluster shape with the
+           WAL: HotRAP RW against the twin, HotRAP and `rocksdb_tiered`
+           RO timed, with the WAL counters and the bytes the manifests'
+           registries keep on the card.
 
 Kernel launches are counted from zero in each of the serve, tiered,
 tracker, prefill, train and int8 runs, in each part of the mamba2, moe,
@@ -269,6 +281,19 @@ LSM_TINY_CELLS = ([(s, m, "hotspot") for s in ("hotrap", "rocksdb_tiered")
                   + [("hotrap", "RO", "zipfian"), ("hotrap", "RO", "uniform")])
 LSM_TWIN_SCALE_CELL, LSM_TWIN_DEADLINE = ("hotrap", "RO"), 600
 LSM_SCALE = "medium"
+# lsm durability and clusters: `hotrap` with the WAL at tiny, 20,000
+# hotspot-5% RW ops with one site armed to crash at its visit in
+# LSM_WAL_HITS (about half of the run's visits), recovery, then
+# LSM_AFTER_OPS more ops; 4 hash shards with HotBudget at tiny under the
+# mixes of LSM_CLUSTER_OPS; a 2-shard range cluster with the WAL, through
+# a forced split and merge in LSM_SEGMENT_OPS-op segments, and crashed
+# at each migration site; at medium the cluster shape of
+# `configs.hotrap_kv.shard_config()` with the WAL
+LSM_WAL_HITS = {"mid-flush": 20, "mid-compaction": 88,
+                "mid-promotion-install": 9}
+LSM_MIGRATION_SITES = ("mid-migration-stream", "mid-cutover")
+LSM_AFTER_OPS, LSM_SEGMENT_OPS = 2_000, 5_000
+LSM_CLUSTER_OPS = {"RO": 20_000, "RW": 20_000, "SR": 1_000}
 
 
 def emit(phase: str, **fields) -> None:
@@ -3535,6 +3560,12 @@ def json_mismatches(want, got, path: str = "") -> list[str]:
     mismatch."""
     if type(want) is not type(got):
         return [f"{path}: {type(want).__name__} != {type(got).__name__}"]
+    if isinstance(want, np.ndarray):
+        if want.shape != got.shape:
+            return [f"{path}: shape {want.shape} != {got.shape}"]
+        bad = np.flatnonzero((want != got).reshape(-1))
+        return ([f"{path}[{int(bad[0])}]: {want.reshape(-1)[bad[0]]!r} != "
+                 f"{got.reshape(-1)[bad[0]]!r}"] if len(bad) else [])
     if isinstance(want, dict):
         out = [f"{path}/{k}: missing" for k in
                sorted(set(want).symmetric_difference(got), key=str)]
@@ -3604,6 +3635,63 @@ def lsm_mismatches(want: dict, got: dict) -> list[str]:
     return out
 
 
+def host_ints(a) -> np.ndarray:
+    """A tensor's or an array's values as a host int64 array."""
+    if isinstance(a, torch.Tensor):
+        a = a.cpu().numpy()
+    return np.asarray(a).astype(np.int64)
+
+
+def shard_digest(db) -> dict:
+    """One engine's state that recovery, sharding and migration must
+    reproduce: each level's tables by content and position (never by
+    sid), the memtables, `seq`, the current Version's pins, and with a
+    WAL its durable half (the synced records, the counters, the
+    horizon) and `recovery_info`."""
+    d = {"levels": [[(s.tier, s.level, host_ints(s.keys), host_ints(s.seqs),
+                      host_ints(s.vlens)) for s in level]
+                    for level in db.levels],
+         "memtable": sorted(db.memtable.items()),
+         "imm_memtables": [sorted(m.items()) for m in db.imm_memtables],
+         "seq": db.seq, "version_refs": db.version.refs}
+    dur = db.durability
+    if dur is not None:
+        wal, man = dur.wal, dur.manifest
+        d["durable"] = {
+            "horizon": dur.horizon(), "durable_seq": wal.durable_seq,
+            "synced": [list(r) for r in wal._synced],
+            "buffered": len(wal._buffer),
+            "appended_records": wal.appended_records, "syncs": wal.syncs,
+            "synced_bytes": wal.synced_bytes, "manifest_edits": man.edits,
+            "flushed_through": man.flushed_through,
+            "inherited_seq": dur.inherited_seq, "retired": dur.retired}
+    info = getattr(db, "recovery_info", None)
+    if info is not None:
+        d["recovery_info"] = dict(info)
+    return d
+
+
+def engine_digest(db) -> dict:
+    """`shard_digest` of an engine, or of every shard of a cluster with
+    its fences, cluster seq, topology records, repartitioner and
+    arbiter state and `recovery_info`."""
+    if not hasattr(db, "shards"):
+        return shard_digest(db)
+    d = {"shards": [shard_digest(sh) for sh in db.shards],
+         "bounds": [int(b) for b in db._bounds_list],
+         "global_seq": db.global_seq}
+    if db.durability is not None:
+        d["topology"] = [dict(r) for r in db.durability.topology]
+    if db.repartitioner is not None:
+        d["repartition"] = db.repartitioner.snapshot()
+    if db.hot_budget is not None:
+        d["hot_budget"] = db.hot_budget.snapshot()
+    info = getattr(db, "recovery_info", None)
+    if info is not None:
+        d["recovery_info"] = dict(info)
+    return d
+
+
 def count_syncs(fn):
     """(fn(), the host syncs it made), counted by CUDA's sync debug
     mode's warnings."""
@@ -3624,13 +3712,18 @@ def count_syncs(fn):
     return out, count[0]
 
 
-def lsm_load(system: str, scale: str, device) -> tuple:
-    """A loaded engine of `system` at `scale` and its load's wall
-    seconds (deep copies give each cell the same start)."""
-    from repro_torch.core import runner
-    cfg = runner.default_config(scale)
+def lsm_load(system: str, scale: str, device, shard_cfg=None,
+             **overrides) -> tuple:
+    """A loaded engine of `system` at `scale` (a cluster when
+    `shard_cfg`, a function of the key count, gives its ShardConfig;
+    `overrides` replace LSMConfig fields) and its load's wall seconds
+    (deep copies give each cell the same start)."""
+    from repro_torch.core import baselines, runner
+    cfg = dataclasses.replace(runner.default_config(scale), **overrides)
     n_keys = runner.db_key_count(cfg, LSM_VALUE)
-    db = runner.make_system(system, cfg, device=device)
+    db = (baselines.make_system(system, cfg, device=device)
+          if shard_cfg is None else baselines.make_sharded_system(
+              system, cfg, shard_cfg(n_keys), device=device))
     t0 = time.perf_counter()
     runner.load_db(db, n_keys, LSM_VALUE)
     if db.device.type == "cuda":
@@ -3665,6 +3758,216 @@ def lsm_run(loaded, system: str, mix: str, dist: str, n_keys: int,
     return db, res, outcomes, time.perf_counter() - t0, n_syncs
 
 
+def lsm_workload(mix: str, n_keys: int, n_ops: int, seed: int):
+    from repro_torch.data import workloads
+    return workloads.ycsb(mix, workloads.KeyDist("hotspot", n_keys), n_ops,
+                          LSM_VALUE, seed=seed)
+
+
+def synced(db) -> None:
+    if db.device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def run_digest(db, result, outcomes: list) -> dict:
+    """What a cluster or recovery cell must reproduce: the run's
+    `RunResult.to_json()`, every op's outcome and the engine's state
+    (`engine_digest`); compared with `json_mismatches`."""
+    return {"result": result.to_json(), "outcomes": lsm_outcomes(outcomes),
+            "engine": engine_digest(db)}
+
+
+def on_card_rows(db) -> dict:
+    """Every tensor of an engine or of every shard of a cluster, and of
+    the tables its manifests keep (the WAL's registry), and whether all
+    of them lie on the card; their distinct bytes."""
+    from repro_torch.core.sstable import storage_bytes
+    shards = getattr(db, "shards", [db])
+    reg = [t for sh in shards if sh.durability is not None
+           for sst in sh.durability.manifest.sstables.values()
+           for t in sst.tensors()]
+    ts = db.tensors()
+    return {"tensors": len(ts), "on_cuda": all(t.is_cuda for t in ts + reg),
+            "device_bytes": db.device_bytes(),
+            "registry_bytes": storage_bytes(reg)}
+
+
+def wal_cell(loaded, n_keys: int, site: str) -> tuple:
+    """`site` armed at its LSM_WAL_HITS-th visit during 20,000 RW ops on a
+    clone of a loaded WAL engine, `TieredLSM.recover`, then
+    LSM_AFTER_OPS more ops: (digest, row, recovered engine)."""
+    import copy
+
+    from repro_torch.core import crashpoints, runner
+    db = copy.deepcopy(loaded)
+    wl = lsm_workload("RW", n_keys, LSM_TINY_OPS, 0)
+    more = lsm_workload("RW", n_keys, LSM_AFTER_OPS, 1)
+    before, after = [], []
+    t0 = time.perf_counter()
+    crashed, rec = crashpoints.crash_recover(
+        db, lambda d: runner.run_workload(d, wl, name="hotrap",
+                                          results_out=before),
+        site, LSM_WAL_HITS[site])
+    recovered = engine_digest(rec)
+    res = runner.run_workload(rec, more, name="hotrap", results_out=after)
+    synced(rec)
+    wall = time.perf_counter() - t0
+    digest = {"crashed": crashed, "before": lsm_outcomes(before),
+              "recovered": recovered, "after": run_digest(rec, res, after)}
+    return digest, {"cell": f"wal/{site}", "crashed": crashed,
+                    "wall_s": wall, "recovery": rec.recovery_info,
+                    **on_card_rows(rec)}, rec
+
+
+def split_merge_cell(loaded, n_keys: int) -> tuple:
+    """Three RW segments on a clone of the loaded range cluster: a split
+    of shard 0 forced before the second (its cutover lands inside it), a
+    merge of shards 1 and 2 before the third."""
+    import copy
+
+    from repro_torch.core import runner
+    db = copy.deepcopy(loaded)
+    rep = db.repartitioner
+    parts = []
+    t0 = time.perf_counter()
+    for seg in range(3):
+        if seg == 1:
+            assert rep.force_split(0)
+        if seg == 2:
+            rep.drain()
+            assert rep.force_merge(1)
+        outs: list = []
+        res = runner.run_workload(db, lsm_workload("RW", n_keys,
+                                                   LSM_SEGMENT_OPS, seg),
+                                  name="hotrap", results_out=outs)
+        parts.append(run_digest(db, res, outs))
+    rep.drain()
+    synced(db)
+    row = {"cell": "range2/split+merge", "wall_s": time.perf_counter() - t0,
+           "splits": rep.n_splits, "merges": rep.n_merges,
+           "bounds": list(db._bounds_list), **on_card_rows(db)}
+    return {"segments": parts, "engine": engine_digest(db)}, row, db
+
+
+def migration_crash_cell(loaded, n_keys: int, site: str) -> tuple:
+    """A split of shard 0 forced after one RW segment on a clone of the
+    loaded range cluster, `site` armed during the next; then
+    `ShardedTieredLSM.recover` and LSM_AFTER_OPS more ops."""
+    import copy
+
+    from repro_torch.core import crashpoints, runner
+    db = copy.deepcopy(loaded)
+    before, after = [], []
+
+    def drive(d):
+        runner.run_workload(d, lsm_workload("RW", n_keys, LSM_SEGMENT_OPS,
+                                            0), results_out=before)
+        assert d.repartitioner.force_split(0)
+        runner.run_workload(d, lsm_workload("RW", n_keys, LSM_SEGMENT_OPS,
+                                            1), results_out=before)
+
+    t0 = time.perf_counter()
+    crashed, rec = crashpoints.crash_recover(db, drive, site)
+    recovered = engine_digest(rec)
+    res = runner.run_workload(rec, lsm_workload("RW", n_keys, LSM_AFTER_OPS,
+                                                2), results_out=after)
+    synced(rec)
+    digest = {"crashed": crashed, "before": lsm_outcomes(before),
+              "recovered": recovered, "after": run_digest(rec, res, after)}
+    return digest, {"cell": f"range2/{site}", "crashed": crashed,
+                    "wall_s": time.perf_counter() - t0,
+                    "recovery": rec.recovery_info,
+                    "version_refs": [sh.version.refs for sh in rec.shards],
+                    **on_card_rows(rec)}, rec
+
+
+def hash4(n_keys: int):
+    from repro_torch.core.shards import ShardConfig
+    return ShardConfig(n_shards=4)
+
+
+def range2(n_keys: int):
+    """Two range shards over the loaded keys, split and merged only when
+    forced, the migration stream at its default rate."""
+    from repro_torch.core.shards import ShardConfig
+    return ShardConfig(n_shards=2, partitioning="range", key_space=n_keys,
+                       repartition=True, repartition_interval_ops=10 ** 9)
+
+
+def kv_shape(n_keys: int):
+    """`configs/hotrap_kv.py`'s cluster shape (4 hash shards, HotBudget)."""
+    from repro_torch.configs import hotrap_kv
+    return hotrap_kv.shard_config()
+
+
+def durable_cluster_cells(device, card: bool = False) -> tuple:
+    """The WAL and cluster cells of the lsm phase on `device`: ({key:
+    digest}, [row]); the twin runs them on the CPU with `card` False,
+    which skips the timed-only runs (`rocksdb_tiered`, HotRAP RO at
+    medium) and the sync counts."""
+    digests, rows = {}, []
+    loaded, n_keys, load_s = lsm_load("hotrap", "tiny", device, wal=True)
+    rows.append({"cell": "wal/load", "wall_s": load_s})
+    for site in LSM_WAL_HITS:
+        digests[("wal", site)], row, _ = wal_cell(loaded, n_keys, site)
+        rows.append(row)
+    loaded, n_keys, load_s = lsm_load("hotrap", "tiny", device, hash4)
+    rows.append({"cell": "hash4/load", "wall_s": load_s})
+    for mix, n_ops in LSM_CLUSTER_OPS.items():
+        db, res, outs, wall, _ = lsm_run(loaded, "hotrap", mix, "hotspot",
+                                         n_keys, n_ops)
+        digests[("hash4", mix)] = run_digest(db, res, outs)
+        rows.append({"cell": f"hash4/{mix}", "ops": n_ops, "wall_s": wall,
+                     "us_per_op": wall / n_ops * 1e6,
+                     "rebalances": db.hot_budget.n_rebalances,
+                     "shares": db.hot_budget.snapshot()["shares"],
+                     **on_card_rows(db)})
+    loaded, n_keys, load_s = lsm_load("hotrap", "tiny", device, range2,
+                                      wal=True)
+    rows.append({"cell": "range2/load", "wall_s": load_s})
+    digests[("range2", "split+merge")], row, _ = split_merge_cell(loaded,
+                                                                 n_keys)
+    rows.append(row)
+    for site in LSM_MIGRATION_SITES:
+        digests[("range2", site)], row, _ = migration_crash_cell(
+            loaded, n_keys, site)
+        rows.append(row)
+    del loaded
+    scale = []
+    if card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    systems = ("hotrap", "rocksdb_tiered") if card else ("hotrap",)
+    for system in systems:
+        loaded, n_keys, load_s = lsm_load(system, LSM_SCALE, device,
+                                          kv_shape, wal=True)
+        for mix in (("RW", "RO") if system == "hotrap" else ("RO",)):
+            if not card and mix == "RO":
+                continue
+            db, res, outs, wall, _ = lsm_run(loaded, system, mix, "hotspot",
+                                             n_keys, LSM_SCALE_OPS)
+            if mix == "RW":
+                digests[(LSM_SCALE, "kv4", mix)] = run_digest(db, res, outs)
+            row = {"cell": f"{LSM_SCALE}/kv4/{system}/{mix}",
+                   "keys": n_keys, "ops": LSM_SCALE_OPS,
+                   "load_wall_s": load_s, "run_wall_s": wall,
+                   "us_per_op": wall / LSM_SCALE_OPS * 1e6,
+                   "sim_ops_per_s": res.throughput,
+                   "fd_hit_rate": res.fd_hit_rate,
+                   "durability": res.durability, **on_card_rows(db)}
+            del db
+            if card:
+                _, _, _, _, n_syncs = lsm_run(loaded, system, mix, "hotspot",
+                                              n_keys, LSM_SYNC_OPS,
+                                              syncs=True)
+                row["syncs_per_op"] = n_syncs / LSM_SYNC_OPS
+                row["max_memory_allocated"] = \
+                    torch.cuda.max_memory_allocated(device)
+            scale.append(row)
+        del loaded
+    return digests, rows, scale
+
+
 def lsm_twin(out_path: str) -> None:
     """The CPU twin of the lsm phase's checked cells: every tiny cell and
     the scale cell held to it, their digests pickled to `out_path`."""
@@ -3689,6 +3992,11 @@ def lsm_twin(out_path: str) -> None:
     digests[(LSM_SCALE, system, mix, "hotspot")] = lsm_digest(db, res,
                                                                outs)
     walls[f"{LSM_SCALE}/{system}/{mix}"] = wall
+    del db
+    new, rows, scale = durable_cluster_cells("cpu")
+    digests.update(new)
+    walls.update({r["cell"]: r.get("wall_s", r.get("run_wall_s"))
+                  for r in rows + scale})
     with open(out_path, "wb") as f:
         pickle.dump({"digests": digests, "walls": walls}, f)
 
@@ -3785,6 +4093,12 @@ def lsm_cells(dev, power: str, twin, twin_out: Path) -> dict:
                 "fd_hit_rate": res.fd_hit_rate, **engine_on_card(db),
                 "max_memory_allocated": torch.cuda.max_memory_allocated(dev)})
             del db
+    del loaded
+    torch.cuda.empty_cache()
+    t_durable = time.perf_counter()
+    durable, durable_rows, durable_scale = durable_cluster_cells(dev,
+                                                                 card=True)
+    durable_s = time.perf_counter() - t_durable
     # the CPU twin has run beside the card's cells
     try:
         twin.wait(timeout=LSM_TWIN_DEADLINE)
@@ -3804,6 +4118,11 @@ def lsm_cells(dev, power: str, twin, twin_out: Path) -> dict:
     bad = lsm_mismatches(twin_res["digests"][key], scale_digest)
     if bad:
         failures["/".join(key)] = bad[:5]
+    for dkey, digest in durable.items():
+        bad = json_mismatches(twin_res["digests"][dkey], digest)
+        if bad:
+            failures["/".join(dkey)] = bad[:5]
+    rows_by = {r["cell"]: r for r in durable_rows}
     by = {r["cell"]: r for r in scale}
     hot, tiered = by["hotrap/RO/hotspot"], by["rocksdb_tiered/RO/hotspot"]
     out = {
@@ -3816,6 +4135,16 @@ def lsm_cells(dev, power: str, twin, twin_out: Path) -> dict:
                        "wall times, syncs and bytes are the card's"),
         "reduced": ("default_config('medium'): 64 MiB FD : 640 MiB SD, the "
                     "paper's 10 GB : 100 GB at about 1/150, ratio kept"),
+        "durable": durable_rows, "durable_scale": durable_scale,
+        "durable_s": durable_s,
+        "durable_note": ("wal/*: hotrap with the WAL at tiny, crashed at the "
+                         "site, recovered, 2,000 more ops; hash4: 4 hash "
+                         "shards with HotBudget at tiny; range2: 2 range "
+                         "shards with the WAL, split+merge forced, crashed "
+                         "at each migration site; medium/kv4: "
+                         "configs/hotrap_kv.shard_config()'s shape over "
+                         "default_config('medium') with the WAL; "
+                         "registry_bytes: the tables the manifests keep"),
         "twin_walls_s": twin_res["walls"], "failures": failures,
         "phase_s": time.perf_counter() - t_phase}
     emit("lsm", **out)
@@ -3832,7 +4161,26 @@ def lsm_cells(dev, power: str, twin, twin_out: Path) -> dict:
         "hotrap_beats_tiered_throughput":
             hot["sim_ops_per_s"] > tiered["sim_ops_per_s"],
         "hotrap_beats_tiered_fd_hit_rate":
-            hot["fd_hit_rate"] > tiered["fd_hit_rate"]}
+            hot["fd_hit_rate"] > tiered["fd_hit_rate"],
+        "durable_cells_equal_cpu_twin": not any(
+            "/".join(k) in failures for k in durable),
+        "medium_kv4_rw_equals_cpu_twin": key_ok(
+            failures, (LSM_SCALE, "kv4", "RW")),
+        "every_armed_site_fired": all(
+            rows_by[f"wal/{site}"]["crashed"] for site in LSM_WAL_HITS)
+            and all(rows_by[f"range2/{site}"]["crashed"]
+                    for site in LSM_MIGRATION_SITES),
+        "split_and_merge_ran": (rows_by["range2/split+merge"]["splits"],
+                                rows_by["range2/split+merge"]["merges"])
+            == (1, 1),
+        "no_version_ref_leaks_after_migration_crashes": all(
+            rows_by[f"range2/{site}"]["version_refs"]
+            == [1] * len(rows_by[f"range2/{site}"]["version_refs"])
+            for site in LSM_MIGRATION_SITES),
+        "durable_tensors_on_cuda": all(
+            r["on_cuda"] and r["tensors"] > 0
+            for r in durable_scale + [r for r in durable_rows
+                                      if "on_cuda" in r])}
     fail_on("lsm", checks)
     return out
 

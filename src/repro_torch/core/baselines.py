@@ -9,9 +9,12 @@ benchmark come only from the tiering/promotion policy:
   hotrap_noretain  — Table 3 ablation (promotion only)
   hotrap_nohotcheck— Table 4 ablation (promote everything read from SD)
 
+`make_sharded_system` builds N shared-nothing shards of one of them
+behind the core/shards.py router, every shard on the cluster's device.
+
 Not ported yet (ROADMAP Queue 1): `mutant`, `sas_cache` and `prismdb`
 and the runtime sanitizer (`sanitize=True`) raise NotImplementedError
-naming their item; sharded systems are a later slice too.
+naming their item.
 """
 from __future__ import annotations
 
@@ -22,7 +25,6 @@ from .storage import StorageSim
 
 SANITIZE_ITEM = ("ROADMAP Queue 1: core/sanitize.py + Mutant, SAS-Cache "
                  "and PrismDB")
-SHARDS_ITEM = "ROADMAP Queue 1: core/shards.py + configs/hotrap_kv.py"
 
 
 # ----------------------------------------------------------------------
@@ -78,3 +80,29 @@ def make_system(name: str, cfg: LSMConfig | None = None,
             f"system {name!r} is not ported yet ({SANITIZE_ITEM}); "
             f"ported: {PORTED}")
     raise ValueError(f"unknown system {name!r} (choose from {SYSTEMS})")
+
+
+def make_sharded_system(name: str, cfg: LSMConfig | None = None,
+                        shard_cfg=None, seed: int = 0,
+                        sanitize: bool = False, *, device=None,
+                        **overrides):
+    """Sharded construction for every ported system: N shared-nothing
+    shards of `name`'s engine behind the core/shards.py router, each on
+    `device` (``cuda`` unless the caller passes ``device="cpu"``).
+    `cfg` is the *cluster-total* resource budget; each shard gets a 1/N
+    slice (see shards.shard_lsm_config).  `shard_cfg` is a ShardConfig
+    (defaults: 4 hash-partitioned shards with the HotBudget arbiter on).
+    """
+    from .shards import ShardConfig, ShardedTieredLSM
+    if sanitize:
+        raise NotImplementedError(
+            f"sanitize=True is not ported yet ({SANITIZE_ITEM})")
+    cfg = cfg or LSMConfig()
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    scfg = shard_cfg or ShardConfig()
+    # construction by system *name* (not a factory closure) keeps the
+    # cluster picklable and lets the Repartitioner build destination
+    # shards after a pickle round-trip
+    return ShardedTieredLSM(scfg, cfg, seed=seed, system=name,
+                            device=device)

@@ -29,8 +29,12 @@ reference's results bit for bit.  Each step that needs a device result
 on the host copies it in one transfer.
 
 Keys are int64: a key above ``MAX_KEY = 2**63 - 1`` (or below 0) raises
-``ValueError``.  ``LSMConfig(wal=True)`` raises ``NotImplementedError``:
-the durability subsystem is a later slice (ROADMAP Queue 1).
+``ValueError``.  ``LSMConfig(wal=True)`` gives the engine its durable
+half (core/wal.py): a group-committed WAL and a manifest of Version
+edits, host lists charged to `StorageSim` as in the reference, with the
+named crash sites (core/crashpoints.py) between each install's two
+manifest halves; `TieredLSM.recover` rebuilds an engine from them on
+the crashed engine's device.
 
 Read semantics are faithful top-down-first-match (NOT max-seq), as in
 the reference.
@@ -44,20 +48,19 @@ import torch
 
 from ..device import resolve_device
 from ..obs import NULL_OBS
+from . import crashpoints
 from .promotion import ImmutablePromotionCache, MutablePromotionCache
 from .ralt import RALT, RaltConfig
 from .scan import MAX_KEY, MergeCounters, build_sources, merge_scan
 from .sstable import (BLOCK_BYTES, KEY_BYTES, TOMBSTONE_VLEN, SSTable,
-                      lexsort, merge_runs, split_into_sstables)
+                      lexsort, merge_runs, split_into_sstables,
+                      storage_bytes)
 from .storage import BlockCache, StorageSim
 from .version import (GroupView, LevelIndex, Superversion, Version,
                       ViewCache)
+from .wal import ShardDurability, recover_shard
 
 MIB = 1024 * 1024
-
-# where the slices the port does not have yet are queued
-WAL_ITEM = ("ROADMAP Queue 1: core/wal.py + core/crashpoints.py "
-            "(durability)")
 
 # sorted levels whose concatenated probe index (LevelIndex) stays cached
 LEVEL_CACHE = 8
@@ -112,8 +115,10 @@ class LSMConfig:
     point_view_gets: bool = True         # serve gets from an *already
                                          # materialized* GroupView via one
                                          # binary search (never builds one)
-    # --- durability (not ported yet: raises) ---
-    wal: bool = False
+    # --- durability (core/wal.py) ---
+    wal: bool = False                    # per-shard WAL + manifest; every
+                                         # append/sync/edit byte-charged to
+                                         # the devices (component="wal")
     wal_group_commit_records: int = 64
 
     def level_caps(self) -> list[float]:
@@ -204,15 +209,12 @@ class TieredLSM:
     _obs = NULL_OBS
     _obs_track = "db"
 
-    # durability: None (the WAL is a later slice); every durability site
-    # below guards on this single attribute check
+    # durability (core/wal.py): None unless cfg.wal — every durability
+    # site below guards on this single attribute check
     durability = None
 
     def __init__(self, cfg: LSMConfig, storage: StorageSim | None = None,
                  seed: int = 0, *, device=None):
-        if cfg.wal:
-            raise NotImplementedError(
-                f"LSMConfig(wal=True) is not ported yet ({WAL_ITEM})")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.storage = storage or StorageSim()
@@ -229,6 +231,12 @@ class TieredLSM:
         self.block_cache = BlockCache(cfg.block_cache_bytes, BLOCK_BYTES)
         self.stats = Stats()
         self.rng = np.random.default_rng(seed)
+        self.durability = (
+            ShardDurability(self.storage, type(self), cfg, seed,
+                            cfg.wal_group_commit_records, self.device)
+            if cfg.wal else None)
+        if self.durability is not None:
+            self.durability.owner = self
         self._sid_compacted: dict[int, bool] = {}
         # --- HotRAP state ---
         self.ralt: RALT | None = None
@@ -300,6 +308,10 @@ class TieredLSM:
             raise ValueError(f"key {key} outside [0, {MAX_KEY}]")
         self.seq += 1
         seq = self.seq
+        if self.durability is not None:
+            # WAL before apply: the record is durable only once its
+            # group commit syncs (core/wal.py)
+            self.durability.wal.append(seq, key, vlen)
         prev = self.memtable.get(key)
         if prev is not None:
             self.memtable_bytes -= KEY_BYTES + self._vbytes(prev[1])
@@ -342,7 +354,7 @@ class TieredLSM:
         self.seq = int(sq[-1])
         self.stats.puts += n  # lint: allow-stats (engine)
         if self.durability is not None:
-            self._log_edit("wal-append")
+            self._wal_append_batch(sq, ks, vl)
         op_bytes = KEY_BYTES + np.where(vl == TOMBSTONE_VLEN, 0, vl)
         limit = self.cfg.memtable_bytes
         start = 0
@@ -368,6 +380,23 @@ class TieredLSM:
             start = stop
         self._tick_many(n)
         return sq
+
+    def _wal_append_batch(self, seqs: np.ndarray, keys: np.ndarray,
+                          vlens: np.ndarray) -> None:
+        """WAL the whole batch before applying it (the `wal/append`
+        span; group commits fire inside as windows fill)."""
+        wal = self.durability.wal
+        obs = self._obs
+        if not obs.enabled:
+            wal.append_columns(seqs, keys, vlens)
+            return
+        track = self._obs_track
+        obs.tracer.begin(track, "wal/append", {"records": int(len(seqs))})
+        syncs0 = wal.syncs
+        synced = wal.append_columns(seqs, keys, vlens)
+        obs.tracer.end(track, "wal/append",
+                       {"synced_bytes": int(synced),
+                        "group_commits": wal.syncs - syncs0})
 
     def multi_get(self, keys, lat_out=None) -> list:
         """Batched point lookups: ``[(seq, vlen) | None]`` per key, in
@@ -603,6 +632,15 @@ class TieredLSM:
     def scan_range(self, lo: int, hi: int) -> list[tuple[int, int, int]]:
         """All live records with lo <= key <= hi (same semantics as scan)."""
         return self._scan(lo, hi, None)
+
+    def scan_tagged(self, lo: int, n: int,
+                    hi: int | None = None) -> list[tuple[int, int, int, str]]:
+        """Router API (core/shards.py): `scan`/`scan_range` plus each
+        record's serving tier ("mem"/"FD"/"PC"/"SD"), so a fan-out merge
+        can correct aggregate stats for records it discards."""
+        tags: list[str] = []
+        out = self._scan(lo, MAX_KEY if hi is None else hi, n, tags=tags)
+        return [(k, s, v, t) for (k, s, v), t in zip(out, tags)]
 
     def _scan(self, lo: int, hi: int, limit: int | None,
               tags: list | None = None) -> list[tuple[int, int, int]]:
@@ -1163,7 +1201,11 @@ class TieredLSM:
                                       "bytes": int(sst.size_bytes)})
         self._publish(self._levels_with(0, [sst] + self.version.levels[0]))
         if self.durability is not None:
-            self._log_edit("promotion")
+            self.durability.manifest.begin_edit("promotion",
+                                                self.version)
+            crashpoints.hit("mid-promotion-install", self._obs,
+                            self._obs_track)
+            self.durability.manifest.commit_edit()
         self._maybe_compact()
 
     def _snapshot_probes(self, keys: np.ndarray,
@@ -1265,13 +1307,18 @@ class TieredLSM:
                                {"bytes": int(sst.size_bytes),
                                 "vid": self.version.vid})
             if self.durability is not None:
-                self._log_edit("flush", int(cols[:, 1].max()))
+                self._log_flush(int(cols[:, 1].max()))
 
-    def _log_edit(self, kind: str, *args) -> None:
-        """The durable half of an install (a manifest edit and its crash
-        site, or a WAL append): the reference's core/wal.py."""
-        raise NotImplementedError(f"durability is not ported yet "
-                                  f"({WAL_ITEM})")
+    def _log_flush(self, flushed_through: int) -> None:
+        """Durably record one flush install: a two-phase manifest edit
+        (the mid-flush crash site sits between the halves — a crash
+        leaves a torn edit and the flushed run as orphaned debris), then
+        drop the WAL prefix the committed cut covers."""
+        d = self.durability
+        d.manifest.begin_edit("flush", self.version, flushed_through)
+        crashpoints.hit("mid-flush", self._obs, self._obs_track)
+        d.manifest.commit_edit()
+        d.wal.truncate_through(d.manifest.flushed_through)
 
     # ------------------------------------------------------------------
     # compaction
@@ -1536,7 +1583,10 @@ class TieredLSM:
             levels[li] = kept
         self._publish(levels)
         if self.durability is not None:
-            self._log_edit("compaction")
+            self.durability.manifest.begin_edit("compaction",
+                                                self.version)
+            crashpoints.hit("mid-compaction", self._obs, self._obs_track)
+            self.durability.manifest.commit_edit()
 
     # ------------------------------------------------------------------
     # clock: deferred checkers & deferred PC inserts (test hook)
@@ -1568,12 +1618,31 @@ class TieredLSM:
 
     def flush_all(self) -> None:
         """Drain memtables + pending checkers (test/benchmark helper)."""
+        if self.durability is not None:
+            # quiesce: sync the WAL tail *before* flushing, so the flush
+            # commit's truncation covers every record and a clean
+            # shutdown recovers to the exact visible state
+            self.durability.wal.sync()
         self._rotate_memtable()
         self._flush_imm_memtables()
         self._maybe_compact()
         for _, immpc in self._checker_queue:
             self._run_checker(immpc)
         self._checker_queue = []
+
+    # ------------------------------------------------------------------
+    # durability / recovery (core/wal.py, core/crashpoints.py)
+    # ------------------------------------------------------------------
+    @classmethod
+    def recover(cls, crashed: "TieredLSM", obs=None) -> "TieredLSM":
+        """Rebuild a fresh engine from ``crashed``'s durable half (its
+        WAL + manifest), on its device.  The crashed engine's in-memory
+        state is never consulted — exactly as a restarted process never
+        sees its predecessor's heap."""
+        if crashed.durability is None:
+            raise ValueError("recover() needs an engine built with "
+                             "LSMConfig(wal=True)")
+        return recover_shard(crashed.durability, obs=obs)
 
     # ------------------------------------------------------------------
     def __getstate__(self):
@@ -1596,7 +1665,23 @@ class TieredLSM:
                                   self.storage.spec["SD"])
         if self.ralt is not None:
             self.ralt.storage = self.storage
+        if self.durability is not None:
+            # the durable half moves with the engine onto the fresh
+            # devices (its logical contents are untouched)
+            self.durability.storage = self.storage
+            self.durability.wal.storage = self.storage
+            self.durability.manifest.storage = self.storage
         self.stats = Stats()
+
+    def fd_used_bytes(self) -> int:
+        used = sum(self.level_bytes(li)
+                   for li in range(self.cfg.n_fd_levels))
+        if self.ralt is not None:
+            used += self.ralt.phys_bytes
+        return used
+
+    def total_records(self) -> int:
+        return sum(s.n for level in self.levels for s in level)
 
     # ------------------------------------------------------------------
     # device state
@@ -1614,9 +1699,5 @@ class TieredLSM:
 
     def device_bytes(self) -> int:
         """Bytes of the distinct storages behind `tensors()`."""
-        seen = {}
-        for t in self.tensors():
-            s = t.untyped_storage()
-            seen[s.data_ptr()] = s.nbytes()
-        return sum(seen.values())
+        return storage_bytes(self.tensors())
 

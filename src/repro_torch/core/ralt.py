@@ -374,6 +374,28 @@ class RALT:
         self._advance_clocks(int(csum[-1]))
         self._maybe_flush_or_evict()
 
+    def seed_records(self, keys: torch.Tensor,
+                     vlens: torch.Tensor) -> None:
+        """Transplant access records from another RALT (shard-migration
+        hotness handoff, core/shards.py): each key lands as one
+        full-score access at the current tick and the chunk is flushed
+        to a run immediately, so ``hot_set_bytes`` (the HotBudget /
+        Repartitioner demand signal) reflects the inherited heat right
+        away instead of a fresh shard looking stone cold.  Clocks do not
+        advance — a migration is not workload traffic.  ``keys`` and
+        ``vlens`` are `scan_hot`'s tensors; they come to the host in one
+        copy, as the buffer's chunks live there."""
+        if len(keys) == 0:
+            return
+        keys, vlens = torch.stack([keys, vlens]).cpu().numpy()
+        ticks = np.full(len(keys), self.tick, dtype=np.int64)
+        self.buf_chunks.append((keys, vlens, ticks, np.ones(len(keys))))
+        self._buf_chunk_len += len(keys)
+        self._flush_buffer()
+        if (self.hot_set_bytes > self.hot_set_limit
+                or self.phys_bytes > self.phys_limit):
+            self._evict()
+
     # ------------------------------------------------------------------
     @property
     def hot_set_bytes(self) -> int:

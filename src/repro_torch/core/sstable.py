@@ -186,6 +186,17 @@ class SSTable:
         self.being_compacted = False
         self.compacted = True
 
+    def recover_placement(self, tier: str, level: int) -> None:
+        """Crash recovery (core/wal.py): the recovered manifest's
+        Version is the placement truth — re-target the table and clear
+        compaction bookkeeping a crash may have left half-advanced (a
+        live recovered table is by definition not mid-compaction).
+        Host attributes only: a recovered table shares its tensors with
+        the crashed engine's."""
+        self.retarget(tier=tier, level=level)
+        self.being_compacted = False
+        self.compacted = False
+
     def find(self, key: int) -> tuple[int, int, int] | None:
         """Returns (seq, vlen, block_idx) or None. No I/O charged here."""
         if not self.n:
@@ -243,6 +254,16 @@ class SSTable:
                 [self.keys[start:end], self.seqs[start:end],
                  self.vlens[start:end],
                  self.block_of[start:end]]).tolist())
+
+
+def storage_bytes(tensors) -> int:
+    """Bytes of the distinct storages behind `tensors` (views of one
+    storage count once)."""
+    seen = {}
+    for t in tensors:
+        st = t.untyped_storage()
+        seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
 
 
 def bounds(keys: torch.Tensor, lo: int, hi: int) -> tuple[int, int]:

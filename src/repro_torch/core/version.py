@@ -144,6 +144,28 @@ class Version:
             self._sigs[(group, n_fd)] = sig
         return sig
 
+    def sid_levels(self) -> list[list[int]]:
+        """Per-level sid lists — the durable manifest's Version-edit
+        payload (core/wal.py): sids are stable across a crash, so a
+        recovered manifest resolves them back to the same immutable
+        SSTable objects."""
+        return [[s.sid for s in lvl] for lvl in self.levels]
+
+    def group_stats(self, group: str, n_fd: int) -> tuple[int, int]:
+        """(records, bytes) held by one level group — sizes the pre-copy
+        stream of a shard migration (core/shards.py) without building
+        the group's view (host ints: no device read)."""
+        if group == "FD":
+            rng = range(0, min(n_fd, len(self.levels)))
+        else:
+            rng = range(n_fd, len(self.levels))
+        n_rec = n_bytes = 0
+        for li in rng:
+            for s in self.levels[li]:
+                n_rec += s.n
+                n_bytes += s.size_bytes
+        return n_rec, n_bytes
+
 
 @dataclasses.dataclass
 class Superversion:
@@ -222,6 +244,15 @@ class GroupView:
 
     def range_bounds(self, lo: int, hi: int) -> tuple[int, int]:
         return bounds(self.keys, lo, hi)
+
+    def live_arrays(self) -> tuple[torch.Tensor, torch.Tensor,
+                                   torch.Tensor]:
+        """The view's winner rows as (keys, seqs, vlens) tensor copies on
+        the view's device — the sequential-stream form a shard migration
+        installs into its destination shard (tombstone winners
+        included: they shadow lower groups and must keep doing so after
+        the move)."""
+        return self.keys.clone(), self.seqs.clone(), self.vlens.clone()
 
     def window(self, lo: int, hi: int, chunk: int):
         """(a, b, rows): the positions [a, b) of the keys within

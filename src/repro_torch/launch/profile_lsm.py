@@ -2,10 +2,13 @@
 
     PYTHONPATH=src python -m repro_torch.launch.profile_lsm \\
         [--system hotrap] [--mix RO] [--dist hotspot] [--scale medium] \\
-        [--ops 20000] [--device cuda]
+        [--ops 20000] [--device cuda] [--shards N] [--wal]
 
 Loads `--system` at `runner.default_config(--scale)` with 1,000-byte
-values (timed), then drives `--ops` ops of the YCSB mix twice, each time
+values (timed) — with `--wal` the engine keeps its WAL and manifest
+(`LSMConfig(wal=True)`), with `--shards N` (N > 1) it is a cluster of N
+hash shards with the HotBudget arbiter on
+(`make_sharded_system(..., ShardConfig(n_shards=N))`) — then drives `--ops` ops of the YCSB mix twice, each time
 on a copy of the loaded engine (`copy.deepcopy`: its tensors cloned on
 the device; the copy is not timed): once under cProfile (the run's wall
 under the profiler, and the functions of `repro_torch` with the most
@@ -20,6 +23,7 @@ from __future__ import annotations
 import argparse
 import copy
 import cProfile
+import dataclasses
 import json
 import pstats
 import subprocess
@@ -29,6 +33,8 @@ import warnings
 import torch
 
 from ..core import runner
+from ..core.baselines import make_sharded_system, make_system
+from ..core.shards import ShardConfig
 from ..data import workloads
 
 
@@ -53,10 +59,18 @@ def main(argv=None) -> None:
     ap.add_argument("--ops", type=int, default=20_000)
     ap.add_argument("--device", default=None)
     ap.add_argument("--top", type=int, default=25)
+    ap.add_argument("--shards", type=int, default=1)
+    ap.add_argument("--wal", action="store_true")
     args = ap.parse_args(argv)
-    cfg = runner.default_config(args.scale)
+    cfg = dataclasses.replace(runner.default_config(args.scale),
+                              wal=args.wal)
     n_keys = runner.db_key_count(cfg, 1000)
-    db = runner.make_system(args.system, cfg, device=args.device)
+    if args.shards > 1:
+        db = make_sharded_system(args.system, cfg,
+                                 ShardConfig(n_shards=args.shards),
+                                 device=args.device)
+    else:
+        db = make_system(args.system, cfg, device=args.device)
     cuda = db.device.type == "cuda"
     if not cuda:
         torch.set_num_threads(1)     # many small ops: a pool costs more
@@ -74,10 +88,12 @@ def main(argv=None) -> None:
                     f"{k[1]}({k[2]})") for k, v in stats.items()
                    if "repro_torch" in k[0]), reverse=True)
     out = {"system": args.system, "mix": args.mix, "dist": args.dist,
-           "scale": args.scale, "keys": n_keys, "ops": args.ops,
+           "scale": args.scale, "shards": args.shards, "wal": args.wal,
+           "keys": n_keys, "ops": args.ops,
            "device": str(db.device), "load_s": load_s, "run_s": wall,
            "us_per_op": wall / args.ops * 1e6,
            "fd_hit_rate": res.fd_hit_rate, "sim_ops_per_s": res.throughput,
+           "durability": res.durability,
            "top_cumulative": [{"fn": name, "cum_s": cum, "self_s": own,
                                "calls": calls}
                               for cum, own, calls, name in rows[:args.top]]}

@@ -19,7 +19,7 @@ from repro.core import runner as jrunner
 from repro.core.baselines import make_system as jmake_system
 from repro.data import workloads as jwl
 from repro_torch.core import runner
-from repro_torch.core.baselines import make_system
+from repro_torch.core.baselines import make_sharded_system, make_system
 from repro_torch.core.lsm import LSMConfig
 from repro_torch.data import workloads as twl
 
@@ -196,14 +196,13 @@ def test_pickle_round_trip_continues_identically(hotrap):
 
 def test_unported_parts_raise_naming_their_item():
     cfg = runner.default_config("tiny")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*wal"):
-        make_system("hotrap", dataclasses.replace(cfg, wal=True),
-                    device="cpu")
     for name in ("mutant", "sas_cache", "prismdb"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_system(name, cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.*sanitize"):
         make_system("hotrap", cfg, sanitize=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.*sanitize"):
+        make_sharded_system("hotrap", cfg, sanitize=True, device="cpu")
     with pytest.raises(ValueError):
         make_system("nope", cfg, device="cpu")
 

@@ -338,7 +338,9 @@ for name in ("repro_torch.launch.train", "repro_torch.launch.steps",
              "repro_torch.launch.profile_placed",
              "repro_torch.core.lsm", "repro_torch.core.ralt",
              "repro_torch.core.runner", "repro_torch.core.baselines",
-             "repro_torch.data.workloads", "repro_torch.obs.metrics"):
+             "repro_torch.data.workloads", "repro_torch.obs.metrics",
+             "repro_torch.core.wal", "repro_torch.core.crashpoints",
+             "repro_torch.core.shards", "repro_torch.configs.hotrap_kv"):
     assert name in sys.modules, name
 print(len(names), "modules")
 """

@@ -200,3 +200,63 @@ def test_lsm_check_rejects_a_differing_run(lsm_digest):
     li = next(i for i, lvl in enumerate(got["levels"]) if lvl)
     got["levels"][li][0][3][7] += 1           # one seq of one table
     assert cs.lsm_mismatches(want, got) == [f"levels[{li}][0] differs"]
+
+
+# the lsm phase's durable cells: a range cluster with the WAL crashed
+# mid-cutover and recovered (`migration_crash_cell`), compared through
+# `engine_digest` and `json_mismatches`
+@pytest.fixture(scope="module")
+def recovered_digests():
+    """Two runs of one crash cell on the CPU: (digest, digest)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        loaded, n_keys, _ = cs.lsm_load("hotrap", "tiny", "cpu", cs.range2,
+                                        wal=True)
+        return tuple(cs.migration_crash_cell(loaded, n_keys,
+                                             "mid-cutover")[0]
+                     for _ in range(2))
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_recovery_check_passes_a_twin(recovered_digests):
+    want, got = recovered_digests
+    assert want["crashed"]
+    assert want["recovered"]["recovery_info"]["topology_discarded"] == 1
+    assert cs.json_mismatches(want, got) == []
+
+
+def test_recovery_check_rejects_a_memtable_one_seq_apart(recovered_digests):
+    import copy
+    want, _ = recovered_digests
+    got = copy.deepcopy(want)
+    shard = next(i for i, sh in enumerate(got["recovered"]["shards"])
+                 if sh["memtable"])
+    key, (seq, vlen) = got["recovered"]["shards"][shard]["memtable"][0]
+    got["recovered"]["shards"][shard]["memtable"][0] = (key, (seq + 1, vlen))
+    assert cs.json_mismatches(want, got) == [
+        f"/recovered/shards[{shard}]/memtable[0][1][0]: {seq} != {seq + 1}"]
+
+
+def test_recovery_check_rejects_a_bound_off_by_one(recovered_digests):
+    import copy
+    want, _ = recovered_digests
+    for part in ("recovered", "after"):
+        got = copy.deepcopy(want)
+        node = got[part] if part == "recovered" else got[part]["engine"]
+        node["bounds"][0] += 1
+        bad = cs.json_mismatches(want, got)
+        assert len(bad) == 1 and "/bounds[0]" in bad[0], bad
+
+
+def test_recovery_check_rejects_a_torn_topology_record(recovered_digests):
+    """One topology record torn where the twin's committed."""
+    import copy
+    want, _ = recovered_digests
+    topo = want["recovered"]["topology"]
+    assert topo and not any(r["torn"] for r in topo)
+    got = copy.deepcopy(want)
+    got["recovered"]["topology"][-1]["torn"] = True
+    assert cs.json_mismatches(want, got) == [
+        f"/recovered/topology[{len(topo) - 1}]/torn: False != True"]
