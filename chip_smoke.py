@@ -20,10 +20,16 @@ twenty phases, each printing one JSON line:
            the PyTorch call's;
   serve    llama3-8b at full width (32 layers, random bf16 weights from a
            seed) answering 8 requests through `ServeEngine`, after a check
-           of the CUDA decode path's logits against the CPU path's;
+           of the CUDA decode path's logits against the CPU path's; then
+           the same requests with `ServingObservability` attached (the
+           same tokens and decode launches, the wave spans, a valid
+           trace);
   tiered   `TieredKVCache` at llama3-8b's KV widths replaying a hotspot
            stream of single-page reads, the tracker recording each read
-           with one fused `ralt_record` launch;
+           with one fused `ralt_record` launch; then the same reads on a
+           fresh cache with `ServingObservability` attached (clock, hit
+           rate and slot tables bit for bit, the same launches, the page
+           pathways' instants, µs a read against the unattached pass);
   tracker  the tracker at the tiered run's 65,536 pages over a hotspot id
            stream, three ways with one numpy threshold sampler: the
            `HotTracker` on the card (`ralt_record`), the functional
@@ -171,7 +177,16 @@ twenty phases, each printing one JSON line:
            `medium` the `configs/hotrap_kv.py` cluster shape with the
            WAL: HotRAP RW against the twin, HotRAP and `rocksdb_tiered`
            RO timed, with the WAL counters and the bytes the manifests'
-           registries keep on the card.
+           registries keep on the card.  The compared systems (`mutant`,
+           `sas_cache`, `prismdb`) at tiny under RO, RW (5,000 ops) and
+           SR (1,000), `hotrap` RW and the range cluster's split and
+           merge under the runtime sanitizer (the close report against
+           the twin's), the hash4 RW cell with `Observability()` attached
+           (its trace events, metrics and attribution against the twin's,
+           its digest the unattached cell's), the medium cluster's RW
+           with the plane attached (its digest the unattached run's; its
+           events, µs and syncs an op, the exported trace's size), and
+           `sas_cache` RO at `medium` against a second CPU twin.
 
 Kernel launches are counted from zero in each of the serve, tiered,
 tracker, prefill, train and int8 runs, in each part of the mamba2, moe,
@@ -294,6 +309,20 @@ LSM_WAL_HITS = {"mid-flush": 20, "mid-compaction": 88,
 LSM_MIGRATION_SITES = ("mid-migration-stream", "mid-cutover")
 LSM_AFTER_OPS, LSM_SEGMENT_OPS = 2_000, 5_000
 LSM_CLUSTER_OPS = {"RO": 20_000, "RW": 20_000, "SR": 1_000}
+# lsm, the compared systems, the sanitizer and the observability plane:
+# `mutant`, `sas_cache` and `prismdb` at tiny under the mixes of
+# LSM_COMPARED_OPS (their reads take the per-key path, about 330 µs a
+# get on the card: 5,000 and 1,000 ops keep the nine cells near 12 s);
+# `hotrap` RW and
+# the range cluster's split and merge under the sanitizer, sweeping every
+# LSM_SANITIZE_EVERY of its ops (the runner's batched calls: about 22 in
+# 20,000 ops); hash4 RW and the medium cluster's RW with
+# `Observability()` attached; `sas_cache` RO at medium, LSM_SCALE_OPS ops
+# or as many as LSM_SAS_BUDGET_S s take at the tiny RO cell's µs an op
+# (host syncs over LSM_SAS_SYNC_OPS), against a second CPU twin
+LSM_COMPARED = ("mutant", "sas_cache", "prismdb")
+LSM_COMPARED_OPS = {"RO": 5_000, "RW": 5_000, "SR": 1_000}
+LSM_SANITIZE_EVERY, LSM_SAS_BUDGET_S, LSM_SAS_SYNC_OPS = 4, 60.0, 2_000
 
 
 def emit(phase: str, **fields) -> None:
@@ -972,8 +1001,33 @@ def serve_phase(dev, power: str) -> tuple[dict, dict, float]:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     out, checks, launches, tokens = serve_run(eng, cfg, dev)
+    # the same requests again with the serving plane attached: the
+    # plane reads, so the tokens and the decode launches are the same
+    from repro_torch.obs.serving import ServingObservability
+    obs = ServingObservability().attach(eng, "engine")
+    eng.completed = []
+    a_out, a_checks, a_launches, a_tokens = serve_run(eng, cfg, dev)
+    spans = {name: obs.tracer.count(name, "B")
+             for name in ("engine/prefill", "engine/decode")}
+    attached = dict(wall_s=a_out["wall_s"], ms_per_step=a_out["ms_per_step"],
+                    decode_launches=a_out["decode_launches"],
+                    events=len(obs.tracer.events), spans=spans,
+                    assigns=obs.tracer.count("engine/assign"),
+                    dropped=obs.tracer.dropped,
+                    trace_problems=obs.tracer.validate()[:5])
     emit("serve", **out, init_s=init_s,
-         cuda_vs_cpu_logits_max_abs_err=ref_err, power_limit=power)
+         cuda_vs_cpu_logits_max_abs_err=ref_err, power_limit=power,
+         attached=attached)
+    checks.update({
+        f"attached: {k}": v for k, v in a_checks.items()})
+    checks.update({
+        "attached: tokens equal the unattached run's": a_tokens == tokens,
+        "attached: decode launches equal": a_launches["decode_attention"]
+            == launches["decode_attention"],
+        "attached: wave spans present": all(
+            n == REQUESTS // BATCH for n in spans.values()),
+        "attached: trace valid, nothing dropped":
+            not attached["trace_problems"] and obs.tracer.dropped == 0})
     fail_on("serve", checks)
     return launches, tokens, out["ms_per_step"]
 
@@ -1015,16 +1069,18 @@ def measured_bandwidths(dev) -> tuple[float, float]:
     return rates[0], rates[1]
 
 
-def tiered_phase(dev, power: str) -> dict:
+def tiered_pass(dev, cfg, hbm_bw: float, pcie_bw: float, obs=None):
+    """A fresh `TieredKVCache` of `cfg` filled page by page, then READS
+    hotspot single-page reads with launches counted from zero (`obs`
+    attached first when given): (cache, load s, read wall s, launches,
+    wrong elements)."""
     from repro_torch.kernels import ops
-    from repro_torch.tiering import KVTierConfig, TieredKVCache
+    from repro_torch.tiering import TieredKVCache
 
-    hbm_bw, pcie_bw = measured_bandwidths(dev)
-    cfg = KVTierConfig(n_pages=N_PAGES, fast_slots=FAST_SLOTS,
-                       page_tokens=16, kv_heads=8, head_dim=128,
-                       n_layers=1, dtype="bfloat16")
     t0 = time.perf_counter()
     kv = TieredKVCache(cfg, hbm_bw=hbm_bw, pcie_bw=pcie_bw, device=dev)
+    if obs is not None:
+        obs.attach(kv, "kv")
     shape = (cfg.n_layers, cfg.page_tokens, cfg.kv_heads, cfg.head_dim)
 
     def fill(p):      # exact in bfloat16: multiples of 1/8 up to 12
@@ -1047,7 +1103,35 @@ def tiered_phase(dev, power: str) -> dict:
         wrong += (page[0] != w).sum() + (page[1] != -w).sum()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(ops.LAUNCHES)
+    return kv, load_s, wall, dict(ops.LAUNCHES), int(wrong)
+
+
+def kv_state_mismatch(a, b) -> list[str]:
+    """Fields of two `TieredKVCache`s' clocks and slot tables that
+    differ (clock floats bit for bit)."""
+    bad = [f"clock.{n}" for n in COUNTERS
+           if getattr(a.clock, n) != getattr(b.clock, n)]
+    bad += [n for n in ("tier", "slot_of", "page_of_slot", "version")
+            if not np.array_equal(getattr(a, n), getattr(b, n))]
+    if list(a.free_slots) != list(b.free_slots):
+        bad.append("free_slots")
+    if dict(a.staging) != dict(b.staging):
+        bad.append("staging")
+    if a.fast_hit_rate() != b.fast_hit_rate():
+        bad.append("fast_hit_rate")
+    return bad
+
+
+def tiered_phase(dev, power: str) -> dict:
+    from repro_torch.obs.serving import ServingObservability
+    from repro_torch.tiering import KVTierConfig
+
+    hbm_bw, pcie_bw = measured_bandwidths(dev)
+    cfg = KVTierConfig(n_pages=N_PAGES, fast_slots=FAST_SLOTS,
+                       page_tokens=16, kv_heads=8, head_dim=128,
+                       n_layers=1, dtype="bfloat16")
+    kv, load_s, wall, launches, wrong = tiered_pass(dev, cfg, hbm_bw,
+                                                    pcie_bw)
     c = kv.clock
     out = dict(n_pages=N_PAGES, fast_slots=FAST_SLOTS,
                page_bytes=cfg.page_bytes, reads=READS,
@@ -1056,12 +1140,34 @@ def tiered_phase(dev, power: str) -> dict:
                sweeps=c.sweeps, flushes=c.flushes, sim_s=c.total_s,
                hbm_bw_measured=hbm_bw, pcie_bw_measured=pcie_bw,
                load_s=load_s, wall_s=wall, reads_per_s=READS / wall,
-               wrong_elements=int(wrong),
+               wrong_elements=wrong,
                ralt_record_launches=launches["ralt_record"],
                ralt_launches=launches["ralt_update"],
                decode_launches=launches["decode_attention"],
                power_limit=power)
+    # the same reads on a fresh cache with the serving plane attached
+    obs = ServingObservability()
+    akv, _, a_wall, a_launches, a_wrong = tiered_pass(dev, cfg, hbm_bw,
+                                                      pcie_bw, obs)
+    differs = kv_state_mismatch(kv, akv)
+    del kv, akv
+    torch.cuda.empty_cache()
+    out["attached"] = dict(
+        wall_s=a_wall, us_per_read=a_wall / READS * 1e6,
+        unattached_us_per_read=wall / READS * 1e6,
+        ralt_record_launches=a_launches["ralt_record"],
+        wrong_elements=a_wrong, differs=differs,
+        events=len(obs.tracer.events), dropped=obs.tracer.dropped,
+        instants={name: obs.tracer.count(name, "i") for name in (
+            "page/retained", "page/promo_compaction", "page/promo_flush",
+            "page/promo_abort")},
+        spans={name: obs.tracer.count(name, "B")
+               for name in ("kv/sweep", "kv/staging_flush")},
+        metrics_samples=obs.metrics.n_samples,
+        attribution_n_seen=obs.attr.n_seen,
+        trace_problems=obs.tracer.validate()[:5])
     emit("tiered", **out)
+    att = out["attached"]
     checks = {
         "hit rate beats fast_slots / n_pages":
             out["fast_hit_rate"] > FAST_SLOTS / N_PAGES,
@@ -1069,6 +1175,13 @@ def tiered_phase(dev, power: str) -> dict:
             launches["ralt_record"] == READS,
         "no other tracker launch": launches["ralt_update"] == 0,
         "every read returns its page": out["wrong_elements"] == 0,
+        "attached: clock, hit rate and slot tables equal": not differs,
+        "attached: ralt_record launches equal":
+            a_launches["ralt_record"] == launches["ralt_record"],
+        "attached: every read returns its page": a_wrong == 0,
+        "attached: trace valid, nothing dropped":
+            not att["trace_problems"] and att["dropped"] == 0,
+        "attached: one record a read": att["attribution_n_seen"] == READS,
     }
     fail_on("tiered", checks)
     return launches
@@ -3732,15 +3845,18 @@ def lsm_load(system: str, scale: str, device, shard_cfg=None,
 
 
 def lsm_run(loaded, system: str, mix: str, dist: str, n_keys: int,
-            n_ops: int, syncs: bool = False) -> tuple:
+            n_ops: int, syncs: bool = False, obs=None,
+            name: str = "db") -> tuple:
     """One cell on a clone of a loaded engine (its tensors copied on its
-    device): (engine, RunResult, outcomes, wall seconds, host syncs or
-    None)."""
+    device; `obs` attached to the clone as `name` when given): (engine,
+    RunResult, outcomes, wall seconds, host syncs or None)."""
     import copy
 
     from repro_torch.core import runner
     from repro_torch.data import workloads
     db = copy.deepcopy(loaded)
+    if obs is not None:
+        obs.attach(db, name=name)
     wl = workloads.ycsb(mix, workloads.KeyDist(dist, n_keys), n_ops,
                         LSM_VALUE, seed=0)
     outcomes: list = []
@@ -3792,6 +3908,119 @@ def on_card_rows(db) -> dict:
             "registry_bytes": storage_bytes(reg)}
 
 
+def obs_digest(obs) -> dict:
+    """What an attached `Observability` recorded, as JSON-like trees: the
+    trace document (`Tracer.to_dict`: names, phases, pid/tid, args,
+    timestamps), the metrics series and the attribution summary."""
+    from repro_torch.obs import jsonify
+    return {"trace": obs.tracer.to_dict(),
+            "metrics": jsonify(obs.metrics.to_json()),
+            "attribution": jsonify(obs.attr.summary())}
+
+
+def without_attribution(digest: dict) -> dict:
+    """A `run_digest` or `lsm_digest` without its RunResult's
+    attribution, the one field an attached plane adds to a run."""
+    return {**digest, "result": {k: v for k, v in digest["result"].items()
+                                 if k != "attribution"}}
+
+
+def plane_checks(base: dict, attached: dict, obs) -> dict:
+    """An attached run against the same run unattached: the same digest
+    but for the attribution (the plane only reads), a stack-balanced
+    monotone trace, and no event dropped."""
+    return {"read_only": not json_mismatches(without_attribution(base),
+                                             without_attribution(attached)),
+            "trace_valid": not obs.tracer.validate(),
+            "no_dropped_events": obs.tracer.dropped == 0}
+
+
+def event_counts(obs) -> dict:
+    """Events recorded, by name."""
+    out: dict = {}
+    for ev in obs.tracer.events:
+        out[ev["name"]] = out.get(ev["name"], 0) + 1
+    return out
+
+
+def sanitized_run(loaded, n_keys: int) -> tuple:
+    """`hotrap` RW (LSM_TINY_OPS ops) on a clone of a loaded engine under
+    `sanitize_db(check_every=LSM_SANITIZE_EVERY)` (its books reset after
+    the wrap, so every counted op crosses the proxy), then `close()`:
+    ({"run": lsm_digest, "report": the close report} or {"error": the
+    SanitizeError}, row)."""
+    import copy
+
+    from repro_torch.core import SanitizeError, runner, sanitize_db
+    db = sanitize_db(copy.deepcopy(loaded), check_every=LSM_SANITIZE_EVERY)
+    db.reset_storage()          # the sanitizer counts ops from here
+    outs: list = []
+    t0 = time.perf_counter()
+    try:
+        res = runner.run_workload(db, lsm_workload("RW", n_keys,
+                                                   LSM_TINY_OPS, 0),
+                                  name="hotrap", results_out=outs)
+        report = db.close()
+    except SanitizeError as e:
+        return {"error": str(e)[:300]}, {"cell": "hotrap/RW/sanitized",
+                                          "error": str(e)[:300]}
+    synced(db)
+    wall = time.perf_counter() - t0
+    return ({"run": lsm_digest(db, res, outs), "report": report},
+            {"cell": "hotrap/RW/sanitized", "ops": LSM_TINY_OPS,
+             "wall_s": wall, "us_per_op": wall / LSM_TINY_OPS * 1e6,
+             "report": report})
+
+
+def compared_cells(device, card: bool = False) -> tuple:
+    """The compared systems at tiny (LSM_COMPARED under LSM_COMPARED_OPS on
+    hotspot-5%) and `hotrap` RW under the sanitizer: ({key: digest},
+    [row]); the twin runs them on the CPU."""
+    digests, rows = {}, []
+    for system in LSM_COMPARED:
+        loaded, n_keys, load_s = lsm_load(system, "tiny", device)
+        for mix, n_ops in LSM_COMPARED_OPS.items():
+            db, res, outs, wall, _ = lsm_run(loaded, system, mix, "hotspot",
+                                              n_keys, n_ops)
+            digests[("tiny", system, mix, "hotspot")] = lsm_digest(db, res,
+                                                                   outs)
+            rows.append({"cell": f"{system}/{mix}/hotspot", "ops": n_ops,
+                         "load_wall_s": load_s, "wall_s": wall,
+                         "us_per_op": wall / n_ops * 1e6,
+                         "fd_hit_rate": res.fd_hit_rate,
+                         "throughput": res.throughput,
+                         **(engine_on_card(db) if card else {})})
+            del db
+        del loaded
+    loaded, n_keys, _ = lsm_load("hotrap", "tiny", device)
+    digests[("tiny", "hotrap", "RW", "sanitized")], row = sanitized_run(
+        loaded, n_keys)
+    rows.append(row)
+    return digests, rows
+
+
+def sas_scale_cell(device, n_ops: int, card: bool = False) -> tuple:
+    """`sas_cache` under hotspot-5% RO at LSM_SCALE, `n_ops` ops: (digest,
+    row); on the card also its host syncs over LSM_SAS_SYNC_OPS ops."""
+    loaded, n_keys, load_s = lsm_load("sas_cache", LSM_SCALE, device)
+    db, res, outs, wall, _ = lsm_run(loaded, "sas_cache", "RO", "hotspot",
+                                     n_keys, n_ops)
+    row = {"cell": f"{LSM_SCALE}/sas_cache/RO/hotspot", "keys": n_keys,
+           "ops": n_ops, "load_wall_s": load_s, "run_wall_s": wall,
+           "us_per_op": wall / n_ops * 1e6,
+           "sim_ops_per_s": res.throughput, "fd_hit_rate": res.fd_hit_rate,
+           "secondary_hits": db.secondary.hits,
+           "secondary_misses": db.secondary.misses}
+    digest = lsm_digest(db, res, outs)
+    if card:
+        row.update(engine_on_card(db))
+        del db
+        _, _, _, _, n_syncs = lsm_run(loaded, "sas_cache", "RO", "hotspot",
+                                      n_keys, LSM_SAS_SYNC_OPS, syncs=True)
+        row["syncs_per_op"] = n_syncs / LSM_SAS_SYNC_OPS
+    return digest, row
+
+
 def wal_cell(loaded, n_keys: int, site: str) -> tuple:
     """`site` armed at its LSM_WAL_HITS-th visit during 20,000 RW ops on a
     clone of a loaded WAL engine, `TieredLSM.recover`, then
@@ -3819,14 +4048,19 @@ def wal_cell(loaded, n_keys: int, site: str) -> tuple:
                     **on_card_rows(rec)}, rec
 
 
-def split_merge_cell(loaded, n_keys: int) -> tuple:
+def split_merge_cell(loaded, n_keys: int, sanitize: bool = False) -> tuple:
     """Three RW segments on a clone of the loaded range cluster: a split
     of shard 0 forced before the second (its cutover lands inside it), a
-    merge of shards 1 and 2 before the third."""
+    merge of shards 1 and 2 before the third; with `sanitize` the clone
+    runs under the sanitizer and its `close()` report joins the
+    digest."""
     import copy
 
-    from repro_torch.core import runner
+    from repro_torch.core import runner, sanitize_db
     db = copy.deepcopy(loaded)
+    if sanitize:
+        db = sanitize_db(db, check_every=LSM_SANITIZE_EVERY)
+        db.reset_storage()      # the sanitizer counts ops from here
     rep = db.repartitioner
     parts = []
     t0 = time.perf_counter()
@@ -3842,11 +4076,16 @@ def split_merge_cell(loaded, n_keys: int) -> tuple:
                                   name="hotrap", results_out=outs)
         parts.append(run_digest(db, res, outs))
     rep.drain()
+    report = db.close() if sanitize else None
     synced(db)
-    row = {"cell": "range2/split+merge", "wall_s": time.perf_counter() - t0,
+    row = {"cell": "range2/split+merge" + ("/sanitized" if sanitize else ""),
+           "wall_s": time.perf_counter() - t0,
            "splits": rep.n_splits, "merges": rep.n_merges,
            "bounds": list(db._bounds_list), **on_card_rows(db)}
-    return {"segments": parts, "engine": engine_digest(db)}, row, db
+    digest = {"segments": parts, "engine": engine_digest(db)}
+    if sanitize:
+        row["report"] = digest["report"] = report
+    return digest, row, db
 
 
 def migration_crash_cell(loaded, n_keys: int, site: str) -> tuple:
@@ -3922,11 +4161,30 @@ def durable_cluster_cells(device, card: bool = False) -> tuple:
                      "rebalances": db.hot_budget.n_rebalances,
                      "shares": db.hot_budget.snapshot()["shares"],
                      **on_card_rows(db)})
+    # RW again with the observability plane attached
+    from repro_torch.obs import Observability
+    obs = Observability()
+    n_ops = LSM_CLUSTER_OPS["RW"]
+    db, res, outs, wall, _ = lsm_run(loaded, "hotrap", "RW", "hotspot",
+                                     n_keys, n_ops, obs=obs, name="hash4")
+    attached = run_digest(db, res, outs)
+    digests[("hash4", "RW", "attached")] = {"run": attached,
+                                            "plane": obs_digest(obs)}
+    rows.append({"cell": "hash4/RW/attached", "ops": n_ops, "wall_s": wall,
+                 "us_per_op": wall / n_ops * 1e6,
+                 "events": len(obs.tracer.events),
+                 "dropped": obs.tracer.dropped,
+                 "metrics_samples": obs.metrics.n_samples,
+                 "attribution_n_seen": obs.attr.n_seen,
+                 **plane_checks(digests[("hash4", "RW")], attached, obs)})
     loaded, n_keys, load_s = lsm_load("hotrap", "tiny", device, range2,
                                       wal=True)
     rows.append({"cell": "range2/load", "wall_s": load_s})
     digests[("range2", "split+merge")], row, _ = split_merge_cell(loaded,
                                                                  n_keys)
+    rows.append(row)
+    digests[("range2", "split+merge", "sanitized")], row, _ = \
+        split_merge_cell(loaded, n_keys, sanitize=True)
     rows.append(row)
     for site in LSM_MIGRATION_SITES:
         digests[("range2", site)], row, _ = migration_crash_cell(
@@ -3948,6 +4206,7 @@ def durable_cluster_cells(device, card: bool = False) -> tuple:
                                              n_keys, LSM_SCALE_OPS)
             if mix == "RW":
                 digests[(LSM_SCALE, "kv4", mix)] = run_digest(db, res, outs)
+            unattached_digest = digests.get((LSM_SCALE, "kv4", mix))
             row = {"cell": f"{LSM_SCALE}/kv4/{system}/{mix}",
                    "keys": n_keys, "ops": LSM_SCALE_OPS,
                    "load_wall_s": load_s, "run_wall_s": wall,
@@ -3963,9 +4222,45 @@ def durable_cluster_cells(device, card: bool = False) -> tuple:
                 row["syncs_per_op"] = n_syncs / LSM_SYNC_OPS
                 row["max_memory_allocated"] = \
                     torch.cuda.max_memory_allocated(device)
+                if mix == "RW":
+                    row["attached"] = attached_scale_run(
+                        loaded, system, n_keys, unattached_digest)
             scale.append(row)
         del loaded
     return digests, rows, scale
+
+
+def attached_scale_run(loaded, system: str, n_keys: int,
+                       unattached: dict) -> dict:
+    """The medium cluster's RW run again with `Observability()` attached:
+    its digest against the unattached run's, its cost (µs an op, host
+    syncs an op over LSM_SYNC_OPS ops, each with a plane of its own),
+    its events by name, and its trace exported to a temporary file."""
+    import tempfile
+
+    from repro_torch.obs import Observability
+    obs = Observability()
+    db, res, outs, wall, _ = lsm_run(loaded, system, "RW", "hotspot",
+                                     n_keys, LSM_SCALE_OPS, obs=obs,
+                                     name="kv4")
+    row = {"run_wall_s": wall, "us_per_op": wall / LSM_SCALE_OPS * 1e6,
+           "events": len(obs.tracer.events), "dropped": obs.tracer.dropped,
+           "events_by_name": event_counts(obs),
+           "metrics_samples": obs.metrics.n_samples,
+           "attribution_n_seen": obs.attr.n_seen,
+           **plane_checks(unattached, run_digest(db, res, outs), obs)}
+    del db
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "kv4_trace.json"
+        t0 = time.perf_counter()
+        obs.export(trace_path=str(path))
+        row["export_s"] = time.perf_counter() - t0
+        row["trace_file_bytes"] = path.stat().st_size
+    _, _, _, _, n_syncs = lsm_run(loaded, system, "RW", "hotspot", n_keys,
+                                  LSM_SYNC_OPS, syncs=True,
+                                  obs=Observability(), name="kv4")
+    row["syncs_per_op"] = n_syncs / LSM_SYNC_OPS
+    return row
 
 
 def lsm_twin(out_path: str) -> None:
@@ -3993,6 +4288,9 @@ def lsm_twin(out_path: str) -> None:
                                                                outs)
     walls[f"{LSM_SCALE}/{system}/{mix}"] = wall
     del db
+    new, rows = compared_cells("cpu")
+    digests.update(new)
+    walls.update({f"tiny/{r['cell']}": r.get("wall_s") for r in rows})
     new, rows, scale = durable_cluster_cells("cpu")
     digests.update(new)
     walls.update({r["cell"]: r.get("wall_s", r.get("run_wall_s"))
@@ -4001,22 +4299,47 @@ def lsm_twin(out_path: str) -> None:
         pickle.dump({"digests": digests, "walls": walls}, f)
 
 
+def lsm_twin_sas(out_path: str, n_ops: str) -> None:
+    """The CPU twin of the medium `sas_cache` RO cell, `n_ops` ops."""
+    import pickle
+    torch.set_num_threads(1)
+    digest, row = sas_scale_cell("cpu", int(n_ops))
+    with open(out_path, "wb") as f:
+        pickle.dump({"digest": digest, "row": row}, f)
+
+
 LSM_TWIN_SCRIPT = """
 import sys
 sys.path[:0] = [sys.argv[1], sys.argv[2]]
 import chip_smoke
-chip_smoke.lsm_twin(sys.argv[3])
+getattr(chip_smoke, sys.argv[3])(*sys.argv[4:])
 """
 
 
-def start_lsm_twin(out_path: Path):
-    """The lsm phase's CPU twin, a subprocess that works while the card
-    runs the phase's cells."""
+def start_lsm_twin(out_path: Path, fn: str = "lsm_twin", *args):
+    """A CPU twin of the lsm phase (`fn` of this module, given `out_path`
+    and `args`), a subprocess that works while the card runs the phase's
+    cells."""
     with open(out_path.with_suffix(".err"), "w") as err:
         return subprocess.Popen(
             [sys.executable, "-c", LSM_TWIN_SCRIPT, str(ROOT),
-             str(ROOT / "src"), str(out_path)], stdout=subprocess.DEVNULL,
-            stderr=err)
+             str(ROOT / "src"), fn, str(out_path), *map(str, args)],
+            stdout=subprocess.DEVNULL, stderr=err)
+
+
+def twin_result(twin, out_path: Path, deadline: float) -> dict:
+    """Wait for a twin subprocess (killed past `deadline` s) and load
+    what it pickled; exits the script if the twin failed."""
+    import pickle
+    try:
+        twin.wait(timeout=deadline)
+    finally:
+        stop(twin)
+    if twin.returncode:
+        err = out_path.with_suffix(".err").read_text()
+        raise SystemExit(f"lsm twin exited {twin.returncode}:\n{err[-3000:]}")
+    with open(out_path, "rb") as f:
+        return pickle.load(f)
 
 
 def stop(proc) -> None:
@@ -4038,22 +4361,26 @@ def lsm_phase(dev, power: str) -> dict:
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:
         twin_out = Path(tmp) / "lsm_twin.pkl"
-        twin = start_lsm_twin(twin_out)
+        twins = [start_lsm_twin(twin_out)]
         try:
-            return lsm_cells(dev, power, twin, twin_out)
+            return lsm_cells(dev, power, twins, twin_out)
         finally:
-            stop(twin)
+            for twin in twins:
+                stop(twin)
 
 
-def lsm_cells(dev, power: str, twin, twin_out: Path) -> dict:
+def lsm_cells(dev, power: str, twins: list, twin_out: Path) -> dict:
     """The engine at `default_config("tiny")` (22,528 keys of 1,000 B):
     `hotrap` and `rocksdb_tiered` under the RO, RW, WH, UH and SR mixes
     on hotspot-5% and `hotrap` under RO on zipfian and uniform, 20,000
     ops each, every cell's digest (`lsm_digest`) against the CPU twin's;
     then at `default_config("medium")` (64 MiB FD : 640 MiB SD, 720,896
     keys): `hotrap` and `rocksdb_tiered` under hotspot-5% RO and RW,
-    200,000 ops each, timed, HotRAP's RO run against its CPU twin."""
-    import pickle
+    200,000 ops each, timed, HotRAP's RO run against its CPU twin.  Then
+    the compared systems, the sanitizer and the observability plane
+    (`compared_cells`, `durable_cluster_cells`), and `sas_cache` RO at
+    `medium` against a second CPU twin started once the tiny `sas_cache`
+    RO cell has set its op count."""
     t_phase = time.perf_counter()
     torch.cuda.synchronize(dev)            # the context, if none yet
     torch.cuda.reset_peak_memory_stats(dev)
@@ -4074,6 +4401,17 @@ def lsm_cells(dev, power: str, twin, twin_out: Path) -> dict:
     scale, scale_digest = [], None
     tiny_loads = {s: v[2] for s, v in loads.items()}
     del loads, loaded
+    # the compared systems and the sanitized run; their per-key reads
+    # set the medium sas_cache cell's op count, whose twin starts now
+    t_compared = time.perf_counter()
+    compared, compared_rows = compared_cells(dev, card=True)
+    compared_s = time.perf_counter() - t_compared
+    sas_us = next(r["us_per_op"] for r in compared_rows
+                  if r["cell"] == "sas_cache/RO/hotspot")
+    sas_ops = min(LSM_SCALE_OPS, int(LSM_SAS_BUDGET_S / (sas_us * 1e-6))
+                  // 1000 * 1000)
+    sas_out = twin_out.with_name("lsm_twin_sas.pkl")
+    twins.append(start_lsm_twin(sas_out, "lsm_twin_sas", sas_ops))
     for system in ("hotrap", "rocksdb_tiered"):
         loaded, n_keys, load_s = lsm_load(system, LSM_SCALE, dev)
         for mix in ("RO", "RW"):
@@ -4099,16 +4437,26 @@ def lsm_cells(dev, power: str, twin, twin_out: Path) -> dict:
     durable, durable_rows, durable_scale = durable_cluster_cells(dev,
                                                                  card=True)
     durable_s = time.perf_counter() - t_durable
-    # the CPU twin has run beside the card's cells
-    try:
-        twin.wait(timeout=LSM_TWIN_DEADLINE)
-    finally:
-        stop(twin)
-    if twin.returncode:
-        err = twin_out.with_suffix(".err").read_text()
-        raise SystemExit(f"lsm twin exited {twin.returncode}:\n{err[-3000:]}")
-    with open(twin_out, "rb") as f:
-        twin_res = pickle.load(f)
+    torch.cuda.empty_cache()
+    t_sas = time.perf_counter()
+    sas_digest, sas_row = sas_scale_cell(dev, sas_ops, card=True)
+    sas_row["planned_from_tiny_us_per_op"] = sas_us
+    sas_s = time.perf_counter() - t_sas
+    # the CPU twins have run beside the card's cells
+    twin_res = twin_result(twins[0], twin_out, LSM_TWIN_DEADLINE)
+    sas_twin = twin_result(twins[1], sas_out, LSM_TWIN_DEADLINE)
+    sas_row["twin_run_wall_s"] = sas_twin["row"]["run_wall_s"]
+    sas_row["twin_load_wall_s"] = sas_twin["row"]["load_wall_s"]
+    bad = lsm_mismatches(sas_twin["digest"], sas_digest)
+    if bad:
+        failures[sas_row["cell"]] = bad[:5]
+    for key, digest in compared.items():
+        if key[-1] == "sanitized":
+            bad = json_mismatches(twin_res["digests"][key], digest)
+        else:
+            bad = lsm_mismatches(twin_res["digests"][key], digest)
+        if bad:
+            failures["/".join(key)] = bad[:5]
     for key, (digest, row) in tiny.items():
         bad = lsm_mismatches(twin_res["digests"][key], digest)
         row["equals_cpu_twin"] = not bad
@@ -4145,9 +4493,23 @@ def lsm_cells(dev, power: str, twin, twin_out: Path) -> dict:
                          "configs/hotrap_kv.shard_config()'s shape over "
                          "default_config('medium') with the WAL; "
                          "registry_bytes: the tables the manifests keep"),
+        "compared": compared_rows, "compared_s": compared_s,
+        "medium_sas_cache": sas_row, "medium_sas_cache_s": sas_s,
+        "compared_note": ("mutant, sas_cache, prismdb at tiny, their reads "
+                          "per key; hotrap/RW/sanitized and range2 "
+                          "split+merge/sanitized under sanitize_db("
+                          f"check_every={LSM_SANITIZE_EVERY}); "
+                          "hash4/RW/attached and medium/kv4 RW 'attached' "
+                          "with Observability(); medium sas_cache RO at "
+                          f"{sas_ops} ops (LSM_SAS_BUDGET_S at the tiny "
+                          "cell's us an op)"),
         "twin_walls_s": twin_res["walls"], "failures": failures,
         "phase_s": time.perf_counter() - t_phase}
     emit("lsm", **out)
+    sanitized = rows_by["range2/split+merge/sanitized"]
+    plane = rows_by["hash4/RW/attached"]
+    kv4 = next(r for r in durable_scale
+               if r["cell"] == f"{LSM_SCALE}/kv4/hotrap/RW")["attached"]
     checks = {
         "tiny_cells_equal_cpu_twin": all(
             r["equals_cpu_twin"] for _, r in tiny.values()),
@@ -4180,7 +4542,29 @@ def lsm_cells(dev, power: str, twin, twin_out: Path) -> dict:
         "durable_tensors_on_cuda": all(
             r["on_cuda"] and r["tensors"] > 0
             for r in durable_scale + [r for r in durable_rows
-                                      if "on_cuda" in r])}
+                                      if "on_cuda" in r]),
+        "compared_cells_equal_cpu_twin": not any(
+            "/".join(k) in failures for k in compared),
+        "compared_tensors_on_cuda": all(
+            r["on_cuda"] and r["tensors"] > 0 for r in compared_rows
+            if "on_cuda" in r),
+        "sanitized_hotrap_rw_without_error": "error" not in compared[
+            ("tiny", "hotrap", "RW", "sanitized")],
+        "sanitized_split_merge_equals_cpu_twin": key_ok(
+            failures, ("range2", "split+merge", "sanitized")),
+        "sanitized_split_merge_checked_both_cutovers":
+            sanitized["report"]["checks_cutovers_checked"] >= 2,
+        "hash4_plane_equals_cpu_twin": key_ok(
+            failures, ("hash4", "RW", "attached")),
+        "hash4_plane_read_only": plane["read_only"],
+        "hash4_trace_valid_nothing_dropped":
+            plane["trace_valid"] and plane["no_dropped_events"],
+        "medium_kv4_plane_read_only": kv4["read_only"],
+        "medium_kv4_trace_valid_nothing_dropped":
+            kv4["trace_valid"] and kv4["no_dropped_events"],
+        "medium_sas_cache_ro_equals_cpu_twin": sas_row["cell"]
+            not in failures,
+        "medium_sas_cache_on_cuda": sas_row["on_cuda"]}
     fail_on("lsm", checks)
     return out
 

@@ -9,6 +9,11 @@ Public API:
     RALT, RaltConfig          — the hotness tracker (core/ralt.py)
     make_system, SYSTEMS      — paper baselines (core/baselines.py)
     make_sharded_system       — N-shard shared-nothing construction
+    sanitize_db, Sanitizer    — runtime invariant sanitizer; wrap any
+                                engine to validate seq monotonicity,
+                                Version refcounts, stats conservation,
+                                and sampled oracle equality op by op
+                                (core/sanitize.py)
     ShardConfig, ShardedTieredLSM, HotBudget, Repartitioner
                               — keyspace-partitioned cluster with the
                                 cross-shard FD-budget arbiter and
@@ -30,8 +35,7 @@ Public API:
 Sorted runs, bloom filters, merged views and RALT records are tensors on
 the engine's device; the entry points (`TieredLSM`, `make_system`,
 `make_sharded_system`, `runner.bench_system`) take ``device=`` and run
-on ``cuda`` unless it is ``"cpu"``.  The sanitizer and three baselines
-are a later slice (ROADMAP Queue 1).
+on ``cuda`` unless it is ``"cpu"``.
 """
 from . import crashpoints                      # noqa: F401
 from .crashpoints import (CRASH_SITES, CrashError,  # noqa: F401
@@ -41,8 +45,10 @@ from .wal import (ClusterDurability, Manifest,  # noqa: F401
                   ShardDurability, WriteAheadLog)
 from .version import GroupView, Superversion, Version  # noqa: F401
 from .ralt import RALT, RaltConfig             # noqa: F401
-from .baselines import (PORTED, SYSTEMS,  # noqa: F401
-                        make_sharded_system, make_system)
+from .baselines import (SYSTEMS, make_sharded_system,  # noqa: F401
+                        make_system)
 from .shards import (HotBudget, Repartitioner, ShardConfig,  # noqa: F401
                      ShardedTieredLSM)
 from .storage import StorageSim                # noqa: F401
+from .sanitize import (SanitizeError, SanitizedDB,  # noqa: F401
+                       Sanitizer, sanitize_db)

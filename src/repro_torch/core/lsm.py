@@ -253,8 +253,14 @@ class TieredLSM:
                 # still exercise flush/hotness paths
                 buffer_bytes=min(64 * 1024, max(4096, cfg.fd_size // 64)))
             self.ralt = RALT(rcfg, self.storage, self.device)
-        # point gets served off materialized GroupViews
+        # point-get view fast path: only safe when the per-level search
+        # is not interposed by a baseline (Mutant temperatures, SAS-Cache
+        # secondary cache hook _search_levels; a view hit would skip
+        # them).  The cfg flags are re-read per get so ablations that
+        # flip remix_views on a live store behave consistently.
         self.point_counters = MergeCounters()
+        self._point_view_ok = (
+            type(self)._search_levels is TieredLSM._search_levels)
         # test hook: when set, PC insertions are deferred by this many ops
         self.defer_pc_inserts: int = 0
         self._deferred_pc: list[tuple[int, int, int, int, list[int]]] = []
@@ -348,6 +354,8 @@ class TieredLSM:
         vl = (np.full(n, int(vlens), dtype=np.int64)
               if np.ndim(vlens) == 0
               else np.ascontiguousarray(vlens, dtype=np.int64))
+        if type(self).put is not TieredLSM.put:
+            return self._put_many_fallback(ks, vl, seqs)
         sq = (np.arange(self.seq + 1, self.seq + 1 + n, dtype=np.int64)
               if seqs is None
               else np.ascontiguousarray(seqs, dtype=np.int64))
@@ -380,6 +388,21 @@ class TieredLSM:
             start = stop
         self._tick_many(n)
         return sq
+
+    def _put_many_fallback(self, ks: np.ndarray, vl: np.ndarray,
+                           seqs) -> np.ndarray:
+        out = np.empty(len(ks), dtype=np.int64)
+        vll = vl.tolist()
+        sl = (None if seqs is None
+              else np.ascontiguousarray(seqs, dtype=np.int64).tolist())
+        # lint: allow-loop (baseline-interposed write path: a subclass
+        # overriding `put` keeps scalar per-key semantics; the stock
+        # engine takes the vectorized sub-batch path above)
+        for i, k in enumerate(ks.tolist()):
+            if sl is not None:
+                self.seq = sl[i] - 1
+            out[i] = self.put(k, vll[i])
+        return out
 
     def _wal_append_batch(self, seqs: np.ndarray, keys: np.ndarray,
                           vlens: np.ndarray) -> None:
@@ -420,6 +443,13 @@ class TieredLSM:
         n = len(ks)
         if n == 0:
             return []
+        cls = type(self)
+        if (cls.get is not TieredLSM.get
+                or cls._search_levels is not TieredLSM._search_levels
+                or cls._finish_get is not TieredLSM._finish_get):
+            # baseline-interposed read path (Mutant, SAS-Cache, PrismDB
+            # hook get/_search_levels): vectorizing would skip them
+            return self._multi_get_fallback(ks, lat_out)
         st = self.stats
         st.gets += n
         self._tick_many(n)
@@ -513,6 +543,9 @@ class TieredLSM:
         dev_sd = storage.dev["SD"]
         hotrap = self.cfg.hotrap
         tomb = TOMBSTONE_VLEN
+        promo_args = ({} if not (obs.enabled and hotrap
+                                 and self.ralt is not None)
+                      else self._promo_get_args(ks, tier_c, res_vlen))
         ep = 0
         n_ev = len(e_pos)
         b0 = r0 = 0
@@ -537,12 +570,8 @@ class TieredLSM:
                 if hotrap and vlen != tomb:
                     key = kl[i]
                     if obs.enabled and self.ralt is not None:
-                        obs.tracer.instant(
-                            self._obs_track, "promo/get",
-                            {"key": int(key),
-                             "ralt_hot": bool(self.ralt.is_hot(key)),
-                             "score_bytes": float(
-                                 self.ralt.range_hot_bytes(key, key))})
+                        obs.tracer.instant(self._obs_track, "promo/get",
+                                           promo_args[i])
                     self._insert_pc(key, int(res_seq[i]), vlen,
                                     sd_touch.get(i, []))
             if lat_out is not None:
@@ -567,6 +596,47 @@ class TieredLSM:
         return [(int(res_seq[i]), int(res_vlen[i]))
                 if has[i] and res_vlen[i] != tomb else None
                 for i in range(n)]
+
+    def _promo_get_args(self, ks: np.ndarray, tier_c: np.ndarray,
+                        res_vlen: np.ndarray) -> dict:
+        """The `promo/get` instant's args of every SD-served live key of a
+        batch, by position: the scalar `get`'s `is_hot(key)` and
+        `range_hot_bytes(key, key)`, asked of RALT for the whole batch in
+        one device-to-host copy each.  RALT does not change inside the
+        batch's commit loop (the accesses are recorded after it), so the
+        answers are those the per-key questions would get there."""
+        pos = np.flatnonzero((tier_c == 3) & (res_vlen != TOMBSTONE_VLEN))
+        if not len(pos):
+            return {}
+        keys = ks[pos]
+        hot = self.ralt.is_hot_many(keys).tolist()
+        kl = keys.tolist()
+        score = self.ralt.range_hot_bytes_many(kl, kl)
+        return {i: {"key": k, "ralt_hot": bool(h), "score_bytes": float(b)}
+                for i, k, h, b in zip(pos.tolist(), kl, hot, score)}
+
+    def _multi_get_fallback(self, ks: np.ndarray, lat_out) -> list:
+        obs = self._obs
+        attr_on = (obs.enabled and obs.attribution
+                   and lat_out is not None)
+        dev = self.storage.dev
+        out: list = []
+        f0 = s0 = 0.0
+        # lint: allow-loop (baseline-interposed read path — subclasses
+        # overriding get/_search_levels keep per-key semantics; the
+        # stock engine takes the vectorized path above)
+        for i, k in enumerate(ks.tolist()):
+            if lat_out is not None:
+                f0 = dev["FD"].fg_time
+                s0 = dev["SD"].fg_time
+            out.append(self.get(k))
+            if lat_out is not None:
+                lat_out[i, 0] = dev["FD"].fg_time - f0
+                lat_out[i, 1] = dev["SD"].fg_time - s0
+                if attr_on:
+                    obs.attr.stash_pending(
+                        float(lat_out[i, 0] + lat_out[i, 1]))
+        return out
 
     def get(self, key: int):
         """Returns (seq, vlen) of the visible version, or None.
@@ -780,7 +850,8 @@ class TieredLSM:
         search over the group's view when a scan has materialized it,
         else the per-level probe walk.  Returns (seq, vlen, sid) or
         None."""
-        if self.cfg.remix_views and self.cfg.point_view_gets:
+        if (self._point_view_ok and self.cfg.remix_views
+                and self.cfg.point_view_gets):
             res = self._view_point_get(key, group, version, touched)
             if res is not _VIEW_MISS:
                 return res
@@ -899,7 +970,8 @@ class TieredLSM:
         f_seq = np.zeros(nk, dtype=np.int64)
         f_vlen = np.zeros(nk, dtype=np.int64)
         f_found = np.zeros(nk, dtype=bool)
-        if self.cfg.remix_views and self.cfg.point_view_gets:
+        if (self._point_view_ok and self.cfg.remix_views
+                and self.cfg.point_view_gets):
             sig = ((group,)
                    + version.group_signature(group, self.cfg.n_fd_levels))
             view = self._view_cache.peek(sig)

@@ -159,6 +159,14 @@ class TieredEmbedding:
             tr.end(track, "emb/flush_promote",
                    {"promoted": c.promoted - p0})
 
+    def __getstate__(self):
+        """Pickle without the attached plane (it holds clock references);
+        the class-level NULL plane reasserts itself on load."""
+        state = dict(self.__dict__)
+        state.pop("_obs", None)
+        state.pop("_obs_track", None)
+        return state
+
     def invalidate_rows(self, rows):
         for r in np.asarray(rows).reshape(-1):
             s = self.slot_of_row[r]

@@ -140,6 +140,14 @@ class ExpertCache:
                    {"demoted": c.demoted - d0,
                     "promoted": c.promoted - p0})
 
+    def __getstate__(self):
+        """Pickle without the attached plane (it holds clock references);
+        the class-level NULL plane reasserts itself on load."""
+        state = dict(self.__dict__)
+        state.pop("_obs", None)
+        state.pop("_obs_track", None)
+        return state
+
     def resident_fraction(self, expert_counts: np.ndarray) -> float:
         """Fraction of routed tokens whose expert is device-resident."""
         expert_counts = np.asarray(expert_counts)

@@ -302,6 +302,14 @@ class TieredKVCache:
                            {"promoted": c.promoted - p0,
                             "aborted": c.aborted - a0})
 
+    def __getstate__(self):
+        """Pickle without the attached plane (it holds clock references);
+        the class-level NULL plane reasserts itself on load."""
+        state = dict(self.__dict__)
+        state.pop("_obs", None)
+        state.pop("_obs_track", None)
+        return state
+
     # ------------------------------------------------------------------
     def fast_hit_rate(self):
         t = self.clock.fast_hits + self.clock.slow_hits

@@ -1247,7 +1247,8 @@ def test_expert_cache_on_card_matches_cpu(cuda):
 @pytest.mark.parametrize("system,mix", [
     ("hotrap", "RO"), ("hotrap", "UH"), ("hotrap", "SR"),
     ("rocksdb_tiered", "RW"), ("rocksdb_fd", "WH"),
-    ("hotrap_noretain", "UH"), ("hotrap_nohotcheck", "RO")])
+    ("hotrap_noretain", "UH"), ("hotrap_nohotcheck", "RO"),
+    ("mutant", "RW"), ("sas_cache", "RO"), ("prismdb", "UH")])
 def test_lsm_engine_on_card_matches_cpu(cuda, system, mix):
     """The HotRAP engine (`repro_torch.core`) loaded and driven on the
     card and on the CPU: the same RunResult (floats bit for bit), every

@@ -72,8 +72,11 @@ class Pair:
     def clones(self):
         return pickle.loads(self.blobs[0]), pickle.loads(self.blobs[1])
 
-    def run(self, mix: str, dist: str, n_ops: int, seed: int = 0):
-        want, got = self.clones()
+    def run(self, mix: str, dist: str, n_ops: int, seed: int = 0,
+            clones=None):
+        """Both packages' `run_workload` of one YCSB stream, on fresh
+        clones or on `clones` (a (reference, port) pair)."""
+        want, got = clones or self.clones()
         wl = jwl.ycsb(mix, jwl.KeyDist(dist, self.n_keys), n_ops, VALUE,
                       seed=seed)
         twl_ = twl.ycsb(mix, twl.KeyDist(dist, self.n_keys), n_ops, VALUE,
@@ -195,14 +198,25 @@ def test_pickle_round_trip_continues_identically(hotrap):
 
 
 def test_unported_parts_raise_naming_their_item():
+    """Nothing of `repro.core` is left unported: every name in `SYSTEMS`
+    builds on the CPU, in both factories, and `sanitize=True` wraps each
+    in a `SanitizedDB`; an unknown name still raises ValueError."""
+    from repro_torch.core import SYSTEMS, SanitizedDB, ShardConfig
     cfg = runner.default_config("tiny")
-    for name in ("mutant", "sas_cache", "prismdb"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_system(name, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*sanitize"):
-        make_system("hotrap", cfg, sanitize=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*sanitize"):
-        make_sharded_system("hotrap", cfg, sanitize=True, device="cpu")
+    scfg = ShardConfig(n_shards=2)
+    for name in SYSTEMS:
+        db = make_system(name, cfg, device="cpu")
+        assert db.device.type == "cpu" and not isinstance(db, SanitizedDB)
+        cluster = make_sharded_system(name, cfg, scfg, device="cpu")
+        assert len(cluster.shards) == 2
+        assert all(type(sh) is type(db) for sh in cluster.shards)
+        wrapped = make_system(name, cfg, sanitize=True, device="cpu")
+        assert isinstance(wrapped, SanitizedDB)
+        assert type(wrapped._db) is type(db)
+        wrapped = make_sharded_system(name, cfg, scfg, sanitize=True,
+                                      device="cpu")
+        assert isinstance(wrapped, SanitizedDB)
+        assert len(wrapped.shards) == 2
     with pytest.raises(ValueError):
         make_system("nope", cfg, device="cpu")
 

@@ -1,7 +1,7 @@
 """The port's dynamic repartitioning (`repro_torch.core.shards.
 Repartitioner`) against the numpy reference, on the CPU: the
-counterparts of `tests/test_repartition.py`'s cells that need no
-PrismDB (those wait for ROADMAP Queue 1 item 3).
+counterparts of `tests/test_repartition.py`'s cells, the repartitioned
+PrismDB included.
 
 Each cell feeds one seeded op stream to a reference cluster and a port
 cluster (and, where the reference test has one, a port engine without
@@ -226,6 +226,19 @@ def test_repartition_tiered_baseline_equals_reference():
     drive([want, got, oracle("rocksdb_tiered", cfg)], skewed_ops(3000, 11))
     assert_map_consistent(got)
     assert_same_cluster(want, got)
+
+
+def test_repartition_prismdb_equals_reference():
+    """`tests/test_repartition.py:159`'s PrismDB cell: a clock-bit
+    engine repartitions on its fd-used demand signal as the
+    reference's does."""
+    cfg = cluster_kw(hotrap=False)
+    want, got = pair("prismdb", cfg)
+    drive([want, got, oracle("prismdb", cfg)], skewed_ops(3000, 11))
+    assert_map_consistent(got)
+    assert_same_cluster(want, got)
+    assert [list(sh.clock.items()) for sh in got.shards] == \
+        [list(sh.clock.items()) for sh in want.shards]
 
 
 # ----------------------------------------------------------------------

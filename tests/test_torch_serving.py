@@ -340,7 +340,9 @@ for name in ("repro_torch.launch.train", "repro_torch.launch.steps",
              "repro_torch.core.runner", "repro_torch.core.baselines",
              "repro_torch.data.workloads", "repro_torch.obs.metrics",
              "repro_torch.core.wal", "repro_torch.core.crashpoints",
-             "repro_torch.core.shards", "repro_torch.configs.hotrap_kv"):
+             "repro_torch.core.shards", "repro_torch.configs.hotrap_kv",
+             "repro_torch.core.sanitize", "repro_torch.obs.trace",
+             "repro_torch.obs.attribution", "repro_torch.obs.serving"):
     assert name in sys.modules, name
 print(len(names), "modules")
 """

@@ -1,7 +1,7 @@
 """The port's sharded cluster (`repro_torch.core.shards`) and
 `repro_torch.configs.hotrap_kv` against the numpy reference, on the
-CPU: the counterparts of `tests/test_shards.py`'s cells that need no
-PrismDB (those wait for ROADMAP Queue 1 item 3).
+CPU: the counterparts of `tests/test_shards.py`'s cells, the sharded
+PrismDB included.
 
 Each cell feeds one seeded op stream to a reference cluster, a port
 cluster and (where the reference test has one) a port engine without
@@ -165,6 +165,21 @@ def test_sharded_tiered_baseline_matches_reference():
     drive([want, got, single(port, "rocksdb_tiered", cfg)],
           mixed_ops(2500, 7))
     assert_same_cluster(want, got)
+
+
+def test_sharded_prismdb_matches_reference():
+    """`tests/test_shards.py:99`'s PrismDB cell: clock bits per shard,
+    the reference's results and state (the clock dicts in their order
+    included)."""
+    cfg = cluster_kw(hotrap=False)
+    scfg = dict(n_shards=2, partitioning="hash", key_space=KEYSPACE)
+    want = sharded(ref, "prismdb", cfg, **scfg)
+    got = sharded(port, "prismdb", cfg, **scfg)
+    drive([want, got, single(port, "prismdb", cfg)], mixed_ops(2500, 7))
+    assert_same_cluster(want, got)
+    assert [list(sh.clock.items()) for sh in got.shards] == \
+        [list(sh.clock.items()) for sh in want.shards]
+    assert all(sh.clock for sh in got.shards)
 
 
 def test_multi_get_matches_individual_gets():
@@ -471,16 +486,21 @@ def test_sharded_stats_aggregate_and_pickle():
 
 def test_entry_points_run_on_cuda_unless_told_otherwise():
     """No quiet CPU fallback: without CUDA a cluster on the default
-    device raises; with `device="cpu"` every shard and tensor is on the
-    CPU.  The sanitizer is still a later slice."""
+    device raises, sanitized or not; with `device="cpu"` every shard and
+    tensor is on the CPU, for the sanitized cluster and the compared
+    systems too."""
     cfg = port.LSMConfig(**cluster_kw())
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="CUDA"):
-            port.make_sharded_system("hotrap", cfg)
+        for kw in ({}, {"sanitize": True}):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                port.make_sharded_system("hotrap", cfg, **kw)
     got = port.make_sharded_system("hotrap", cfg, device="cpu")
     assert all(sh.device.type == "cpu" for sh in got.shards)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*sanitize"):
-        port.make_sharded_system("hotrap", cfg, sanitize=True,
-                                 device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.make_sharded_system("prismdb", cfg, device="cpu")
+    wrapped = port.make_sharded_system("hotrap", cfg, sanitize=True,
+                                       device="cpu")
+    assert isinstance(wrapped, port.SanitizedDB)
+    assert all(sh.device.type == "cpu" for sh in wrapped.shards)
+    prism = port.make_sharded_system("prismdb", cfg, device="cpu")
+    prism.put(3, 100)
+    assert prism.get(3) == (1, 100)
+    assert all(t.device.type == "cpu" for t in prism.tensors())

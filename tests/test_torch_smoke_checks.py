@@ -260,3 +260,143 @@ def test_recovery_check_rejects_a_torn_topology_record(recovered_digests):
     got["recovered"]["topology"][-1]["torn"] = True
     assert cs.json_mismatches(want, got) == [
         f"/recovered/topology[{len(topo) - 1}]/torn: False != True"]
+
+
+# the lsm phase's plane and sanitizer cells: the hash4 cluster under RW
+# with `Observability()` attached (`obs_digest`, `plane_checks`), and the
+# range cluster's split and merge under the sanitizer (its close report)
+@pytest.fixture(scope="module")
+def plane_runs():
+    """hash4 RW (5,000 ops) on the CPU, unattached and attached twice:
+    (unattached digest, [(attached digest, plane digest, obs)] * 2)."""
+    from repro_torch.obs import Observability
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        loaded, n_keys, _ = cs.lsm_load("hotrap", "tiny", "cpu", cs.hash4)
+        db, res, outs, _, _ = cs.lsm_run(loaded, "hotrap", "RW", "hotspot",
+                                         n_keys, 5000)
+        base = cs.run_digest(db, res, outs)
+        runs = []
+        for _ in range(2):
+            obs = Observability()
+            db, res, outs, _, _ = cs.lsm_run(loaded, "hotrap", "RW",
+                                             "hotspot", n_keys, 5000,
+                                             obs=obs, name="hash4")
+            runs.append((cs.run_digest(db, res, outs), cs.obs_digest(obs),
+                         obs))
+        return base, runs
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_plane_check_passes_a_twin(plane_runs):
+    base, ((d0, p0, obs), (d1, p1, _)) = plane_runs
+    assert cs.json_mismatches(p0, p1) == []
+    assert cs.plane_checks(base, d0, obs) == {
+        "read_only": True, "trace_valid": True, "no_dropped_events": True}
+    assert p0["trace"]["traceEvents"] and p0["attribution"]["n_sampled"]
+
+
+def test_plane_check_rejects_one_event_arg_off_by_one(plane_runs):
+    import copy
+    _, ((_, want, _), _) = plane_runs
+    events = want["trace"]["traceEvents"]
+    i = next(j for j, e in enumerate(events)
+             if e["ph"] != "M" and any(isinstance(v, int)
+                                       and not isinstance(v, bool)
+                                       for v in e.get("args", {}).values()))
+    name = next(k for k, v in events[i]["args"].items()
+                if isinstance(v, int) and not isinstance(v, bool))
+    got = copy.deepcopy(want)
+    got["trace"]["traceEvents"][i]["args"][name] += 1
+    v = events[i]["args"][name]
+    assert cs.json_mismatches(want, got) == [
+        f"/trace/traceEvents[{i}]/args/{name}: {v} != {v + 1}"]
+    got = copy.deepcopy(want)
+    got["trace"]["traceEvents"][i]["ts"] = np.nextafter(
+        events[i]["ts"], np.inf).item()
+    assert len(cs.json_mismatches(want, got)) == 1
+
+
+def test_plane_check_rejects_a_differing_attached_run(plane_runs):
+    """An attached run whose digest differs from the unattached run's
+    (one get's seq) fails `read_only`; the attribution it adds does
+    not."""
+    import copy
+    base, ((attached, _, obs), _) = plane_runs
+    assert base["result"]["attribution"] is None
+    assert attached["result"]["attribution"] is not None
+    got = copy.deepcopy(attached)
+    got["outcomes"]["gets"][11, 0] += 1
+    assert cs.plane_checks(base, got, obs)["read_only"] is False
+    got = copy.deepcopy(attached)
+    got["engine"]["shards"][0]["seq"] += 1
+    assert cs.plane_checks(base, got, obs)["read_only"] is False
+
+
+def test_plane_check_rejects_a_broken_trace(plane_runs):
+    """A trace whose span lost its end, or that dropped an event, fails
+    the plane's checks."""
+    import copy
+    base, ((attached, _, obs), _) = plane_runs
+    broken = copy.deepcopy(obs)
+    i = next(j for j, e in enumerate(broken.tracer.events) if e["ph"] == "E")
+    del broken.tracer.events[i]
+    assert cs.plane_checks(base, attached, broken)["trace_valid"] is False
+    broken = copy.deepcopy(obs)
+    broken.tracer.dropped = 1
+    assert cs.plane_checks(base, attached, broken)[
+        "no_dropped_events"] is False
+
+
+@pytest.fixture(scope="module")
+def sanitized_digests():
+    """The range cluster's sanitized split and merge twice on the CPU."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        loaded, n_keys, _ = cs.lsm_load("hotrap", "tiny", "cpu", cs.range2,
+                                        wal=True)
+        return tuple(cs.split_merge_cell(loaded, n_keys, sanitize=True)[:2]
+                     for _ in range(2))
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_sanitizer_check_passes_a_twin(sanitized_digests):
+    (want, row), (got, _) = sanitized_digests
+    assert cs.json_mismatches(want, got) == []
+    assert row["report"]["checks_cutovers_checked"] >= 2
+    assert row["splits"] == row["merges"] == 1
+
+
+def test_sanitizer_check_rejects_one_report_field_off(sanitized_digests):
+    import copy
+    (want, _), _ = sanitized_digests
+    for field in ("checks_refs", "shadow_keys", "last_seq"):
+        got = copy.deepcopy(want)
+        got["report"][field] += 1
+        v = want["report"][field]
+        assert cs.json_mismatches(want, got) == [
+            f"/report/{field}: {v} != {v + 1}"]
+
+
+def test_kv_state_check_rejects_a_clock_ulp_and_a_slot():
+    """The tiered phase's attached-pass check: one ulp of the clock or
+    one moved slot is a mismatch."""
+    import copy
+    from repro_torch.tiering import KVTierConfig, TieredKVCache
+    cfg = KVTierConfig(n_pages=64, fast_slots=8, page_tokens=2, kv_heads=1,
+                       head_dim=4, staging_slots=4, sweep_every=16)
+    kv = TieredKVCache(cfg, hbm_bw=1e12, pcie_bw=1e10, device="cpu")
+    for p in cs.hotspot_stream(64, 300):
+        kv.read_pages([p])
+    twin = copy.deepcopy(kv)
+    assert cs.kv_state_mismatch(kv, twin) == []
+    twin.clock.pcie_s = np.nextafter(kv.clock.pcie_s, np.inf)
+    assert cs.kv_state_mismatch(kv, twin) == ["clock.pcie_s"]
+    twin = copy.deepcopy(kv)
+    s = int(np.flatnonzero(twin.page_of_slot >= 0)[0])
+    twin.page_of_slot[s] = -1
+    assert cs.kv_state_mismatch(kv, twin) == ["page_of_slot"]

@@ -14,8 +14,10 @@ clusters the fences, topology records and migration ledger
 to the op log folded at its horizon (gets and a scan, byte for byte),
 and both recovered engines take the same further traffic.
 
-The sanitized cells wait for the port's sanitizer (ROADMAP Queue 1
-item 3)."""
+The sanitized cells run a sanitized cluster into each site, then wrap
+each package's recovered engine in a fresh sanitizer primed with the
+fold (`tests/test_crash_recovery.py:143-163`) and require equal
+`close()` reports."""
 import importlib.util
 from pathlib import Path
 
@@ -257,6 +259,53 @@ def test_crash_matrix(site, kind):
     assert_same_recovery(pair)
     assert on_cpu(rec)
     assert_same_after(pair[0][1], rec, pair[1][2])
+
+
+def check_recovered(pkg, rec, oplog) -> dict:
+    """`tests/test_crash_recovery.py:143-163`: a fresh sanitizer over the
+    recovered engine, its shadow primed with the oracle fold, the fold
+    swept through the proxy, further traffic, and a clean close; the
+    sanitizer's report."""
+    exp = fold_at_horizons(rec, oplog)
+    srec = pkg.sanitize_db(rec, check_every=128)
+    srec.sanitizer.seed_shadow(
+        {k: (None if v == TOMBSTONE_VLEN else v)
+         for k, (_, v) in exp.items()})
+    assert_oracle(srec, exp)
+    outs = []
+    apply(srec, mixed_ops(1200, 99), [], outs)
+    report = srec.close()
+    assert report["checks_refs"] >= 1 and report["checks_oracle"] >= 1
+    return {"report": report, "outs": outs}
+
+
+@pytest.mark.parametrize("site", CRASH_SITES)
+def test_sanitized_crash_matrix(site):
+    """The reference's `sanitized` kind: a sanitized 2-shard cluster
+    driven into `site` (`crash_recover` unwraps the proxy), recovered in
+    both packages to equal state, then checked by a fresh sanitizer with
+    equal reports."""
+    def drive(pkg, d, oplog, outs):
+        apply(d, mixed_ops(4000, 1), oplog, outs)
+        assert d.repartitioner.force_split(0)
+        apply(d, read_hot_ops(6000, 5), oplog, outs)
+        apply(d, mixed_ops(3000, 2), oplog, outs)
+
+    out = []
+    for pkg in (ref, port):
+        db = pkg.sanitize_db(make(pkg, "sharded"), check_every=256)
+        oplog, outs = [], []
+        crashed, rec = pkg.crashpoints.crash_recover(
+            db, lambda d: drive(pkg, d, oplog, outs), site)
+        assert crashed, f"{site} never fired on the sanitized cluster"
+        out.append((crashed, rec, oplog, outs))
+    assert_same_recovery(out)
+    assert on_cpu(out[1][1])
+    checks = [check_recovered(pkg, o[1], o[2])
+              for pkg, o in zip((ref, port), out)]
+    assert cs.json_mismatches(checks[0], checks[1]) == []
+    assert cs.json_mismatches(cs.engine_digest(out[0][1]),
+                              cs.engine_digest(out[1][1])) == []
 
 
 # ----------------------------------------------------------------------
