@@ -205,7 +205,8 @@ class TieredLSM:
     are the public API; `multi_get`/`put_many` their batched forms."""
 
     # observability plane: the class-level null plane is compiled out —
-    # every instrumentation site below guards on `self._obs.enabled`
+    # every instrumentation site below guards on `self._obs.enabled`, or
+    # on `self._obs.wall` for the spans a wall-clock plane alone records
     _obs = NULL_OBS
     _obs_track = "db"
 
@@ -356,6 +357,9 @@ class TieredLSM:
               else np.ascontiguousarray(vlens, dtype=np.int64))
         if type(self).put is not TieredLSM.put:
             return self._put_many_fallback(ks, vl, seqs)
+        obs = self._obs
+        if obs.wall:
+            obs.tracer.begin(self._obs_track, "put")
         sq = (np.arange(self.seq + 1, self.seq + 1 + n, dtype=np.int64)
               if seqs is None
               else np.ascontiguousarray(seqs, dtype=np.int64))
@@ -387,6 +391,8 @@ class TieredLSM:
                 self._maybe_compact()
             start = stop
         self._tick_many(n)
+        if obs.wall:
+            obs.tracer.end(self._obs_track, "put")
         return sq
 
     def _put_many_fallback(self, ks: np.ndarray, vl: np.ndarray,
@@ -450,12 +456,21 @@ class TieredLSM:
             # baseline-interposed read path (Mutant, SAS-Cache, PrismDB
             # hook get/_search_levels): vectorizing would skip them
             return self._multi_get_fallback(ks, lat_out)
+        obs = self._obs
+        # wall-clock spans (`Observability(clock="wall")`): the root
+        # `get`, the checker fired by the tick, the four resolutions,
+        # the commit, RALT's record and the answer
+        wall = obs.wall
+        tr, track = obs.tracer, self._obs_track
+        if wall:
+            tr.begin(track, "get")
         st = self.stats
         st.gets += n
         self._tick_many(n)
-        obs = self._obs
         attr_on = (obs.enabled and obs.attribution
                    and lat_out is not None)
+        if wall:
+            tr.begin(track, "get/mem")
         v = self.version
         kl = ks.tolist()
         # -- resolve 1: memtables, newest table wins -------------------
@@ -484,8 +499,12 @@ class TieredLSM:
         st.served_mem += int(mem_mask.sum())
         ev: list = []        # pending charges: (pos, sid, blk, is_sd) arrays
         pend = np.flatnonzero(~mem_mask)
+        if wall:
+            tr.end(track, "get/mem")
         # -- resolve 2: FD group ---------------------------------------
         if len(pend):
+            if wall:
+                tr.begin(track, "get/fd")
             f_seq, f_vlen, f_found, f_view = self._batch_probe_group(
                 ks, pend, "FD", v, ev, None)
             viewhit[pend] |= f_view
@@ -496,8 +515,12 @@ class TieredLSM:
             tier_c[w] = 1
             st.served_fd += len(w)
             pend = pend[~f_found]
+            if wall:
+                tr.end(track, "get/fd")
         # -- resolve 3: mutable promotion cache ------------------------
         if len(pend):
+            if wall:
+                tr.begin(track, "get/pc")
             pc_hits = list(map(self.mpc.get, ks[pend].tolist()))
             pcm = np.array([h is not None for h in pc_hits], dtype=bool)
             if pcm.any():
@@ -509,9 +532,13 @@ class TieredLSM:
                 tier_c[w] = 2
                 st.served_pc += len(w)
             pend = pend[~pcm]
+            if wall:
+                tr.end(track, "get/pc")
         # -- resolve 4: SD group (collect §3.3 touched lists) ----------
         sd_touch: dict[int, list[int]] = {}
         if len(pend):
+            if wall:
+                tr.begin(track, "get/sd")
             s_seq, s_vlen, s_found, s_view = self._batch_probe_group(
                 ks, pend, "SD", v, ev, sd_touch)
             viewhit[pend] |= s_view
@@ -521,6 +548,10 @@ class TieredLSM:
             has[w] = True
             tier_c[w] = 3
             st.served_sd += len(w)
+            if wall:
+                tr.end(track, "get/sd")
+        if wall:
+            tr.begin(track, "get/commit")
         st.misses += int(np.count_nonzero(~has)) + int(
             np.count_nonzero(has & (res_vlen == TOMBSTONE_VLEN)))
         # -- commit: replay charges per key, in input order ------------
@@ -543,8 +574,10 @@ class TieredLSM:
         dev_sd = storage.dev["SD"]
         hotrap = self.cfg.hotrap
         tomb = TOMBSTONE_VLEN
-        promo_args = ({} if not (obs.enabled and hotrap
-                                 and self.ralt is not None)
+        # the `promo/get` instants (not in wall mode: their arguments
+        # copy RALT's answers to the host)
+        promo_on = obs.enabled and not wall and self.ralt is not None
+        promo_args = ({} if not (promo_on and hotrap)
                       else self._promo_get_args(ks, tier_c, res_vlen))
         ep = 0
         n_ev = len(e_pos)
@@ -569,7 +602,7 @@ class TieredLSM:
                 vlen = int(res_vlen[i])
                 if hotrap and vlen != tomb:
                     key = kl[i]
-                    if obs.enabled and self.ralt is not None:
+                    if promo_on:
                         obs.tracer.instant(self._obs_track, "promo/get",
                                            promo_args[i])
                     self._insert_pc(key, int(res_seq[i]), vlen,
@@ -587,15 +620,23 @@ class TieredLSM:
                          + cache_hits),
                         bool(viewhit[i]), cache_hits > 0,
                         float(lat_out[i, 0] + lat_out[i, 1]))
+        if wall:
+            tr.end(track, "get/commit")
         # -- RALT hotness: one chunked batch for every live hit --------
         if self.ralt is not None:
             live = has & (res_vlen != tomb)
             if live.any():
                 sel = np.flatnonzero(live)
                 self.ralt.record_access_many(ks[sel], res_vlen[sel])
-        return [(int(res_seq[i]), int(res_vlen[i]))
-                if has[i] and res_vlen[i] != tomb else None
-                for i in range(n)]
+        if wall:
+            tr.begin(track, "get/answer")
+        out = [(int(res_seq[i]), int(res_vlen[i]))
+               if has[i] and res_vlen[i] != tomb else None
+               for i in range(n)]
+        if wall:
+            tr.end(track, "get/answer")
+            tr.end(track, "get")
+        return out
 
     def _promo_get_args(self, ks: np.ndarray, tier_c: np.ndarray,
                         res_vlen: np.ndarray) -> dict:
@@ -675,7 +716,7 @@ class TieredLSM:
             self.stats.served_sd += 1  # lint: allow-stats (engine)
             seq, vlen, _ = hit
             if self.cfg.hotrap and vlen != TOMBSTONE_VLEN:
-                if obs.enabled and self.ralt is not None:
+                if obs.enabled and not obs.wall and self.ralt is not None:
                     obs.tracer.instant(
                         self._obs_track, "promo/get",
                         {"key": int(key),
@@ -791,7 +832,7 @@ class TieredLSM:
             self.stats.range_promotions += 1  # lint: allow-stats (engine)
             # lint: allow-stats (engine-owned Stats)
             self.stats.range_promoted_records += len(sd_hits)
-            if self._obs.enabled:
+            if self._obs.enabled and not self._obs.wall:
                 self._obs.tracer.instant(
                     self._obs_track, "promo/scan",
                     {"records": len(sd_hits), "range_promotion": True,
@@ -810,7 +851,7 @@ class TieredLSM:
             return
         touched = version.sd_touched_many(skeys[sel], wsids[sel],
                                           self.cfg.n_fd_levels)
-        if self._obs.enabled:
+        if self._obs.enabled and not self._obs.wall:
             self._obs.tracer.instant(
                 self._obs_track, "promo/scan",
                 {"records": int(len(sel)), "range_promotion": False,
@@ -1116,6 +1157,8 @@ class TieredLSM:
         sig = version.level_fences(li)[2].tobytes()
         index = self._level_cache.pop(sig, None)
         if index is None:
+            if self._obs.wall:
+                self._obs.tracer.instant(self._obs_track, "level_index/build")
             index = LevelIndex(version.levels[li], self.device)
             while len(self._level_cache) >= LEVEL_CACHE:
                 self._level_cache.pop(next(iter(self._level_cache)))
@@ -1357,16 +1400,18 @@ class TieredLSM:
             table = self.imm_memtables.pop()
             if not table:
                 continue
+            # the span covers the sort and the table's build on the
+            # device; neither charges simulated I/O
+            obs = self._obs
+            if obs.enabled:
+                obs.tracer.begin(self._obs_track, "flush",
+                                 {"records": len(table)})
             cols = np.array([(k, sv[0], sv[1]) for k, sv in
                              sorted(table.items())], dtype=np.int64)
             keys, seqs, vlens = torch.from_numpy(cols.T.copy()).to(
                 self.device).unbind(0)
             sst = SSTable(keys, seqs, vlens, "FD", 0, self.now,
                           self.cfg.bits_per_key)
-            obs = self._obs
-            if obs.enabled:
-                obs.tracer.begin(self._obs_track, "flush",
-                                 {"records": int(sst.n)})
             self.storage.seq_write("FD", sst.size_bytes, fg=False,
                                    component="flush")
             # each flush publishes a new Version with the run at the L0

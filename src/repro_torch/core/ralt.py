@@ -44,10 +44,12 @@ kernel of `kernels/ralt_score.py`, which would change them.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
+from ..obs import NULL_OBS
 from . import scoring
 from .sstable import (_LOW31, BLOCK_BYTES, KEY_BYTES, BloomFilter,
                       _mults, bounds, lexsort)
@@ -278,8 +280,29 @@ def _merge_records(parts: list[tuple], alpha: float, now_epoch: int,
     return out, sums
 
 
+def _wall_span(name: str):
+    """Time a RALT method as span `name` on the engine's track under a
+    wall-clock plane (`Observability(clock="wall")`); one attribute
+    check otherwise."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(self, *args, **kw):
+            obs = self._obs
+            if not obs.wall:
+                return fn(self, *args, **kw)
+            with obs.tracer.span(self._obs_track, name):
+                return fn(self, *args, **kw)
+        return run
+    return wrap
+
+
 class RALT:
     """The Recent Access Lookup Table; its runs live on `device`."""
+
+    # the engine's observability plane and track (`Observability.attach`
+    # wires both); only a wall-clock plane records RALT's spans
+    _obs = NULL_OBS
+    _obs_track = "db"
 
     def __init__(self, cfg: RaltConfig, storage: StorageSim,
                  device: torch.device):
@@ -332,6 +355,7 @@ class RALT:
         self._advance_clocks(KEY_BYTES + vlen)
         self._maybe_flush_or_evict()
 
+    @_wall_span("ralt/record")
     def record_range_access(self, lo: int, hi: int, keys: np.ndarray,
                             vlens: np.ndarray) -> None:
         """Vectorized batch analogue of `record_access` for range scans,
@@ -351,6 +375,7 @@ class RALT:
         self._advance_clocks(nbytes)
         self._maybe_flush_or_evict()
 
+    @_wall_span("ralt/record")
     def record_access_many(self, keys: np.ndarray,
                            vlens: np.ndarray) -> None:
         """Vectorized `record_access` for the batched point-read path
@@ -415,6 +440,8 @@ class RALT:
         """The runs' stacked blooms and index blocks (built on first use
         after the runs change)."""
         if self._index is None:
+            if self._obs.wall:
+                self._obs.tracer.instant(self._obs_track, "ralt_index/build")
             self._index = RunsIndex(self.runs, self.device)
         return self._index
 
@@ -422,6 +449,7 @@ class RALT:
         """Bloom-filter check across runs (in memory — no I/O, paper §3.2)."""
         return any(r.bloom.may_contain(key) for r in self.runs)
 
+    @_wall_span("ralt/query")
     def is_hot_many(self, keys: np.ndarray) -> np.ndarray:
         """Vectorized `is_hot` over a host key array -> host bool array."""
         if len(keys) == 0 or not self.runs:
@@ -430,6 +458,7 @@ class RALT:
                               ).to(self.device)
         return self.index().is_hot_many(ks).cpu().numpy()
 
+    @_wall_span("ralt/query")
     def hotness(self, lo: int, hi: int, keys: np.ndarray
                 ) -> tuple[int, np.ndarray]:
         """(`range_hot_bytes(lo, hi)`, `is_hot_many(keys)`) in one
@@ -448,6 +477,7 @@ class RALT:
         """Estimated hot-set HotRAP size in [lo, hi] (overestimates dups)."""
         return self.range_hot_bytes_many([lo], [hi])[0]
 
+    @_wall_span("ralt/query")
     def range_hot_bytes_many(self, los: list[int], his: list[int]
                              ) -> list[int]:
         """`range_hot_bytes` of every [los[i], his[i]], in one
@@ -457,6 +487,7 @@ class RALT:
         q = torch.tensor([los, his], dtype=torch.int64).to(self.device)
         return self.index().range_hot_bytes_many(q[0], q[1]).tolist()
 
+    @_wall_span("ralt/query")
     def scan_hot(self, lo: int, hi: int) -> tuple[torch.Tensor, torch.Tensor]:
         """Hot keys (sorted, deduped) and their vlens within [lo, hi].
 
@@ -521,6 +552,7 @@ class RALT:
         return _merge_records(parts, self.cfg.alpha, self.epoch,
                               self.cfg.c_max, self.tick)
 
+    @_wall_span("ralt/flush")
     def _flush_buffer(self) -> None:
         if not self.buf_keys and not self.buf_chunks:
             return
@@ -575,6 +607,7 @@ class RALT:
         k = min(max(k, 1), n_samples)
         return float(sampled[k - 1])
 
+    @_wall_span("ralt/evict")
     def _evict(self) -> None:
         """Eviction + merge-all + (optionally) auto-tune (paper Alg. 1)."""
         self.n_evictions += 1
@@ -652,3 +685,11 @@ class RALT:
 
     def tensors(self) -> list[torch.Tensor]:
         return [t for r in self.runs for t in r.tensors()]
+
+    def __getstate__(self):
+        """Pickle without the observability plane: a copy reads the
+        class-level null plane."""
+        state = self.__dict__.copy()
+        state.pop("_obs", None)
+        state.pop("_obs_track", None)
+        return state

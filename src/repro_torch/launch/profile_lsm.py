@@ -1,4 +1,5 @@
-"""Host cost of the HotRAP engine (`repro_torch.core`) by function.
+"""Host cost of the HotRAP engine (`repro_torch.core`) by function and
+by span.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_lsm \\
         [--system hotrap] [--mix RO] [--dist hotspot] [--scale medium] \\
@@ -8,15 +9,20 @@ Loads `--system` at `runner.default_config(--scale)` with 1,000-byte
 values (timed) — with `--wal` the engine keeps its WAL and manifest
 (`LSMConfig(wal=True)`), with `--shards N` (N > 1) it is a cluster of N
 hash shards with the HotBudget arbiter on
-(`make_sharded_system(..., ShardConfig(n_shards=N))`) — then drives `--ops` ops of the YCSB mix twice, each time
+(`make_sharded_system(..., ShardConfig(n_shards=N))`) — then drives `--ops` ops of the YCSB mix, each time
 on a copy of the loaded engine (`copy.deepcopy`: its tensors cloned on
 the device; the copy is not timed): once under cProfile (the run's wall
 under the profiler, and the functions of `repro_torch` with the most
-cumulative time), once counting the host syncs CUDA's sync debug mode
-reports.  On the CPU the engine runs on one torch thread.  Prints the
-card's name and power limit (on CUDA), then one JSON line.  It profiles
-whatever `repro_torch` is on the path, so `PYTHONPATH=<tree>/src`
-measures another tree.
+cumulative time); once with a wall-clock observability plane attached
+(`Observability(clock="wall")`: each span's count and total and self
+µs an op, and the device indexes built again a thousand ops, `spans`);
+and on CUDA once counting the host syncs CUDA's sync debug mode
+reports and once with the plane under `torch.profiler`, whose trace
+gives the card's idle seconds by the innermost engine span the host
+was in (`spans.idle_by_span`).  On the CPU the engine runs on one torch
+thread.  Prints the card's name and power limit (on CUDA), then one
+JSON line.  It profiles whatever `repro_torch` is on the path, so
+`PYTHONPATH=<tree>/src` measures another tree.
 """
 from __future__ import annotations
 
@@ -36,11 +42,20 @@ from ..core import runner
 from ..core.baselines import make_sharded_system, make_system
 from ..core.shards import ShardConfig
 from ..data import workloads
+from ..obs import MIRROR_PREFIX, Observability
+
+# the engine's counters of device indexes built again
+BUILDS = ("level_index/build", "ralt_index/build")
+# the profiler range around the run whose idle gaps are split by span
+WINDOW = "profile_lsm.run"
 
 
-def _run(loaded, args, n_keys: int):
-    """The workload on a copy of the loaded engine (the copy untimed)."""
+def _run(loaded, args, n_keys: int, obs=None):
+    """The workload on a copy of the loaded engine (the copy untimed),
+    with `obs` attached to the copy when given."""
     db = copy.deepcopy(loaded)
+    if obs is not None:
+        obs.attach(db, name=args.system)
     wl = workloads.ycsb(args.mix, workloads.KeyDist(args.dist, n_keys),
                         args.ops, 1000, seed=0)
     t0 = time.perf_counter()
@@ -48,6 +63,79 @@ def _run(loaded, args, n_keys: int):
     if db.device.type == "cuda":
         torch.cuda.synchronize()
     return res, time.perf_counter() - t0
+
+
+def idle_by_span(prof, window: str = WINDOW) -> dict | None:
+    """The card's idle seconds inside the host range `window` of a
+    `torch.profiler` trace (`idle_s`), and each idle gap's seconds by the
+    innermost engine span (a range named `MIRROR_PREFIX` + span) open on
+    the host at the gap's midpoint (`by_span`; "none" where none was);
+    None where the range holds no device operation."""
+    cuda = torch.autograd.DeviceType.CUDA
+    evs = [(e.name(), e.device_type() == cuda, e.start_ns(),
+            e.start_ns() + e.duration_ns())
+           for e in prof.profiler.kineto_results.events()]
+    win = [(a, b) for n, dev, a, b in evs if n == window and not dev]
+    if not win:
+        return None
+    w0, w1 = win[0]
+    busy = sorted((max(a, w0), min(b, w1)) for n, dev, a, b in evs
+                  if dev and b > w0 and a < w1 and n != window
+                  and not n.startswith(MIRROR_PREFIX))
+    if not busy:
+        return None
+    gaps = []
+    edge = w0
+    for a, b in busy + [(w1, w1)]:
+        if a > edge:
+            gaps.append((edge, a))
+        edge = max(edge, b)
+    spans = [(n[len(MIRROR_PREFIX):], a, b) for n, dev, a, b in evs
+             if not dev and n.startswith(MIRROR_PREFIX)]
+    # one sweep over the spans' starts and ends (a start first at a
+    # tie) against the gaps' midpoints, both in time order
+    marks = sorted([(a, 0, i) for i, (_, a, _) in enumerate(spans)]
+                   + [(b, 1, i) for i, (_, _, b) in enumerate(spans)])
+    open_: list[int] = []
+    by_span: dict[str, float] = {}
+    k = 0
+    for a, b in gaps:
+        mid = (a + b) // 2
+        while k < len(marks) and marks[k][0] <= mid:
+            _, ends, i = marks[k]
+            if ends:
+                open_.remove(i)
+            else:
+                open_.append(i)
+            k += 1
+        host = (spans[max(open_, key=lambda i: spans[i][1])][0]
+                if open_ else "none")
+        by_span[host] = by_span.get(host, 0.0) + (b - a) / 1e9
+    return {"idle_s": sum(b - a for a, b in gaps) / 1e9,
+            "by_span": by_span}
+
+
+def _spans(loaded, args, n_keys: int) -> dict:
+    """The `spans` part of the output: the run with a wall-clock plane
+    attached, and on CUDA its idle gaps under the profiler."""
+    obs = Observability(clock="wall")
+    _, wall = _run(loaded, args, n_keys, obs)
+    tr = obs.tracer
+    out = {"run_s": wall, "dropped": tr.dropped,
+           "us_per_op": {n: {"count": v["count"],
+                             "total": v["total_s"] / args.ops * 1e6,
+                             "self": v["self_s"] / args.ops * 1e6}
+                         for n, v in sorted(tr.self_times().items())},
+           "builds_per_kop": {n: tr.count(n) / args.ops * 1e3
+                              for n in BUILDS}}
+    if loaded.device.type == "cuda":
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            with torch.profiler.record_function(WINDOW):
+                _run(loaded, args, n_keys, Observability(clock="wall"))
+        out["idle_by_span"] = idle_by_span(prof)
+    return out
 
 
 def main(argv=None) -> None:
@@ -97,6 +185,7 @@ def main(argv=None) -> None:
            "top_cumulative": [{"fn": name, "cum_s": cum, "self_s": own,
                                "calls": calls}
                               for cum, own, calls, name in rows[:args.top]]}
+    out["spans"] = _spans(db, args, n_keys)
     if cuda:
         count = [0]
 

@@ -32,8 +32,25 @@ are host lists and numpy arrays.  It is read-only: it may read device
 counters and engine stats but never charges simulated I/O or writes
 counters (`tests/test_torch_obs.py` holds an attached run's state to
 the unattached run's).
+
+Wall mode
+---------
+``Observability(clock="wall")`` runs the same tracer on
+``time.perf_counter``: it times the host's work inside the engine.
+The engine's wall-only spans (``get`` and its parts, ``put``, the
+``ralt/*`` spans) and the index-build counters fire in this mode alone,
+each behind one ``obs.wall`` check, so a simulated-clock trace stays
+the reference's.  The metrics registry and the attribution sampler
+ride the simulated clock and are off; so are the ``promo/get`` and
+``promo/scan`` instants, whose arguments copy RALT's answers to the
+host.  While `torch.profiler` records, every span is mirrored as a
+profiler range named ``repro_torch/<name>`` (`MIRROR_PREFIX`), on the
+timeline of the device's kernels.  ``tracer.self_times()`` splits a
+run's host time by span; `detach` puts the null plane back.
 """
 from __future__ import annotations
+
+import time
 
 import numpy as np
 
@@ -45,7 +62,10 @@ from .trace import Tracer
 __all__ = ["Observability", "NULL_OBS", "Tracer", "MetricsRegistry",
            "LatencyHistogram", "TierLatencyHistogram", "Series",
            "AttributionSampler", "jsonify", "ServingObservability",
-           "NULL_SERVING_OBS"]
+           "NULL_SERVING_OBS", "MIRROR_PREFIX"]
+
+# the profiler ranges a wall-mode plane opens: repro_torch/<span name>
+MIRROR_PREFIX = "repro_torch/"
 
 
 def jsonify(obj):
@@ -72,16 +92,25 @@ class Observability:
                  metrics: bool = True, attribution: bool = True,
                  metrics_interval_s: float = 0.02,
                  attr_capacity: int = 65536,
-                 max_events: int = 400_000):
+                 max_events: int = 400_000, clock: str = "sim"):
+        if clock not in ("sim", "wall"):
+            raise ValueError(f"clock {clock!r} is neither 'sim' nor 'wall'")
         self.enabled = enabled
+        # wall mode: the host's clock, and the engine's wall-only spans
+        self.wall = enabled and clock == "wall"
         self.tracer = Tracer(max_events=max_events,
                              enabled=enabled and trace)
-        self.metrics = MetricsRegistry(interval_s=metrics_interval_s,
-                                       enabled=enabled and metrics)
+        if self.wall:
+            self.tracer.clock = time.perf_counter
+            self.tracer.mirror = MIRROR_PREFIX
+        self.metrics = MetricsRegistry(
+            interval_s=metrics_interval_s,
+            enabled=enabled and metrics and not self.wall)
         self.attr = AttributionSampler(capacity=attr_capacity)
-        self.attribution = enabled and attribution
+        self.attribution = enabled and attribution and not self.wall
         self._db = None
         self._next_shard_id = 0
+        self._hooked = None       # (cluster, its own _new_shard or None)
 
     # -- clock ---------------------------------------------------------
     def now(self) -> float:
@@ -99,17 +128,19 @@ class Observability:
         """Wire this plane into a (possibly sanitized) engine."""
         target = getattr(db, "_db", db)      # unwrap SanitizedDB
         self._db = target
-        self.tracer.clock = self.now
+        if not self.wall:
+            self.tracer.clock = self.now
         shards = getattr(target, "shards", None)
         if shards is None:
-            target._obs = self
-            target._obs_track = name
+            self._wire(target, name)
             return self
         target._obs = self
         target._obs_track = name
         for sh in shards:
             self._adopt(sh, name)
-        orig = target.__dict__.get("_new_shard", target._new_shard)
+        own = target.__dict__.get("_new_shard")
+        self._hooked = (target, own)
+        orig = own or target._new_shard
 
         def _new_shard(_orig=orig, _self=self, _name=name):
             sh = _orig()
@@ -126,23 +157,47 @@ class Observability:
         return self
 
     def _adopt(self, sh, prefix: str) -> None:
-        sh._obs = self
-        sh._obs_track = f"{prefix}/shard{self._next_shard_id}"
+        self._wire(sh, f"{prefix}/shard{self._next_shard_id}")
         self._next_shard_id += 1
 
-    # -- runner hook (once per op) -------------------------------------
-    def on_op(self, db) -> None:
-        m = self.metrics
-        if m.enabled:
-            m.maybe_sample(self.now(), getattr(db, "_db", db), self.tracer)
+    def _wire(self, engine, track: str) -> None:
+        """One engine, and its RALT, on `track`."""
+        engine._obs = self
+        engine._obs_track = track
+        ralt = getattr(engine, "ralt", None)
+        if ralt is not None:
+            ralt._obs = self
+            ralt._obs_track = track
 
+    def detach(self, db) -> None:
+        """Undo `attach`: every object it wired reads the class-level
+        `NULL_OBS` again, and a cluster's ``_new_shard`` is its own."""
+        target = getattr(db, "_db", db)
+        wired = [target, *getattr(target, "shards", ()),
+                 getattr(target, "hot_budget", None),
+                 getattr(target, "repartitioner", None)]
+        wired += [getattr(x, "ralt", None) for x in wired]
+        for x in wired:
+            if x is not None and x.__dict__.get("_obs") is self:
+                del x._obs
+                x.__dict__.pop("_obs_track", None)
+        if self._hooked is not None and self._hooked[0] is target:
+            own = self._hooked[1]
+            if own is None:
+                del target._new_shard
+            else:
+                target._new_shard = own
+            self._hooked = None
+        if self._db is target:
+            self._db = None
+
+    # -- runner hook (once per chunk of ops) ---------------------------
     def on_ops(self, db, k: int) -> None:
-        """Batch-boundary variant of `on_op`: one cadence check per
-        chunk of `k` ops.  Sampling rides the *simulated* clock
-        (`maybe_sample` compares `now()` against the next sample time),
-        so dropping from per-op to per-chunk checks shifts each sample
-        by at most one chunk of sim time — the series cadence is
-        statistically unchanged while the recorder does 1/k the work."""
+        """One cadence check per chunk of `k` ops.  Sampling rides the
+        *simulated* clock (`maybe_sample` compares `now()` against the
+        next sample time), so a per-chunk check shifts each sample by
+        at most one chunk of sim time — the series cadence is that of a
+        per-op check while the recorder does 1/k the work."""
         del k  # cadence is sim-time-driven; the count documents intent
         m = self.metrics
         if m.enabled:

@@ -1,0 +1,258 @@
+"""The wall-clock mode of the port's observability plane
+(`Observability(clock="wall")`), on the CPU: the engine's wall-only
+spans and counters are recorded and balanced, an attached plane leaves
+the answers and the engine's state those of an unattached run, the
+simulated-clock parts of the plane stay off, `detach` restores the null
+plane, `Tracer.self_times` subtracts the children, and
+`launch/profile_lsm.py` splits a run and the card's idle time by span.
+The simulated clock's traces are held to the JAX reference in
+`test_torch_obs.py`."""
+import dataclasses
+import importlib.util
+import json
+import pickle
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.core import (ShardConfig, make_sharded_system, make_system,
+                              runner)
+from repro_torch.data import workloads as twl
+from repro_torch.obs import NULL_OBS, Observability, Tracer
+
+VALUE = 1000
+# the spans and counters of `multi_get` and RALT, and the inline
+# background work a read round fires
+READ_SPANS = ("get", "get/mem", "get/fd", "get/pc", "get/sd", "get/commit",
+              "get/answer", "checker", "compaction", "ralt/record",
+              "ralt/flush", "ralt/evict", "ralt/query")
+COUNTERS = ("level_index/build", "ralt_index/build")
+# ... and those of `put_many` with a WAL
+WRITE_SPANS = ("put", "wal/append", "flush")
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+cs = _chip_smoke()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The engine's many small CPU ops run fastest on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def loaded(mix: str):
+    """A tiny HotRAP engine, loaded (with a WAL under writes)."""
+    cfg = dataclasses.replace(runner.default_config("tiny"),
+                              wal=mix == "RW")
+    n = runner.db_key_count(cfg, VALUE)
+    db = make_system("hotrap", cfg, seed=0, device="cpu")
+    if mix == "RW":
+        runner.load_db(db, n, VALUE)
+    else:
+        db.put_many(runner.load_keys(n, 0), VALUE)
+    db.flush_all()
+    return db, n
+
+
+def drive(db, mix: str, n: int) -> list:
+    wl = twl.ycsb(mix, twl.KeyDist("hotspot", n), 20000, VALUE, seed=2)
+    out: list = []
+    runner.run_workload(db, wl, name="w", results_out=out)
+    return out
+
+
+@pytest.mark.parametrize("mix", ["RO", "RW"])
+def test_wall_plane_records_engine_spans_and_changes_nothing(mix):
+    base, n = loaded(mix)
+    db = pickle.loads(pickle.dumps(base))
+    obs = Observability(clock="wall").attach(db, name="w")
+    assert db.ralt._obs is obs and db.ralt._obs_track == "w"
+    got = drive(db, mix, n)
+    want = drive(base, mix, n)
+    assert got == want
+    assert cs.json_mismatches(cs.engine_digest(base),
+                              cs.engine_digest(db)) == []
+    tr = obs.tracer
+    assert tr.validate() == [] and tr.dropped == 0
+    spans = READ_SPANS + (WRITE_SPANS if mix == "RW" else ())
+    assert {n for n in spans if tr.count(n, "B") == 0} == set()
+    assert all(tr.count(n, "i") > 0 for n in COUNTERS)
+    assert {ev["track"] for ev in tr.events} == {"w"}
+    # the simulated clock's parts are off, and so are the instants whose
+    # arguments copy RALT's answers to the host
+    assert tr.count("promo/get") == 0
+    assert obs.metrics.n_samples == 0 and obs.attr.n_seen == 0
+    # wall seconds: every span's self time within its total
+    st = tr.self_times()
+    assert set(spans) <= set(st)
+    for row in st.values():
+        assert 0.0 <= row["self_s"] <= row["total_s"] + 1e-9
+    obs.detach(db)
+    assert db._obs is NULL_OBS and db.ralt._obs is NULL_OBS
+    assert "_obs" not in db.__dict__ and "_obs" not in db.ralt.__dict__
+
+
+def test_wall_plane_on_a_cluster_detaches_whole():
+    """Each shard and its RALT on a track of its own; `detach` restores
+    the null plane on every wired object and the router's own
+    `_new_shard`."""
+    cfg = runner.default_config("tiny")
+    n = runner.db_key_count(cfg, VALUE) // 4
+    db = make_sharded_system("hotrap", cfg, ShardConfig(n_shards=2),
+                             device="cpu")
+    db.put_many(runner.load_keys(n, 0), VALUE)
+    obs = Observability(clock="wall").attach(db, name="c")
+    assert "_new_shard" in db.__dict__
+    db.multi_get(runner.load_keys(n, 1)[:512])
+    tracks = {ev["track"] for ev in obs.tracer.events
+              if ev["name"] == "get"}
+    assert tracks == {"c/shard0", "c/shard1"}
+    assert obs.tracer.validate() == []
+    obs.detach(db)
+    assert "_new_shard" not in db.__dict__
+    for x in [db, *db.shards, db.hot_budget,
+              *(sh.ralt for sh in db.shards)]:
+        assert x._obs is NULL_OBS and "_obs_track" not in x.__dict__
+
+
+def test_attached_wall_plane_is_not_pickled():
+    db, _ = loaded("RO")
+    Observability(clock="wall").attach(db)
+    copy = pickle.loads(pickle.dumps(db))
+    assert copy._obs is NULL_OBS and copy.ralt._obs is NULL_OBS
+
+
+def test_clock_is_sim_or_wall():
+    assert not Observability().wall
+    assert not Observability(enabled=False, clock="wall").wall
+    with pytest.raises(ValueError):
+        Observability(clock="host")
+
+
+def test_self_times_subtract_children_on_the_same_track():
+    t = [0.0]
+    tr = Tracer(clock=lambda: t[0])
+
+    def at(s, fn, *args):
+        t[0] = s
+        fn(*args)
+
+    at(0.0, tr.begin, "a", "get")
+    at(1.0, tr.begin, "a", "get/fd")
+    at(3.0, tr.end, "a")
+    at(3.5, tr.begin, "a", "checker")
+    at(4.0, tr.begin, "a", "ralt/query")
+    at(4.5, tr.end, "a")
+    at(6.0, tr.end, "a")
+    at(2.0, tr.begin, "b", "flush")     # clamped to 6.0: another track
+    at(7.0, tr.end, "b")
+    at(9.0, tr.end, "a")                # closes get
+    at(9.0, tr.begin, "a", "get")
+    at(10.0, tr.end, "a")
+    st = tr.self_times()
+    assert st["get"] == {"count": 2, "total_s": 10.0, "self_s": 5.5}
+    assert st["get/fd"] == {"count": 1, "total_s": 2.0, "self_s": 2.0}
+    assert st["checker"] == {"count": 1, "total_s": 2.5, "self_s": 2.0}
+    assert st["ralt/query"] == {"count": 1, "total_s": 0.5, "self_s": 0.5}
+    assert st["flush"] == {"count": 1, "total_s": 1.0, "self_s": 1.0}
+    tr.begin("a", "put")                # open spans are not counted
+    assert "put" not in tr.self_times()
+
+
+def test_mirror_ranges_only_while_a_profiler_records():
+    tr = Tracer(clock=lambda: 0.0)
+    tr.mirror = "repro_torch/"
+    tr.begin("a", "get")
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        tr.begin("a", "get/fd")
+        torch.ones(4).sum()
+        tr.end("a")
+    tr.end("a")
+    names = [e.name() for e in prof.profiler.kineto_results.events()]
+    assert "repro_torch/get/fd" in names
+    assert "repro_torch/get" not in names
+    assert tr.validate() == [] and tr._ranges == {"a": []}
+
+
+class Ev:
+    """A `torch.profiler` event, as `profile_lsm.idle_by_span` reads it."""
+
+    def __init__(self, name, dev, a, b):
+        self.n, self.d, self.a, self.b = name, dev, a, b
+
+    def name(self):
+        return self.n
+
+    def device_type(self):
+        return (torch.autograd.DeviceType.CUDA if self.d
+                else torch.autograd.DeviceType.CPU)
+
+    def start_ns(self):
+        return self.a
+
+    def duration_ns(self):
+        return self.b - self.a
+
+
+def prof_of(evs):
+    class Prof:
+        class profiler:
+            class kineto_results:
+                @staticmethod
+                def events():
+                    return evs
+    return Prof
+
+
+def test_idle_by_span_goes_to_the_innermost_engine_span():
+    from repro_torch.launch.profile_lsm import WINDOW, idle_by_span
+    e = "repro_torch/"
+    evs = [Ev(WINDOW, False, 0, 1000),
+           Ev(e + "get", False, 10, 790),
+           Ev(e + "checker", False, 20, 300),
+           Ev(e + "ralt/query", False, 100, 200),
+           Ev(e + "get/sd", False, 400, 600),
+           Ev(e + "get/sd", True, 400, 600),        # its range on the card
+           Ev(WINDOW, True, 0, 1000),
+           Ev("void k<int>(int*)", True, 150, 160),
+           Ev("void k<int>(int*)", True, 250, 400),
+           Ev("Memcpy DtoH (Device -> Pageable)", True, 500, 700)]
+    got = idle_by_span(prof_of(evs))
+    # gaps: [0,150) mid 75 checker, [160,250) mid 205 checker,
+    # [400,500) mid 450 get/sd, [700,1000) mid 850 none
+    assert got["idle_s"] == pytest.approx(640e-9)
+    assert got["by_span"] == pytest.approx(
+        {"checker": 240e-9, "get/sd": 100e-9, "none": 300e-9})
+    # a gap inside ralt/query goes to it, not to the checker around it
+    evs.append(Ev("void k<long>(long*)", True, 0, 120))
+    assert idle_by_span(prof_of(evs))["by_span"] == pytest.approx(
+        {"ralt/query": 30e-9, "checker": 90e-9, "get/sd": 100e-9,
+         "none": 300e-9})
+    assert idle_by_span(prof_of(evs[:5])) is None
+
+
+def test_profile_lsm_splits_the_run_by_span(capsys):
+    from repro_torch.launch import profile_lsm
+    profile_lsm.main(["--scale", "tiny", "--ops", "3000", "--mix", "RW",
+                      "--device", "cpu", "--top", "3"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    spans = out["spans"]
+    assert {"get", "get/commit", "put", "ralt/record"} <= set(
+        spans["us_per_op"])
+    for row in spans["us_per_op"].values():
+        assert 0.0 <= row["self"] <= row["total"] + 1e-6
+    assert set(spans["builds_per_kop"]) == set(profile_lsm.BUILDS)
+    assert "idle_by_span" not in spans and spans["dropped"] == 0
