@@ -436,10 +436,14 @@ class TieredLSM:
         over a materialized GroupView or one fence-pointer
         ``searchsorted`` per level with one bloom + binary-search probe
         on the device per touched SSTable, across the whole batch.  The
-        stateful *commit* — block-cache LRU accesses and I/O charges,
-        §3.3 promotion-cache inserts, per-key (fd, sd) fg-time deltas
-        into ``lat_out`` — replays per key in input order on the host,
-        reproducing the scalar path's exact charge sequence.  The op
+        stateful *commit* on the host is columnar too, but for the
+        block-cache LRU replay (`BlockCache.access_many`): the misses
+        are charged in whole columns (`StorageSim.rand_read_many`), each
+        key's (fd, sd) fg-time delta into ``lat_out`` is a difference of
+        their running sums, and the §3.3 promotion-cache inserts loop
+        over the SD hits alone — the scalar path's charge sequence and
+        floats, bit for bit.  A simulated-clock plane with attribution
+        or `promo/get` instants takes `_commit_per_key` instead.  The op
         clock advances once (`_tick_many`).
 
         ``lat_out``: optional float (n, 2) array receiving each key's
@@ -554,19 +558,77 @@ class TieredLSM:
             tr.begin(track, "get/commit")
         st.misses += int(np.count_nonzero(~has)) + int(
             np.count_nonzero(has & (res_vlen == TOMBSTONE_VLEN)))
-        # -- commit: replay charges per key, in input order ------------
+        # -- commit: the charges of each key, in input order -----------
         if ev:
             e_pos = np.concatenate([e[0] for e in ev])
             e_rank = np.concatenate(
                 [np.full(len(e[0]), r, dtype=np.int32)
                  for r, e in enumerate(ev)])
             order = np.lexsort((e_rank, e_pos))
-            e_sid = np.concatenate([e[1] for e in ev])[order].tolist()
-            e_blk = np.concatenate([e[2] for e in ev])[order].tolist()
-            e_sd = np.concatenate([e[3] for e in ev])[order].tolist()
-            e_pos = e_pos[order].tolist()
+            e_pos = e_pos[order]
+            e_sid = np.concatenate([e[1] for e in ev])[order]
+            e_blk = np.concatenate([e[2] for e in ev])[order]
+            e_sd = np.concatenate([e[3] for e in ev])[order]
         else:
-            e_pos = e_sid = e_blk = e_sd = []
+            e_pos = e_sid = e_blk = np.zeros(0, dtype=np.int64)
+            e_sd = np.zeros(0, dtype=bool)
+        bc = self.block_cache
+        hits0 = bc.hits
+        tomb = TOMBSTONE_VLEN
+        # the `promo/get` instants (not in wall mode: their arguments
+        # copy RALT's answers to the host)
+        promo_on = obs.enabled and not wall and self.ralt is not None
+        if attr_on or promo_on:
+            self._commit_per_key(ks, kl, e_pos, e_sid, e_blk, e_sd, tier_c,
+                                 res_seq, res_vlen, viewhit, sd_touch,
+                                 lat_out, attr_on, promo_on)
+        else:
+            # the LRU replay is the only order-dependent part: the
+            # charges are per-tier sequential sums, each key's latency a
+            # difference of them, and the §3.3 inserts touch neither
+            miss = ~bc.access_many(e_sid, e_blk)
+            times = self.storage.rand_read_many(e_sd[miss], BLOCK_BYTES,
+                                                fg=True, component="get")
+            if lat_out is not None:
+                cnt = np.bincount(e_pos[miss], minlength=n)
+                end = np.cumsum(cnt)
+                lat_out[:n] = times[end] - times[end - cnt]
+            sel = np.flatnonzero((tier_c == 3) & (res_vlen != tomb))
+            if self.cfg.hotrap and len(sel):
+                # lint: allow-loop (§3.3 promotion-cache inserts of the
+                # SD hits alone: each may freeze the mPC the next sees)
+                for i, seq, vlen in zip(sel.tolist(), res_seq[sel].tolist(),
+                                        res_vlen[sel].tolist()):
+                    self._insert_pc(kl[i], seq, vlen, sd_touch.get(i, []))
+        if wall:
+            tr.end(track, "get/commit", {"block_events": len(e_pos),
+                                         "cache_hits": bc.hits - hits0})
+        # -- RALT hotness: one chunked batch for every live hit --------
+        live = has & (res_vlen != tomb)
+        if self.ralt is not None and live.any():
+            sel = np.flatnonzero(live)
+            self.ralt.record_access_many(ks[sel], res_vlen[sel])
+        if wall:
+            tr.begin(track, "get/answer")
+        out = [sv if ok else None
+               for sv, ok in zip(zip(res_seq.tolist(), res_vlen.tolist()),
+                                 live.tolist())]
+        if wall:
+            tr.end(track, "get/answer")
+            tr.end(track, "get")
+        return out
+
+    def _commit_per_key(self, ks, kl, e_pos, e_sid, e_blk, e_sd, tier_c,
+                        res_seq, res_vlen, viewhit, sd_touch, lat_out,
+                        attr_on: bool, promo_on: bool) -> None:
+        """`multi_get`'s commit key by key, in input order, as the
+        reference makes it.  Kept for the simulated-clock plane alone:
+        its attribution records and `promo/get` instants read the clock
+        (StorageSim) between one key's charges and the next's, so they
+        need the charges made one at a time; every other caller takes
+        the columnar commit."""
+        obs = self._obs
+        n = len(kl)
         tiers = ("mem", "FD", "PC", "SD", "miss")
         bc = self.block_cache
         storage = self.storage
@@ -574,18 +636,17 @@ class TieredLSM:
         dev_sd = storage.dev["SD"]
         hotrap = self.cfg.hotrap
         tomb = TOMBSTONE_VLEN
-        # the `promo/get` instants (not in wall mode: their arguments
-        # copy RALT's answers to the host)
-        promo_on = obs.enabled and not wall and self.ralt is not None
         promo_args = ({} if not (promo_on and hotrap)
                       else self._promo_get_args(ks, tier_c, res_vlen))
+        e_pos = e_pos.tolist()
+        e_sid = e_sid.tolist()
+        e_blk = e_blk.tolist()
+        e_sd = e_sd.tolist()
         ep = 0
         n_ev = len(e_pos)
         b0 = r0 = 0
-        # lint: allow-loop (stateful batch commit: block-cache LRU
-        # accesses, per-key fg-time latency recovery and §3.3 promotion
-        # inserts are order-dependent — all probe *resolution* above is
-        # vectorized; this loop is O(1) bookkeeping per key)
+        # lint: allow-loop (stateful per-key commit for a plane that reads
+        # the simulated clock between keys; see the docstring)
         for i in range(n):
             if attr_on:
                 b0 = bc.hits
@@ -620,23 +681,6 @@ class TieredLSM:
                          + cache_hits),
                         bool(viewhit[i]), cache_hits > 0,
                         float(lat_out[i, 0] + lat_out[i, 1]))
-        if wall:
-            tr.end(track, "get/commit")
-        # -- RALT hotness: one chunked batch for every live hit --------
-        if self.ralt is not None:
-            live = has & (res_vlen != tomb)
-            if live.any():
-                sel = np.flatnonzero(live)
-                self.ralt.record_access_many(ks[sel], res_vlen[sel])
-        if wall:
-            tr.begin(track, "get/answer")
-        out = [(int(res_seq[i]), int(res_vlen[i]))
-               if has[i] and res_vlen[i] != tomb else None
-               for i in range(n)]
-        if wall:
-            tr.end(track, "get/answer")
-            tr.end(track, "get")
-        return out
 
     def _promo_get_args(self, ks: np.ndarray, tier_c: np.ndarray,
                         res_vlen: np.ndarray) -> dict:

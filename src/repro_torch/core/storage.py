@@ -26,6 +26,8 @@ from __future__ import annotations
 import dataclasses
 from collections import OrderedDict
 
+import numpy as np
+
 KIB = 1024
 MIB = 1024 * 1024
 GIB = 1024 * 1024 * 1024
@@ -115,6 +117,45 @@ class StorageSim:
         return self._charge(tier, cost, fg, component,
                             read_bytes=nbytes, rand_reads=1)
 
+    def rand_read_many(self, is_sd, nbytes: int, *, fg: bool,
+                       component: str) -> np.ndarray:
+        """`rand_read` of `nbytes` from SD where ``is_sd[j]``, else from FD,
+        for each j in order, charged in whole columns.
+
+        Returns an (m + 1, 2) float array of the FD and SD time charged
+        (fg or bg, by `fg`): row 0 before the charges, row j + 1 after
+        charge j.  Every float equals what the m `rand_read` calls give,
+        bit for bit: each total is the last element of a sequential
+        `np.cumsum` that starts from the old value, and a device's busy
+        time only grows, so `_wall` takes each charged device's last."""
+        is_sd = np.asarray(is_sd, dtype=bool)
+        m = len(is_sd)
+        field = "fg_time" if fg else "bg_time"
+        costs = np.where(is_sd, self.spec["SD"].rand_read_cost(nbytes),
+                         self.spec["FD"].rand_read_cost(nbytes))
+        out = np.empty((m + 1, 2))
+        # lint: allow-loop (per tier: FD and SD)
+        for col, (tier, sel) in enumerate((("FD", ~is_sd), ("SD", is_sd))):
+            d = self.dev[tier]
+            run = np.cumsum(np.concatenate(([getattr(d, field)],
+                                            costs[sel])))
+            out[1:, col] = run[np.cumsum(sel)]
+            out[0, col] = run[0]
+            k = len(run) - 1
+            if k:
+                setattr(d, field, float(run[-1]))
+                d.read_bytes += k * nbytes
+                d.rand_reads += k
+                if d.busy > self._wall:
+                    self._wall = d.busy
+        if m:
+            c = self.by_component.setdefault(
+                component, {"read_bytes": 0, "write_bytes": 0, "time": 0.0})
+            c["read_bytes"] += m * nbytes
+            c["time"] = float(np.cumsum(np.concatenate(([c["time"]],
+                                                        costs)))[-1])
+        return out
+
     def seq_read(self, tier: str, nbytes: int, *, fg: bool,
                  component: str) -> float:
         cost = self.spec[tier].seq_read_cost(nbytes)
@@ -176,6 +217,33 @@ class BlockCache:
         while len(self._od) * self.block_bytes > self.capacity:
             self._od.popitem(last=False)
         return False
+
+    def access_many(self, sids, blks) -> np.ndarray:
+        """`access((sids[j], blks[j]))` for each j in order: the hit flags,
+        with `hits`, `misses` and the LRU order those calls leave."""
+        keys = list(zip(np.asarray(sids).tolist(), np.asarray(blks).tolist()))
+        hit = np.zeros(len(keys), dtype=bool)
+        if self.capacity <= 0:
+            self.misses += len(keys)
+            return hit
+        od = self._od
+        move, pop = od.move_to_end, od.popitem
+        limit = self.capacity // self.block_bytes   # blocks that fit
+        hits = []
+        # lint: allow-loop (the LRU is order-dependent: whether an access
+        # hits depends on every access before it)
+        for j, key in enumerate(keys):
+            if key in od:
+                move(key)
+                hits.append(j)
+            else:
+                od[key] = None
+                while len(od) > limit:
+                    pop(False)
+        hit[hits] = True
+        self.hits += len(hits)
+        self.misses += len(keys) - len(hits)
+        return hit
 
     def invalidate_sstable(self, sstable_id: int) -> None:
         stale = [k for k in self._od if k[0] == sstable_id]

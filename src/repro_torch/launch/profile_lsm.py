@@ -15,7 +15,9 @@ the device; the copy is not timed): once under cProfile (the run's wall
 under the profiler, and the functions of `repro_torch` with the most
 cumulative time); once with a wall-clock observability plane attached
 (`Observability(clock="wall")`: each span's count and total and self
-µs an op, and the device indexes built again a thousand ops, `spans`);
+µs an op, the device indexes built again a thousand ops, and the
+commit's block-cache accesses a get and the share of them that hit,
+`spans`);
 and on CUDA once counting the host syncs CUDA's sync debug mode
 reports and once with the plane under `torch.profiler`, whose trace
 gives the card's idle seconds by the innermost engine span the host
@@ -119,9 +121,17 @@ def _spans(loaded, args, n_keys: int) -> dict:
     """The `spans` part of the output: the run with a wall-clock plane
     attached, and on CUDA its idle gaps under the profiler."""
     obs = Observability(clock="wall")
-    _, wall = _run(loaded, args, n_keys, obs)
+    res, wall = _run(loaded, args, n_keys, obs)
     tr = obs.tracer
+    # the commit's counters, summed over its closed spans
+    commits = [ev.get("args", {}) for ev in tr.events
+               if ev["name"] == "get/commit" and ev["ph"] == "E"]
+    gets = res.stats["gets"] - loaded.stats.gets
+    events = sum(a.get("block_events", 0) for a in commits)
+    hits = sum(a.get("cache_hits", 0) for a in commits)
     out = {"run_s": wall, "dropped": tr.dropped,
+           "commit": {"block_events_per_get": events / gets if gets else 0.0,
+                      "cache_hit_share": hits / events if events else 0.0},
            "us_per_op": {n: {"count": v["count"],
                              "total": v["total_s"] / args.ops * 1e6,
                              "self": v["self_s"] / args.ops * 1e6}

@@ -222,6 +222,23 @@ def test_vectorization_registry_and_waiver():
     assert VectorizationPass().run(_src("x/core/other.py", code)) == []
 
 
+def test_vectorization_covers_the_batched_storage_primitives():
+    code = """\
+        def access_many(self, sids, blks):
+            for key in zip(sids, blks):
+                self.access(key)
+
+        def rand_read_many(self, is_sd, nbytes):
+            # lint: allow-loop (two fixed tiers)
+            for tier in ("FD", "SD"):
+                self.dev[tier]
+            for sd in is_sd:
+                self.rand_read(sd, nbytes)
+        """
+    out = VectorizationPass().run(_src("x/core/storage.py", code))
+    assert [f.line for f in out] == [2, 9]
+
+
 # ----------------------------------------------------------------------
 # pallas purity mechanics
 # ----------------------------------------------------------------------

@@ -153,6 +153,87 @@ def test_point_gets_off_views_and_scalar_api(hotrap):
     assert got.storage.snapshot() == want.storage.snapshot()
 
 
+# the columnar commit's cases: a block cache of `blocks` blocks (evicting
+# inside one batch; 0 counts every access a miss), `defer` ops of
+# deferral for the promotion-cache inserts, `lat_out` given or not, a
+# batch with `dups` (repeated keys, and runs of neighbours sharing a
+# block), and `plane`: a wall-clock plane on the port alone
+COMMIT_CASES = {
+    "repeats": dict(blocks=4, defer=0, lat=False, dups=True, plane=False),
+    "repeats_lat_out": dict(blocks=4, defer=0, lat=True, dups=True,
+                            plane=False),
+    "sd_inserts_freeze": dict(blocks=6, defer=0, lat=True, dups=False,
+                              plane=False),
+    "deferred_inserts": dict(blocks=6, defer=5, lat=True, dups=False,
+                             plane=False),
+    "capacity_zero": dict(blocks=0, defer=0, lat=True, dups=True,
+                          plane=False),
+    "wall_plane": dict(blocks=4, defer=0, lat=True, dups=True, plane=True),
+}
+
+
+@pytest.mark.parametrize("case", list(COMMIT_CASES))
+def test_columnar_commit_matches_the_references_per_key_commit(hotrap,
+                                                                case):
+    """The port's columnar `multi_get` commit (the LRU replayed in one
+    loop, the misses charged in whole columns, `lat_out` from running
+    sums) against the reference's per-key commit: equal answers,
+    `Stats`, StorageSim counters and clock, block-cache counts and LRU
+    order, promotion caches, and `lat_out` rows bit for bit.  Each
+    package numbers its SSTables from a module counter of its own, which
+    other tests in the process advance apart, so the LRU keys compare
+    through the table-by-table map of the two engines' equal levels (a
+    compacted table leaves the cache)."""
+    from repro_torch.obs import Observability
+    c = COMMIT_CASES[case]
+    want, got = hotrap.clones()
+    for db in (want, got):
+        db.block_cache.capacity = c["blocks"] * db.block_cache.block_bytes
+        db.defer_pc_inserts = c["defer"]
+    if c["plane"]:
+        Observability(clock="wall").attach(got)
+    rng = np.random.default_rng(11)
+    for r in range(3):
+        if c["dups"]:
+            base = rng.integers(0, hotrap.n_keys, 150)
+            batch = np.concatenate([base, base[::3], base[:40] + 1,
+                                    base[:40] + 2])
+            rng.shuffle(batch)
+        else:
+            batch = rng.integers(0, hotrap.n_keys, 700)
+        before = set(map(id, got.immpcs))
+        lat_w = np.full((len(batch), 2), np.nan) if c["lat"] else None
+        lat_g = np.full((len(batch), 2), np.nan) if c["lat"] else None
+        assert (got.multi_get(batch, lat_out=lat_g)
+                == want.multi_get(batch.astype(np.uint64), lat_out=lat_w))
+        if c["lat"]:
+            assert lat_g.tobytes() == lat_w.tobytes()
+            assert (lat_g > 0).any()
+        if not c["dups"] and not c["defer"]:
+            # an mPC froze inside the batch
+            assert set(map(id, got.immpcs)) - before
+    assert levels_of(got) == levels_of(want)
+    sid = {w.sid: g.sid for wl, gl in zip(want.levels, got.levels)
+           for w, g in zip(wl, gl)}
+    assert dataclasses.asdict(got.stats) == dataclasses.asdict(want.stats)
+    assert got.storage.snapshot() == want.storage.snapshot()
+    assert got.storage.sim_time == want.storage.sim_time
+    bc, wbc = got.block_cache, want.block_cache
+    assert (bc.hits, bc.misses) == (wbc.hits, wbc.misses)
+    assert list(bc._od) == [(sid[s], b) for s, b in wbc._od]
+    assert len(bc._od) <= c["blocks"]
+    assert got.mpc.data == want.mpc.data
+    assert got._deferred_pc == [(t, k, sq, v, [sid[x] for x in touched])
+                                for t, k, sq, v, touched in want._deferred_pc]
+    assert len(got.immpcs) == len(want.immpcs)
+    st = got.stats
+    assert st.served_sd > 0 and st.pc_inserts + len(got._deferred_pc) > 0
+    if c["blocks"]:
+        assert bc.hits > 0
+    else:
+        assert bc.hits == 0
+
+
 def test_put_many_matches_scalar_puts_across_rotations():
     """A batch with repeated keys and tombstones crossing several
     memtable rotations: the same seqs, memtables, levels and stats as

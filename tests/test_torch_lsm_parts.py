@@ -19,7 +19,7 @@ from repro.data import workloads as jwl
 from repro_torch.core import lsm, ralt, scan, sstable
 from repro_torch.core.baselines import make_system
 from repro_torch.core.runner import default_config
-from repro_torch.core.storage import StorageSim
+from repro_torch.core.storage import BlockCache, StorageSim
 from repro_torch.data import workloads as twl
 
 CPU = torch.device("cpu")
@@ -363,3 +363,60 @@ def test_lsm_config_and_stats_are_the_references():
     assert dataclasses.asdict(lsm.Stats()) == dataclasses.asdict(jlsm.Stats())
     assert dataclasses.asdict(ralt.RaltConfig(1, 2, 3)) == \
         dataclasses.asdict(jralt.RaltConfig(1, 2, 3))
+
+
+# (cache blocks, accesses, blocks after the warm-up: a shrunk cache
+# evicts several on its first miss)
+@pytest.mark.parametrize("blocks,n,shrink", [
+    (0, 50, None), (4, 0, None), (4, 300, None), (64, 300, None),
+    (3, 300, None), (8, 300, 2)])
+def test_block_cache_access_many_is_access_in_a_loop(blocks, n, shrink):
+    """`access_many` against `access` in a loop: equal hit flags, counts
+    and LRU order, from a warmed cache."""
+    rng = np.random.default_rng(blocks * 1000 + n)
+    sids, blks = rng.integers(0, 6, n), rng.integers(0, 5, n)
+    want, got = BlockCache(blocks * 16384, 16384), BlockCache(
+        blocks * 16384, 16384)
+    for cache in (want, got):
+        for key in [(9, 0), (9, 1), (2, 3), (9, 0), (4, 4)]:
+            cache.access(key)
+        if shrink is not None:
+            cache.capacity = shrink * 16384
+    flags = [want.access(k) for k in zip(sids.tolist(), blks.tolist())]
+    hit = got.access_many(sids, blks)
+    assert hit.dtype == bool and hit.tolist() == flags
+    assert (got.hits, got.misses) == (want.hits, want.misses)
+    assert list(got._od) == list(want._od)
+    if blocks and n:
+        assert 0 < got.hits and len(got._od) <= (shrink or blocks)
+
+
+@pytest.mark.parametrize("fg", [True, False])
+@pytest.mark.parametrize("n,sd_share", [(0, 0.5), (1, 1.0), (400, 0.0),
+                                        (400, 0.3), (400, 1.0)])
+def test_rand_read_many_is_rand_read_in_a_loop(fg, n, sd_share):
+    """`rand_read_many` against repeated `rand_read` after unrelated
+    charges: each row of running times, every counter, the component's
+    totals (created only by a charge) and the wall, floats bit for
+    bit."""
+    rng = np.random.default_rng(n)
+    is_sd = rng.random(n) < sd_share
+    want, got = StorageSim(), StorageSim()
+    for sim in (want, got):
+        sim.seq_write("FD", 12345, fg=False, component="compaction")
+        sim.rand_read("SD", 4096, fg=True, component="get")
+        sim.seq_read("SD", 777777, fg=False, component="compaction")
+    field = "fg_time" if fg else "bg_time"
+    rows = [[getattr(want.dev[t], field) for t in ("FD", "SD")]]
+    for sd in is_sd.tolist():
+        want.rand_read("SD" if sd else "FD", 16384, fg=fg,
+                       component="promotion")
+        rows.append([getattr(want.dev[t], field) for t in ("FD", "SD")])
+    got_rows = got.rand_read_many(is_sd, 16384, fg=fg,
+                                  component="promotion")
+    assert got_rows.shape == (n + 1, 2)
+    assert got_rows.tobytes() == np.array(rows).tobytes()
+    assert got.snapshot() == want.snapshot()
+    assert got.sim_time == want.sim_time
+    assert all(type(v) is float for d in got.dev.values()
+               for v in (d.fg_time, d.bg_time))

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.core import (ShardConfig, make_sharded_system, make_system,
                               runner)
+from repro_torch.core.storage import BlockCache
 from repro_torch.data import workloads as twl
 from repro_torch.obs import NULL_OBS, Observability, Tracer
 
@@ -102,6 +103,30 @@ def test_wall_plane_records_engine_spans_and_changes_nothing(mix):
     obs.detach(db)
     assert db._obs is NULL_OBS and db.ralt._obs is NULL_OBS
     assert "_obs" not in db.__dict__ and "_obs" not in db.ralt.__dict__
+
+
+def test_commit_span_counts_the_block_cache_accesses():
+    """The `get/commit` span's end carries the batch's block-cache
+    accesses and hits: their sums over a run are what the commit's LRU
+    replays gave (the checker's probes, outside the commit, are not
+    counted)."""
+    db, n = loaded("RO")
+    bc = db.block_cache
+    replays = []
+
+    def access_many(sids, blks):
+        hit = BlockCache.access_many(bc, sids, blks)
+        replays.append((len(hit), int(hit.sum())))
+        return hit
+
+    bc.access_many = access_many
+    obs = Observability(clock="wall").attach(db, name="w")
+    drive(db, "RO", n)
+    ends = [ev["args"] for ev in obs.tracer.events
+            if ev["name"] == "get/commit" and ev["ph"] == "E"]
+    assert len(ends) == len(replays) == obs.tracer.count("get/commit", "B")
+    assert [(a["block_events"], a["cache_hits"]) for a in ends] == replays
+    assert sum(h for _, h in replays) > 0
 
 
 def test_wall_plane_on_a_cluster_detaches_whole():
@@ -256,3 +281,6 @@ def test_profile_lsm_splits_the_run_by_span(capsys):
         assert 0.0 <= row["self"] <= row["total"] + 1e-6
     assert set(spans["builds_per_kop"]) == set(profile_lsm.BUILDS)
     assert "idle_by_span" not in spans and spans["dropped"] == 0
+    commit = spans["commit"]
+    assert commit["block_events_per_get"] > 0
+    assert 0.0 < commit["cache_hit_share"] < 1.0

@@ -34,8 +34,11 @@ HOT_FUNCTIONS: dict[str, set[str]] = {
     "core/lsm.py": {"multi_get", "put_many", "_multi_get_fallback",
                     "_put_many_fallback", "_batch_probe_group",
                     "_batch_view_get", "_batch_walk_levels",
-                    "_batch_probe_sst"},
+                    "_batch_probe_sst", "_commit_per_key"},
     "core/ralt.py": {"record_access_many", "record_range_access"},
+    # the columnar multi_get commit: one waived LRU replay loop, the
+    # charges in whole columns
+    "core/storage.py": {"access_many", "rand_read_many"},
 }
 
 
