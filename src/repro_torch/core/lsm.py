@@ -54,7 +54,7 @@ from .ralt import RALT, RaltConfig
 from .scan import MAX_KEY, MergeCounters, build_sources, merge_scan
 from .sstable import (BLOCK_BYTES, KEY_BYTES, TOMBSTONE_VLEN, SSTable,
                       lexsort, merge_runs, split_into_sstables,
-                      storage_bytes)
+                      sstable_from_host, storage_bytes)
 from .storage import BlockCache, StorageSim
 from .version import (GroupView, LevelIndex, Superversion, Version,
                       ViewCache)
@@ -1346,10 +1346,9 @@ class TieredLSM:
             for k, s, v in hot:
                 self.mpc.insert(k, s, v, KEY_BYTES)
             return
-        keys, seqs, vlens = torch.from_numpy(
-            np.array(hot, dtype=np.int64).T.copy()).to(self.device).unbind(0)
-        sst = SSTable(keys, seqs, vlens, "FD", 0, self.now,
-                      self.cfg.bits_per_key)
+        sst = sstable_from_host(np.array(hot, dtype=np.int64), "FD", 0,
+                                self.now, self.cfg.bits_per_key,
+                                self.device)
         self.storage.seq_write("FD", sst.size_bytes, fg=False,
                                component="promotion")
         # lint: allow-stats (engine-owned Stats)
@@ -1452,10 +1451,8 @@ class TieredLSM:
                                  {"records": len(table)})
             cols = np.array([(k, sv[0], sv[1]) for k, sv in
                              sorted(table.items())], dtype=np.int64)
-            keys, seqs, vlens = torch.from_numpy(cols.T.copy()).to(
-                self.device).unbind(0)
-            sst = SSTable(keys, seqs, vlens, "FD", 0, self.now,
-                          self.cfg.bits_per_key)
+            sst = sstable_from_host(cols, "FD", 0, self.now,
+                                    self.cfg.bits_per_key, self.device)
             self.storage.seq_write("FD", sst.size_bytes, fg=False,
                                    component="flush")
             # each flush publishes a new Version with the run at the L0
@@ -1640,31 +1637,29 @@ class TieredLSM:
         Returns ((keys,seqs,vlens) destined for FD, same for SD)."""
         SRC_FD, SRC_PC, SRC_SD = 0, 1, 2
         dev = self.device
-        parts = []
-        for s in fd_inputs:
-            parts.append((s.keys, s.seqs, s.vlens,
-                          torch.full((s.n,), SRC_FD, dtype=torch.int8,
-                                     device=dev)))
-        for s in sd_inputs:
-            parts.append((s.keys, s.seqs, s.vlens,
-                          torch.full((s.n,), SRC_SD, dtype=torch.int8,
-                                     device=dev)))
+        tables = list(fd_inputs) + list(sd_inputs)
         pc_records = []
         if self.cfg.promotion_by_compaction:
             pc_records = self.mpc.extract_range(lo, hi, KEY_BYTES)
-        if pc_records:
-            pk, ps, pv = torch.from_numpy(np.array(
-                pc_records, dtype=np.int64).T.copy()).to(dev).unbind(0)
-            parts.append((pk, ps, pv,
-                          torch.full((len(pc_records),), SRC_PC,
-                                     dtype=torch.int8, device=dev)))
-        keys = torch.cat([p[0] for p in parts])
-        seqs = torch.cat([p[1] for p in parts])
-        vlens = torch.cat([p[2] for p in parts])
-        srcs = torch.cat([p[3] for p in parts])
-        order = lexsort([srcs, -seqs, keys])
-        keys, seqs, vlens, srcs = (keys[order], seqs[order], vlens[order],
-                                   srcs[order])
+        n_pc = len(pc_records)
+        # the mPC's records (key, seq, vlen rows) and every row's source
+        # in one copy to the device
+        srcs = np.concatenate(
+            [np.full(s.n, SRC_FD if i < len(fd_inputs) else SRC_SD)
+             for i, s in enumerate(tables)] + [np.full(n_pc, SRC_PC)])
+        host = (np.concatenate([np.array(pc_records, dtype=np.int64)
+                                .T.reshape(-1), srcs]) if n_pc else srcs)
+        d = torch.from_numpy(host.astype(np.int64)).to(dev)
+        pc = d[:3 * n_pc].view(3, n_pc)
+        # (key, seq, vlen, source) rows of every input, sorted by key,
+        # newest first, ties by source
+        rows = torch.stack([torch.cat([getattr(s, name) for s in tables]
+                                      + [pc[i]])
+                            for i, name in enumerate(("keys", "seqs",
+                                                      "vlens"))]
+                           + [d[3 * n_pc:]])
+        rows = rows[:, lexsort([rows[3], -rows[1], rows[0]])]
+        keys, seqs, vlens, srcs = rows
         first = torch.ones(len(keys), dtype=torch.bool, device=dev)
         first[1:] = keys[1:] != keys[:-1]
 
@@ -1673,8 +1668,9 @@ class TieredLSM:
             hot_keys, _ = self.ralt.scan_hot(lo, hi)
         else:
             hot_keys = torch.zeros(0, dtype=torch.int64, device=dev)
-        wk = keys[first]
-        ws, wv, wsrc = seqs[first], vlens[first], srcs[first]
+        # the winners, one row a key (a fresh tensor: edited in place)
+        win = rows[:, first]
+        wk, ws, wv, wsrc = win
         nh = len(hot_keys)
         if nh:
             pos = torch.searchsorted(hot_keys, wk)
@@ -1704,7 +1700,6 @@ class TieredLSM:
                 sd_rows = sd_rows[pc_cold[gid[sd_rows]]]
                 if len(sd_rows):
                     repl_g = gid[sd_rows]
-                    ws, wv, wsrc = ws.clone(), wv.clone(), wsrc.clone()
                     ws[repl_g] = seqs[sd_rows]
                     wv[repl_g] = vlens[sd_rows]
                     wsrc[repl_g] = SRC_SD
@@ -1721,8 +1716,8 @@ class TieredLSM:
                 [(sizes * pc_mask).sum(), (sizes * ~pc_mask).sum()]).tolist()
             self.stats.promoted_bytes += promoted  # lint: allow-stats (engine)
             self.stats.retained_bytes += retained  # lint: allow-stats (engine)
-        return ((wk[fd_sel], ws[fd_sel], wv[fd_sel]),
-                (wk[sd_sel], ws[sd_sel], wv[sd_sel]))
+        return (tuple(win[:3, fd_sel].unbind(0)),
+                tuple(win[:3, sd_sel].unbind(0)))
 
     def _install_edits(self, edits: list[tuple[int, list[SSTable],
                                               list[SSTable]]]) -> None:

@@ -35,7 +35,7 @@ Exactness against the float64 numpy reference is designed in:
   order: the groups are contiguous after the sort, and step k adds the
   k-th member of every group (`group_sum`), never CUDA's atomic
   ``index_add_``;
-* `sample_threshold` draws from the reference's numpy Generator on the
+* `sample_thresholds` draws from the reference's numpy Generator on the
   host; its prefix sums of integer sizes are exact.
 
 The float64 scores do not go through the float32 ``ralt_update``
@@ -52,7 +52,7 @@ import torch
 from ..obs import NULL_OBS
 from . import scoring
 from .sstable import (_LOW31, BLOCK_BYTES, KEY_BYTES, BloomFilter,
-                      _mults, bounds, lexsort)
+                      _mults, bloom_k, bloom_nbits, bounds, lexsort)
 from .storage import StorageSim
 
 PHYS_RECORD_BYTES = (KEY_BYTES + 4) + 4 * 3 + 2
@@ -74,6 +74,18 @@ def decay(alpha: float, dt: torch.Tensor, bound: int) -> torch.Tensor:
     return table[dt]
 
 
+_POW_HOST: dict = {}
+
+
+def decay_host(alpha: float, dt: np.ndarray, bound: int) -> np.ndarray:
+    """`decay` on the host: a gather from the same `np.power` table."""
+    table = _POW_HOST.get(alpha)
+    if table is None or len(table) <= bound:
+        n = max(1024, 2 * bound + 2)
+        table = _POW_HOST[alpha] = np.power(alpha, np.arange(n))
+    return table[dt]
+
+
 def group_sum(x: torch.Tensor, first: torch.Tensor,
               counts: torch.Tensor) -> torch.Tensor:
     """Sums of each contiguous group of every row of `x` (c, n) (groups
@@ -84,10 +96,13 @@ def group_sum(x: torch.Tensor, first: torch.Tensor,
                       device=x.device)
     if not len(first):
         return out
-    last = x.shape[1] - 1
-    for k in range(int(counts.max())):
-        member = x[:, (first + k).clamp(max=last)]
-        out = out + torch.where(counts > k, member, 0.0)
+    # every member of every group in one gather: (c, k, groups), 0.0
+    # past a group's end
+    ks = torch.arange(int(counts.max()), device=x.device)[:, None]
+    members = torch.where(counts > ks,
+                          x[:, (first + ks).clamp(max=x.shape[1] - 1)], 0.0)
+    for k in range(members.shape[1]):
+        out = out + members[:, k]
     return out
 
 
@@ -152,10 +167,9 @@ class RaltRun:
         keys, vlens = ints[KEY], ints[VLEN]
         self.n = n = ints.shape[1]
         cur = floats[SCORE] * decay(alpha, now_tick - ints[TICK], now_tick)
-        self.hot_mask = cur >= hot_threshold
-        self.bloom = BloomFilter(keys[self.hot_mask], RALT_BITS_PER_KEY)
+        self.hot_mask = hot = cur >= hot_threshold
         # HotRAP sizes of records; hot prefix sums at block granularity.
-        hot_sizes = torch.where(self.hot_mask, vlens + KEY_BYTES, 0)
+        hot_sizes = torch.where(hot, vlens + KEY_BYTES, 0)
         cum = torch.cumsum(hot_sizes, 0)
         self.phys_bytes = n * PHYS_RECORD_BYTES
         # index blocks: one entry per data block of PHYS records
@@ -168,11 +182,20 @@ class RaltRun:
                                          device=keys.device)
         if len(starts) > 1:
             self.block_cum_hot[1:] = cum[starts[1:] - 1]
+        stats = (torch.stack([cum[-1], keys[0], keys[-1], hot.sum()]).tolist()
+                 if n else [0, None, None, 0])
+        self.hot_bytes, self.min_key, self.max_key, n_hot = stats
+        # the bloom filter over the hot keys, built over every key with
+        # the cold ones' bits sent to one bit past the filter's end
+        nbits = bloom_nbits(n_hot, RALT_BITS_PER_KEY)
+        bits = torch.zeros(nbits + 1, dtype=torch.bool, device=keys.device)
         if n:
-            self.hot_bytes, self.min_key, self.max_key = torch.stack(
-                [cum[-1], keys[0], keys[-1]]).tolist()
-        else:
-            self.hot_bytes, self.min_key, self.max_key = 0, None, None
+            h = keys.reshape(-1, 1) * _mults(bloom_k(RALT_BITS_PER_KEY),
+                                             keys.device)
+            idx = ((h >> 33) & _LOW31) % nbits
+            bits[torch.where(hot[:, None], idx, nbits)] = True
+        self.bloom = BloomFilter.of_bits(bits[:nbits], n_hot,
+                                         RALT_BITS_PER_KEY)
 
     keys = property(lambda self: self.ints[KEY])
     vlens = property(lambda self: self.ints[VLEN])
@@ -280,10 +303,43 @@ def _merge_records(parts: list[tuple], alpha: float, now_epoch: int,
     return out, sums
 
 
+def _merge_records_host(ints: np.ndarray, floats: np.ndarray, alpha: float,
+                        now_epoch: int, c_max: float,
+                        now_tick: int) -> tuple[np.ndarray, np.ndarray]:
+    """`_merge_records` of one part held on the host (the buffer's), in
+    numpy, as the reference merges it: the same sort, the same decays
+    (`decay_host`) and `np.add.at`'s sums in group order, so the merged
+    part equals the device's bit for bit."""
+    n = ints.shape[1]
+    if n == 0:
+        return ints, floats
+    order = np.lexsort((ints[TICK], ints[KEY]))
+    ints, floats = ints[:, order], floats[:, order]
+    keys, ticks = ints[KEY], ints[TICK]
+    new_grp = np.ones(n, dtype=bool)
+    new_grp[1:] = keys[1:] != keys[:-1]
+    first = np.flatnonzero(new_grp)
+    counts = np.diff(first, append=n)
+    gid = np.cumsum(new_grp) - 1
+    gmax_tick = ticks[first + counts - 1]
+    scaled = floats[SCORE] * decay_host(alpha, gmax_tick[gid] - ticks,
+                                        now_tick)
+    eff_c = np.maximum(floats[CNT] - (now_epoch - ints[EPOCH]), 0.0)
+    sums = np.zeros((2, len(first)))
+    np.add.at(sums[SCORE], gid, scaled)
+    np.add.at(sums[CNT], gid, eff_c)
+    sums[CNT] = np.minimum(sums[CNT], c_max)
+    out = ints[:, first]
+    out[TICK] = gmax_tick
+    out[TAG] = np.where(counts >= 2, 1, out[TAG])
+    out[EPOCH] = now_epoch
+    return out, sums
+
+
 def _wall_span(name: str):
-    """Time a RALT method as span `name` on the engine's track under a
-    wall-clock plane (`Observability(clock="wall")`); one attribute
-    check otherwise."""
+    """Time a method as span `name` on its object's track (RALT's, or
+    `HotBudget`'s in core/shards.py) under a wall-clock plane
+    (`Observability(clock="wall")`); one attribute check otherwise."""
     def wrap(fn):
         @functools.wraps(fn)
         def run(self, *args, **kw):
@@ -515,7 +571,8 @@ class RALT:
     # ------------------------------------------------------------------
     def _buffer_part(self) -> tuple[torch.Tensor, torch.Tensor]:
         """Drain the point-access lists and scan chunks into one record
-        part on the device: point accesses score 1, scan chunks carry
+        part, merged on the host (`_merge_records_host`) and sent to the
+        device in one copy: point accesses score 1, scan chunks carry
         their scan-length-clipped weights; counters delta_c, tags 0,
         epochs the current one."""
         parts_k, parts_v, parts_t, parts_w = [], [], [], []
@@ -541,8 +598,13 @@ class RALT:
             floats[SCORE] = np.concatenate(parts_w)
         ints[EPOCH] = self.epoch
         floats[CNT] = self.cfg.delta_c
-        return (torch.from_numpy(ints).to(self.device),
-                torch.from_numpy(floats).to(self.device))
+        ints, floats = _merge_records_host(ints, floats, self.cfg.alpha,
+                                           self.epoch, self.cfg.c_max,
+                                           self.tick)
+        # the ints and the floats' bits in one copy
+        d = torch.from_numpy(np.concatenate(
+            [ints, floats.view(np.int64)])).to(self.device)
+        return d[:5], d[5:].view(torch.float64)
 
     def _new_run(self, merged) -> RaltRun:
         return RaltRun(*merged, hot_threshold=self.hot_threshold,
@@ -556,7 +618,7 @@ class RALT:
     def _flush_buffer(self) -> None:
         if not self.buf_keys and not self.buf_chunks:
             return
-        run = self._new_run(self._merge([self._buffer_part()]))
+        run = self._new_run(self._buffer_part())
         self.storage.seq_write("FD", run.phys_bytes, fg=False, component="ralt")
         self._set_runs([run] + self.runs)
         # Leveling-ish maintenance: bound the run count by merging all
@@ -571,7 +633,7 @@ class RALT:
         run's records."""
         parts = [(r.ints, r.floats) for r in self.runs]
         if self.buf_keys or self.buf_chunks:
-            parts.insert(0, self._merge([self._buffer_part()]))
+            parts.insert(0, self._buffer_part())
         if not parts:
             return (torch.zeros(5, 0, dtype=torch.int64, device=self.device),
                     torch.zeros(2, 0, dtype=torch.float64,
@@ -587,25 +649,36 @@ class RALT:
 
     # ------------------------------------------------------------------
     @staticmethod
-    def sample_threshold(sizes: torch.Tensor, scores: torch.Tensor,
-                         keep_frac: float, n_samples: int,
-                         rng: np.random.Generator) -> float:
-        """Paper §3.2 eviction: sample positions uniformly in cumulative
-        size space; the k-th largest sampled score (k = N * keep_frac)
-        approximates the threshold S' with sum_{S_i >= S'} A_i ~= keep * A.
-        `sizes` are integers, so their float64 prefix sums are exact in
-        any order; the positions are the host Generator's draws."""
-        if len(sizes) == 0:
-            return 0.0
-        cum = torch.cumsum(sizes, 0).to(torch.float64)
-        total = float(cum[-1])
-        pos = torch.from_numpy(rng.uniform(0.0, total, size=n_samples))
-        idx = torch.searchsorted(cum, pos.to(cum.device), right=True)
-        idx = idx.clamp(0, len(scores) - 1)
-        sampled = torch.sort(scores[idx], descending=True).values
-        k = int(round(n_samples * keep_frac))
-        k = min(max(k, 1), n_samples)
-        return float(sampled[k - 1])
+    def sample_thresholds(sizes: torch.Tensor, keep: torch.Tensor,
+                          scores: torch.Tensor, keep_frac: float,
+                          n_samples: int,
+                          rng: np.random.Generator) -> list[float]:
+        """Paper §3.2 eviction, for each row i of `sizes` (m, n) in row
+        order, over the records `keep` selects: sample positions
+        uniformly in cumulative size space; the k-th largest sampled
+        score (k = N * keep_frac) approximates the threshold S' with
+        sum_{S_i >= S'} A_i ~= keep * A.  `sizes` are integers, so their
+        float64 prefix sums are exact in any order; the positions are
+        the host Generator's draws.  A record left out weighs 0 bytes, so
+        no position falls on it, and a position at the total takes the
+        last record kept, as the reference's clamp over the kept records
+        does.  Two copies to the host in all."""
+        cum = torch.cumsum(torch.where(keep, sizes, 0), 1)
+        totals = cum[:, -1].tolist() if sizes.shape[1] else [0] * len(sizes)
+        if not totals[0]:       # sizes are positive: nothing is kept
+            return [0.0] * len(sizes)
+        cum = cum.to(torch.float64)
+        # each row's positions, then its total less half a byte: the
+        # prefix sums are whole bytes, so the first above it is the
+        # first at the total, the last record kept
+        pos = torch.from_numpy(np.stack([
+            np.append(rng.uniform(0.0, float(t), size=n_samples), t - 0.5)
+            for t in totals])).to(cum.device)
+        idx = torch.searchsorted(cum, pos, right=True)
+        idx = torch.minimum(idx[:, :-1], idx[:, -1:])
+        sampled = torch.sort(scores[idx], dim=1, descending=True).values
+        k = min(max(int(round(n_samples * keep_frac)), 1), n_samples)
+        return sampled[:, k - 1].tolist()
 
     @_wall_span("ralt/evict")
     def _evict(self) -> None:
@@ -649,10 +722,9 @@ class RALT:
         if hot_kept > self.hot_set_limit or phys_kept > self.phys_limit:
             psizes = torch.full((n,), PHYS_RECORD_BYTES, dtype=torch.int64,
                                 device=self.device)
-            phys_thr = self.sample_threshold(psizes[keep], cur[keep],
-                                             kept_frac, cfg.n_samples, rng)
-            hot_thr = self.sample_threshold(hsizes[keep], cur[keep],
-                                            kept_frac, cfg.n_samples, rng)
+            phys_thr, hot_thr = self.sample_thresholds(
+                torch.stack([psizes, hsizes]), keep, cur, kept_frac,
+                cfg.n_samples, rng)
             # records below the *physical* threshold leave RALT entirely;
             # those between stay but are no longer hot (paper §3.2).
             keep = keep & (cur >= phys_thr)

@@ -22,7 +22,7 @@ from ..data.workloads import (OP_INSERT, OP_READ, OP_SCAN, OP_UPDATE,
                               Workload, load_keys)
 from ..obs import NULL_OBS, TierLatencyHistogram, jsonify
 from .baselines import make_system
-from .lsm import LSMConfig, TieredLSM, key_array
+from .lsm import LSMConfig, Stats, TieredLSM, key_array
 from .sstable import KEY_BYTES
 from .storage import MIB
 
@@ -335,7 +335,9 @@ def run_workload(db, wl: Workload, name: str = "?",
     across all shards* — N-way sharding of a balanced workload shrinks
     the window toward 1/N (throughput scales), while a skewed workload
     leaves one hot shard gating the cluster.  Stats are the field-wise
-    aggregate over shards (ShardedTieredLSM.stats).
+    aggregate over shards (ShardedTieredLSM.stats), in the `Stats`
+    fields alone: a cluster's router and WAL counters (`ClusterStats`)
+    stay off `RunResult`, whose fields are the reference's.
 
     The storage set is re-read from the DB at every accounting point
     and keyed by object identity, because dynamic repartitioning
@@ -471,7 +473,8 @@ def run_workload(db, wl: Workload, name: str = "?",
         latency=lat_hist,
         infl_fd=infl["FD"], infl_sd=infl["SD"],
         attribution=attr_snap,
-        stats=dataclasses.asdict(stats),
+        stats={f.name: getattr(stats, f.name)
+               for f in dataclasses.fields(Stats)},
         storage=_merged_storage_snapshot(sts),
         scan_fd_hit_rate=scan_hit_final,
         scan_merge_ops_per_record=stats.scan_merge_ops_per_record,

@@ -146,12 +146,27 @@ from ..device import resolve_device
 from ..obs import NULL_OBS
 from . import crashpoints
 from .lsm import LSMConfig, Stats, TieredLSM, key_array
+from .ralt import _wall_span
 from .scan import MAX_KEY
 from .sstable import (KEY_BYTES, TOMBSTONE_VLEN, split_into_sstables,
                       storage_bytes)
 from .wal import ClusterDurability, recover_shard
 
 _HASH_MULT = np.uint64(0x9E3779B97F4A7C15)
+
+
+@dataclasses.dataclass
+class ClusterStats(Stats):
+    """A cluster's `Stats` (`ShardedTieredLSM.stats`): the shards' summed
+    fields, then what the router and the shards' WALs count.  Every
+    field only grows while the cluster runs.  A single store's `Stats`
+    keeps the reference's fields alone."""
+    wal_syncs: int = 0               # group commits of every shard's WAL
+    wal_bytes: int = 0               # bytes those group commits wrote
+    router_batches: int = 0          # non-empty multi_get / put_many calls
+    shard_calls: int = 0             # engine multi_get / put_many calls
+                                     # the router made (non-empty buckets)
+    hot_budget_rebalances: int = 0   # HotBudget arbitration rounds
 
 
 @dataclasses.dataclass
@@ -284,6 +299,7 @@ class HotBudget:
         return shard_demand(shard, self.scfg.demand_signal,
                             self._probe_state)
 
+    @_wall_span("hot_budget/rebalance")
     def rebalance(self) -> np.ndarray:
         """One arbitration round; returns the new share vector."""
         n = len(self.shards)
@@ -1038,6 +1054,10 @@ class ShardedTieredLSM:
         self.repartitioner = (Repartitioner(scfg, self)
                               if scfg.repartition else None)
         self._ops_since_rebalance = 0
+        # the router's own counters (`ClusterStats`)
+        self.router_batches = 0
+        self.shard_calls = 0
+        self.hot_budget_rebalances = 0
         self._retired_storages: list = []
         # Router-level stat corrections (negative counters folded into
         # the aggregate): a fan-out scan runs one shard-scan per
@@ -1144,6 +1164,10 @@ class ShardedTieredLSM:
         r.repartitioner = (Repartitioner(r.scfg, r)
                            if r.scfg.repartition else None)
         r._ops_since_rebalance = 0
+        # the router's counters run on across the crash, as the WALs' do
+        r.router_batches = crashed.router_batches
+        r.shard_calls = crashed.shard_calls
+        r.hot_budget_rebalances = crashed.hot_budget_rebalances
         live = {id(sh.storage) for sh in r.shards}
         r._retired_storages = [st for st in cdur.storages()
                                if id(st) not in live]
@@ -1228,6 +1252,7 @@ class ShardedTieredLSM:
             self._ops_since_rebalance += n
             if self._ops_since_rebalance >= self.scfg.rebalance_interval_ops:
                 self._ops_since_rebalance = 0
+                self.hot_budget_rebalances += 1
                 self.hot_budget.rebalance()
         if self.repartitioner is not None:
             self.repartitioner.on_ops(n)
@@ -1293,6 +1318,8 @@ class ShardedTieredLSM:
         out = [flat[i] for i in inv.tolist()]
         if obs.enabled:
             obs.tracer.end(f"{self._obs_track}/router", "router_batch")
+        self.router_batches += 1
+        self.shard_calls += len(groups)
         self._account_ops(n)
         return out
 
@@ -1305,6 +1332,12 @@ class ShardedTieredLSM:
         n = len(ks)
         if n == 0:
             return np.zeros(0, dtype=np.int64)
+        # the wall-clock plane's `router_put` span: bucketing and the
+        # shards' calls
+        obs = self._obs
+        if obs.wall:
+            obs.tracer.begin(f"{self._obs_track}/router", "router_put",
+                             {"keys": int(n)})
         vl = (np.full(n, int(vlens), dtype=np.int64)
               if np.ndim(vlens) == 0
               else np.ascontiguousarray(vlens, dtype=np.int64))
@@ -1312,12 +1345,17 @@ class ShardedTieredLSM:
                          dtype=np.int64)
         self.global_seq = int(seqs[-1])
         sids = self._shard_ids(ks)
+        buckets = np.unique(sids)
         # lint: allow-loop (per-shard bucket drain, bounded by n_shards
         # — each bucket is one vectorized engine batch)
-        for si in np.unique(sids):
+        for si in buckets:
             sel = np.flatnonzero(sids == si)
             self.shards[int(si)].put_many(ks[sel], vl[sel],
                                           seqs=seqs[sel])
+        if obs.wall:
+            obs.tracer.end(f"{self._obs_track}/router", "router_put")
+        self.router_batches += 1
+        self.shard_calls += len(buckets)
         self._account_ops(n)
         return seqs
 
@@ -1392,18 +1430,27 @@ class ShardedTieredLSM:
     # aggregation / runner plumbing
     # ------------------------------------------------------------------
     @property
-    def stats(self) -> Stats:
+    def stats(self) -> ClusterStats:
         """Field-wise sum of the per-shard Stats plus the router's
         fan-out corrections and retired-shard carryover (fresh object;
         derived rates recompute from the summed counters).  Served-
         record scan metrics match what the client saw; I/O and merge-
-        work counters keep the full speculative fan-out cost."""
-        agg = Stats()
+        work counters keep the full speculative fan-out cost.  On top,
+        the router's counters and the group commits of every WAL the
+        cluster durably adopted (retired and orphaned shards' too)."""
+        agg = ClusterStats(
+            router_batches=self.router_batches,
+            shard_calls=self.shard_calls,
+            hot_budget_rebalances=self.hot_budget_rebalances)
         for f in dataclasses.fields(Stats):
             total = getattr(self._corrections, f.name)
             for shard in self.shards:
                 total += getattr(shard.stats, f.name)
             setattr(agg, f.name, total)
+        if self.durability is not None:
+            for dur in self.durability.shards.values():
+                agg.wal_syncs += dur.wal.syncs
+                agg.wal_bytes += dur.wal.synced_bytes
         return agg
 
     @property

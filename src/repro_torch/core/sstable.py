@@ -50,6 +50,7 @@ def as_int64(m: int) -> int:
 
 
 MULTS = tuple(as_int64(m) for m in MULTS_U64)
+_MULTS_NP = np.array(MULTS_U64, dtype=np.uint64)
 _MULT_TENSORS: dict = {}
 
 
@@ -72,18 +73,47 @@ def lexsort(keys: list[torch.Tensor]) -> torch.Tensor:
     return order
 
 
+def bloom_index_host(keys: np.ndarray, k: int, nbits) -> np.ndarray:
+    """`BloomFilter._index` on the host: the (len(keys), k) bit indices
+    of host int64 `keys`, `nbits` one bit count or one a key (the
+    uint64 products wrap as the device's int64 ones do)."""
+    h = keys.astype(np.uint64)[:, None] * _MULTS_NP[:k]
+    nb = np.asarray(nbits, dtype=np.uint64).reshape(-1, 1)
+    return ((h >> np.uint64(33)) % nb).astype(np.int64)
+
+
+def bloom_k(bits_per_key: int) -> int:
+    """Hashes a key of a bloom filter with `bits_per_key` bits a key."""
+    return max(1, min(8, int(round(bits_per_key * 0.69))))
+
+
+def bloom_nbits(n: int, bits_per_key: int) -> int:
+    """Bits of the bloom filter over `n` keys."""
+    return max(64, max(n, 1) * bits_per_key)
+
+
 class BloomFilter:
     """Multiply-shift bloom filter over int64 keys, bit for bit the
     reference's over the same keys (false positives included)."""
 
     def __init__(self, keys: torch.Tensor, bits_per_key: int = 10):
-        n = max(len(keys), 1)
-        self.k = max(1, min(8, int(round(bits_per_key * 0.69))))
-        self.nbits = max(64, n * bits_per_key)
+        self.k = bloom_k(bits_per_key)
+        self.nbits = bloom_nbits(len(keys), bits_per_key)
         self.bits = torch.zeros(self.nbits, dtype=torch.bool,
                                 device=keys.device)
         if len(keys):
             self.bits[self._index(keys)] = True
+
+    @classmethod
+    def of_bits(cls, bits: torch.Tensor, n: int,
+                bits_per_key: int) -> "BloomFilter":
+        """The filter over `n` keys whose bits the caller already set
+        (`split_into_sstables`, `sstable_from_host`)."""
+        f = cls.__new__(cls)
+        f.k = bloom_k(bits_per_key)
+        f.nbits = bloom_nbits(n, bits_per_key)
+        f.bits = bits
+        return f
 
     def _index(self, keys: torch.Tensor) -> torch.Tensor:
         """(len(keys), k) bit indices."""
@@ -122,10 +152,13 @@ class SSTable:
     def __init__(self, keys: torch.Tensor, seqs: torch.Tensor,
                  vlens: torch.Tensor, tier: str, level: int,
                  created_at: int, bits_per_key: int = 10,
-                 meta: tuple[int, int, int, int] | None = None):
+                 meta: tuple[int, int, int, int] | None = None,
+                 built: tuple[torch.Tensor, ...] | None = None):
         """`keys`, `seqs`, `vlens`: int64 tensors on one device.  `meta`
         is (min_key, max_key, size_bytes, n_blocks) when the caller
-        already holds them on the host (`split_into_sstables`)."""
+        already holds them on the host, and `built` the table's record
+        sizes, blocks and bloom bits when the caller already made them
+        on the device (both from `split_into_sstables`)."""
         assert len(keys) == len(seqs) == len(vlens)
         self.sid = next(_sstable_ids)
         self.keys = keys.contiguous()
@@ -135,11 +168,16 @@ class SSTable:
         self.level = level
         self.created_at = created_at
         self.n = len(keys)
-        sizes = record_sizes(self.vlens)
+        if built is None:
+            sizes = record_sizes(self.vlens)
+            # Block assignment: records packed into 16 KiB blocks by
+            # byte offset.
+            cum = torch.cumsum(sizes, 0)
+            block_of = (cum - sizes) // BLOCK_BYTES
+        else:
+            sizes, block_of, bits = built
         self.record_bytes = sizes
-        # Block assignment: records packed into 16 KiB blocks by byte offset.
-        cum = torch.cumsum(sizes, 0)
-        self.block_of = (cum - sizes) // BLOCK_BYTES
+        self.block_of = block_of
         if not self.n:
             meta = (None, None, 0, -1)
         elif meta is None:
@@ -148,7 +186,8 @@ class SSTable:
             meta = meta[:3] + (meta[3] + 1,)
         self.min_key, self.max_key, self.size_bytes, self.n_blocks = meta
         self.n_blocks = max(self.n_blocks, 0)
-        self.bloom = BloomFilter(self.keys, bits_per_key)
+        self.bloom = (BloomFilter(self.keys, bits_per_key) if built is None
+                      else BloomFilter.of_bits(bits, self.n, bits_per_key))
         self.being_compacted = False
         self.compacted = False
 
@@ -214,12 +253,19 @@ class SSTable:
         """Probe the table for every key of a host int64 array, in one
         device-to-host copy: a (5, len(keys)) host array of rows (bloom
         says maybe, found, seq, vlen, block of the insertion point)."""
-        kd = torch.from_numpy(keys).to(self.keys.device)
+        m, bloom = len(keys), self.bloom
+        # the keys and their bloom bit indices (hashed on the host) in
+        # one copy to the device
+        d = torch.from_numpy(np.concatenate(
+            [keys, bloom_index_host(keys, bloom.k, bloom.nbits).reshape(-1)])
+        ).to(self.keys.device)
+        kd = d[:m]
         pos = torch.searchsorted(self.keys, kd)
         posc = pos.clamp(max=self.n - 1)
         found = (pos < self.n) & (self.keys[posc] == kd)
-        return torch.stack([self.bloom.may_contain_many(kd).long(),
-                            found.long(), self.seqs[posc], self.vlens[posc],
+        may = bloom.bits[d[m:].view(m, bloom.k)].all(dim=1)
+        return torch.stack([may.long(), found.long(), self.seqs[posc],
+                            self.vlens[posc],
                             self.block_of[posc]]).cpu().numpy()
 
     def miss_block(self, key: int) -> int:
@@ -287,31 +333,67 @@ def merge_runs(runs: list[tuple[torch.Tensor, torch.Tensor, torch.Tensor]],
     if not runs:
         e = torch.zeros(0, dtype=torch.int64, device=device)
         return e, e.clone(), e.clone()
-    keys = torch.cat([r[0] for r in runs])
-    seqs = torch.cat([r[1] for r in runs])
-    vlens = torch.cat([r[2] for r in runs])
-    order = lexsort([-seqs, keys])
-    keys, seqs, vlens = keys[order], seqs[order], vlens[order]
+    rows = torch.stack([torch.cat([r[i] for r in runs]) for i in range(3)])
+    rows = rows[:, lexsort([-rows[1], rows[0]])]
+    keys = rows[0]
     keep = torch.ones(len(keys), dtype=torch.bool, device=keys.device)
     keep[1:] = keys[1:] != keys[:-1]
     if drop_tombstones:
-        keep &= vlens != TOMBSTONE_VLEN
-    return keys[keep], seqs[keep], vlens[keep]
+        keep &= rows[2] != TOMBSTONE_VLEN
+    # the three columns in one gather (one copy of the kept count)
+    return rows[:, keep].unbind(0)
+
+
+def sstable_from_host(cols: np.ndarray, tier: str, level: int,
+                      created_at: int, bits_per_key: int,
+                      device: torch.device) -> SSTable:
+    """The SSTable of sorted host records `cols` (n, 3) of (key, seq,
+    vlen), built on the host and sent to the device in one copy: its
+    record sizes, blocks and bloom bits are the reference's numpy
+    arithmetic (the bloom's uint64 products wrap as the device's int64
+    ones do), so the table equals the one `SSTable` builds from the
+    same records on the device."""
+    n = len(cols)
+    keys, seqs, vlens = cols.T
+    sizes = np.where(vlens == TOMBSTONE_VLEN, 0, vlens) + KEY_BYTES
+    cum = np.cumsum(sizes)
+    block_of = (cum - sizes) // BLOCK_BYTES
+    nbits = bloom_nbits(n, bits_per_key)
+    bits = np.zeros(-(-nbits // 8) * 8, dtype=np.bool_)
+    bits[bloom_index_host(keys, bloom_k(bits_per_key), nbits)] = True
+    rows = np.stack([keys, seqs, vlens, sizes, block_of])
+    buf = np.concatenate([rows.reshape(-1).view(np.uint8),
+                          bits.view(np.uint8)])
+    dev = torch.from_numpy(buf).to(device)
+    kd, sd, vd, szd, bd = dev[:40 * n].view(torch.int64).view(5, n)
+    return SSTable(kd, sd, vd, tier, level, created_at, bits_per_key,
+                   meta=(int(keys[0]), int(keys[-1]), int(cum[-1]),
+                         int(block_of[-1]) + 1),
+                   built=(szd, bd, dev[40 * n:40 * n + nbits].view(
+                       torch.bool)))
 
 
 def split_into_sstables(keys: torch.Tensor, seqs: torch.Tensor,
                         vlens: torch.Tensor, tier: str, level: int,
-                        created_at: int, target_bytes: int) -> list[SSTable]:
+                        created_at: int, target_bytes: int,
+                        bits_per_key: int = 10) -> list[SSTable]:
     """Splits a merged run into SSTables of ~target_bytes each.
 
     The cut points follow the reference's loop over the byte prefix sum,
     run on a host copy of it; each table's (min_key, max_key, size_bytes,
     n_blocks) comes from the same copy and one gather of the boundary
-    keys, so the split costs two device-to-host copies in all."""
+    keys, so the split costs two device-to-host copies in all.  Every
+    table's record sizes, blocks and bloom bits are views of three
+    tensors made for the whole run, in one set of launches: a table's
+    blocks count from its own first byte, and its bloom bits, at their
+    offset in the run's, from its own bit count."""
     n = len(keys)
     if n == 0:
         return []
-    cum = torch.cumsum(record_sizes(vlens), 0).cpu().numpy()
+    dev = keys.device
+    sizes_d = record_sizes(vlens)
+    cum_d = torch.cumsum(sizes_d, 0)
+    cum = cum_d.cpu().numpy()
     sizes = np.diff(cum, prepend=0)
     cuts = []
     start = 0
@@ -322,14 +404,29 @@ def split_into_sstables(keys: torch.Tensor, seqs: torch.Tensor,
         end = min(max(end, start + 1), n)
         cuts.append((start, end, base))
         start = end
-    ends = torch.tensor([e - 1 for _, e, _ in cuts], device=keys.device)
-    firsts = torch.tensor([s for s, _, _ in cuts], device=keys.device)
-    mins, maxs = torch.stack([keys[firsts], keys[ends]]).tolist()
+    firsts, ends, bases = (np.array(c, dtype=np.int64) for c in zip(*cuts))
+    lens = ends - firsts
+    nbits = np.maximum(64, lens * bits_per_key)
+    bit_off = np.cumsum(nbits) - nbits
+    per_rec = np.repeat(np.stack([bases, nbits, bit_off]), lens, axis=1)
+    host = torch.from_numpy(np.concatenate(
+        [per_rec.reshape(-1), firsts, ends - 1])).to(dev)
+    base_r, nbits_r, off_r = host[:3 * n].view(3, n)
+    block_of = (cum_d - sizes_d - base_r) // BLOCK_BYTES
+    k = bloom_k(bits_per_key)
+    h = keys.reshape(-1, 1) * _mults(k, dev)
+    bits = torch.zeros(int(nbits.sum()), dtype=torch.bool, device=dev)
+    bits[((h >> 33) & _LOW31) % nbits_r[:, None] + off_r[:, None]] = True
+    mins, maxs = torch.stack([keys[host[3 * n:3 * n + len(cuts)]],
+                              keys[host[3 * n + len(cuts):]]]).tolist()
     out = []
     for j, (s, e, base) in enumerate(cuts):
         size = int(cum[e - 1]) - base
         last_block = (size - int(sizes[e - 1])) // BLOCK_BYTES
+        off = int(bit_off[j])
         out.append(SSTable(keys[s:e], seqs[s:e], vlens[s:e], tier, level,
-                           created_at,
-                           meta=(mins[j], maxs[j], size, last_block + 1)))
+                           created_at, bits_per_key,
+                           meta=(mins[j], maxs[j], size, last_block + 1),
+                           built=(sizes_d[s:e], block_of[s:e],
+                                  bits[off:off + int(nbits[j])])))
     return out

@@ -47,7 +47,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .sstable import _LOW31, SSTable, _mults, bounds, lexsort
+from .sstable import SSTable, bloom_index_host, bounds, lexsort
 
 
 class Version:
@@ -319,31 +319,33 @@ class LevelIndex:
                                  for name in ("keys", "seqs", "vlens",
                                               "block_of")])
         self.bits = torch.cat([s.bloom.bits for s in sstables])
-        nbits = [s.bloom.nbits for s in sstables]
-        ns = [s.n for s in sstables]
-        self.meta = torch.tensor(
-            [nbits, np.concatenate([[0], np.cumsum(nbits)[:-1]]).tolist(),
-             np.concatenate([[0], np.cumsum(ns)[:-1]]).tolist(), ns],
-            dtype=torch.int64).to(device)
+        nbits = np.array([s.bloom.nbits for s in sstables], dtype=np.int64)
+        ns = np.array([s.n for s in sstables], dtype=np.int64)
+        # each table's bit count, bit offset and last record's position
+        # in the level, on the host: probes hash their keys there
+        self.meta = np.stack([nbits, np.cumsum(nbits) - nbits,
+                              np.cumsum(ns) - 1])
 
     def tensors(self) -> tuple[torch.Tensor, ...]:
-        return (self.rows, self.bits, self.meta)
+        return (self.rows, self.bits)
 
     def probe(self, keys: np.ndarray, tables: np.ndarray) -> np.ndarray:
         """(5, len(keys)) host rows for keys[i] probed in its table
         tables[i]: bloom says maybe, found, seq, vlen, block of the
         insertion point."""
-        dev = self.rows.device
-        kd = torch.from_numpy(np.stack([keys, tables])).to(dev)
-        kd, tb = kd[0], kd[1]
-        nbits, bit_off, rec_off, n = self.meta[:, tb]
-        h = kd.reshape(-1, 1) * _mults(self.k, dev)
-        idx = ((h >> 33) & _LOW31) % nbits[:, None] + bit_off[:, None]
-        may = self.bits[idx].all(dim=1)
+        m = len(keys)
+        nbits, bit_off, last = self.meta[:, tables]
+        idx = bloom_index_host(keys, self.k, nbits) + bit_off[:, None]
+        # the keys, their tables' last positions and their bloom bit
+        # indices in one copy to the device
+        d = torch.from_numpy(np.concatenate(
+            [keys, last, idx.reshape(-1)])).to(self.rows.device)
+        kd = d[:m]
+        may = self.bits[d[2 * m:].view(m, self.k)].all(dim=1)
         # the key lies within its table's fences, so its position in the
         # level is its table's offset plus its position in the table
         pos = torch.minimum(torch.searchsorted(self.rows[0], kd),
-                            rec_off + n - 1)
+                            d[m:2 * m])
         found = self.rows[0, pos] == kd
         return torch.cat([torch.stack([may, found]).long(),
                           self.rows[1:, pos]]).cpu().numpy()

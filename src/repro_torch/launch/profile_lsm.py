@@ -17,7 +17,9 @@ cumulative time); once with a wall-clock observability plane attached
 (`Observability(clock="wall")`: each span's count and total and self
 µs an op, the device indexes built again a thousand ops, and the
 commit's block-cache accesses a get and the share of them that hit,
-`spans`);
+`spans`; on a cluster also the router's own µs an op outside the
+shards' root spans and the counters of `ClusterStats` a thousand ops,
+`spans.cluster`);
 and on CUDA once counting the host syncs CUDA's sync debug mode
 reports and once with the plane under `torch.profiler`, whose trace
 gives the card's idle seconds by the innermost engine span the host
@@ -50,11 +52,17 @@ from ..obs import MIRROR_PREFIX, Observability
 BUILDS = ("level_index/build", "ralt_index/build")
 # the profiler range around the run whose idle gaps are split by span
 WINDOW = "profile_lsm.run"
+# a cluster's router spans, each with the shards' root span it calls
+ROUTER = {"router_batch": "get", "router_put": "put"}
+# the counters a cluster adds to `Stats` (`ClusterStats`)
+CLUSTER_COUNTERS = ("wal_syncs", "wal_bytes", "router_batches",
+                    "shard_calls", "hot_budget_rebalances")
 
 
 def _run(loaded, args, n_keys: int, obs=None):
     """The workload on a copy of the loaded engine (the copy untimed),
-    with `obs` attached to the copy when given."""
+    with `obs` attached to the copy when given: its result, its wall
+    seconds and the copy."""
     db = copy.deepcopy(loaded)
     if obs is not None:
         obs.attach(db, name=args.system)
@@ -64,7 +72,22 @@ def _run(loaded, args, n_keys: int, obs=None):
     res = runner.run_workload(db, wl, name=args.system)
     if db.device.type == "cuda":
         torch.cuda.synchronize()
-    return res, time.perf_counter() - t0
+    return res, time.perf_counter() - t0, db
+
+
+def cluster_split(self_times: dict, before, after, ops: int) -> dict:
+    """A cluster's run: each router span's µs an op outside the shards'
+    root spans it calls (`ROUTER`; the shards' spans lie on their own
+    lanes, so `self_times` leaves them in), and the `ClusterStats`
+    counters the run moved, a thousand ops."""
+    def total(name):
+        return self_times.get(name, {}).get("total_s", 0.0)
+    return {"router_us_per_op": {
+                r: (total(r) - total(inner)) / ops * 1e6
+                for r, inner in ROUTER.items()},
+            "counters_per_kop": {
+                k: (getattr(after, k) - getattr(before, k)) / ops * 1e3
+                for k in CLUSTER_COUNTERS}}
 
 
 def idle_by_span(prof, window: str = WINDOW) -> dict | None:
@@ -121,8 +144,9 @@ def _spans(loaded, args, n_keys: int) -> dict:
     """The `spans` part of the output: the run with a wall-clock plane
     attached, and on CUDA its idle gaps under the profiler."""
     obs = Observability(clock="wall")
-    res, wall = _run(loaded, args, n_keys, obs)
+    res, wall, db = _run(loaded, args, n_keys, obs)
     tr = obs.tracer
+    st = tr.self_times()
     # the commit's counters, summed over its closed spans
     commits = [ev.get("args", {}) for ev in tr.events
                if ev["name"] == "get/commit" and ev["ph"] == "E"]
@@ -135,9 +159,12 @@ def _spans(loaded, args, n_keys: int) -> dict:
            "us_per_op": {n: {"count": v["count"],
                              "total": v["total_s"] / args.ops * 1e6,
                              "self": v["self_s"] / args.ops * 1e6}
-                         for n, v in sorted(tr.self_times().items())},
+                         for n, v in sorted(st.items())},
            "builds_per_kop": {n: tr.count(n) / args.ops * 1e3
                               for n in BUILDS}}
+    if hasattr(db, "shards"):
+        out["cluster"] = cluster_split(st, loaded.stats, db.stats,
+                                       args.ops)
     if loaded.device.type == "cuda":
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
@@ -179,7 +206,7 @@ def main(argv=None) -> None:
     load_s = time.perf_counter() - t0
     prof = cProfile.Profile()
     prof.enable()
-    res, wall = _run(db, args, n_keys)
+    res, wall, _ = _run(db, args, n_keys)
     prof.disable()
     stats = pstats.Stats(prof).stats
     rows = sorted(((v[3], v[2], v[1], f"{k[0].split('repro_torch/')[-1]}:"

@@ -242,9 +242,50 @@ def test_sample_threshold(seed):
     scores = rng.random(5000) * 4
     want = jralt.RALT.sample_threshold(sizes, scores, 0.9, 256,
                                        np.random.default_rng(seed))
-    got = ralt.RALT.sample_threshold(t64(sizes), torch.from_numpy(scores),
-                                     0.9, 256, np.random.default_rng(seed))
+    got, = ralt.RALT.sample_thresholds(
+        t64(sizes)[None], torch.ones(len(sizes), dtype=torch.bool),
+        torch.from_numpy(scores), 0.9, 256, np.random.default_rng(seed))
     assert got == want and isinstance(got, float)
+
+
+class _EdgeRng:
+    """A Generator whose draws include the top of their range: the
+    clamp to the last record kept is taken."""
+
+    def __init__(self, seed):
+        self.rng = np.random.default_rng(seed)
+
+    def uniform(self, low, high, size):
+        out = self.rng.uniform(low, high, size)
+        out[::7] = high
+        return out
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("edge", [False, True])
+def test_sample_thresholds_of_kept_records(seed, edge):
+    """Both thresholds of an eviction from the masked rows equal the
+    reference's, each drawn from the kept records alone, in order."""
+    rng = np.random.default_rng(seed)
+    n = 5000
+    psizes = np.full(n, 40)
+    hsizes = rng.integers(30, 3000, n)
+    scores = rng.random(n) * 4
+    keep = rng.random(n) < 0.6
+    keep[-50:] = False
+    draw = _EdgeRng if edge else np.random.default_rng
+    r = draw(seed)
+    want = [jralt.RALT.sample_threshold(sz[keep], scores[keep], 0.9, 256, r)
+            for sz in (psizes, hsizes)]
+    got = ralt.RALT.sample_thresholds(
+        torch.stack([t64(psizes), t64(hsizes)]), torch.from_numpy(keep),
+        torch.from_numpy(scores), 0.9, 256, draw(seed))
+    assert got == want
+    none = ralt.RALT.sample_thresholds(
+        torch.stack([t64(psizes), t64(hsizes)]),
+        torch.zeros(n, dtype=torch.bool), torch.from_numpy(scores), 0.9,
+        256, draw(seed))
+    assert none == [0.0, 0.0]
 
 
 def _fed_ralts(n_batches=40):

@@ -13,6 +13,7 @@ import json
 import pickle
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -152,6 +153,95 @@ def test_wall_plane_on_a_cluster_detaches_whole():
         assert x._obs is NULL_OBS and "_obs_track" not in x.__dict__
 
 
+def kv4_run(make, cfg, scfg, obs, rounds: int = 30) -> tuple:
+    """A tiny 4-shard hash cluster with a WAL, the arbiter every 256 ops,
+    loaded and driven by rounds of one 64-key `multi_get` and one
+    64-key `put_many`, with `obs` attached after the load; the gets'
+    answers, the cluster and the arbiter's rounds in the rounds (the
+    port's `ClusterStats` count them; None for the reference)."""
+    db = make("hotrap", dataclasses.replace(cfg, wal=True), scfg,
+              **({} if make is not make_sharded_system
+                 else {"device": "cpu"}))
+    n = runner.db_key_count(runner.default_config("tiny"), VALUE) // 4
+    db.put_many(runner.load_keys(n, 0), VALUE)
+    obs.attach(db, name="w")
+    loaded = getattr(db.stats, "hot_budget_rebalances", None)
+    rng = np.random.default_rng(11)
+    out = []
+    for _ in range(rounds):
+        out.append(db.multi_get(rng.integers(0, n, 64)))
+        db.put_many(rng.integers(0, 2 * n, 64), VALUE)
+    return out, db, (None if loaded is None
+                     else db.stats.hot_budget_rebalances - loaded)
+
+
+def _intervals(tr, name: str) -> dict:
+    """{track: [(begin, end), ...]} of the closed spans `name`."""
+    out: dict = {}
+    open_: dict = {}
+    for ev in tr.events:
+        if ev["name"] != name:
+            continue
+        if ev["ph"] == "B":
+            open_[ev["track"]] = ev["ts"]
+        elif ev["ph"] == "E":
+            out.setdefault(ev["track"], []).append(
+                (open_.pop(ev["track"]), ev["ts"]))
+    return out
+
+
+def test_router_put_and_rebalance_spans_on_a_wal_cluster():
+    """Under a wall plane the router's `router_put` holds every shard's
+    `put` (and its `wal/append`), once a `put_many`, on the router's
+    lane; `hot_budget/rebalance` runs on the cluster's lane once an
+    arbitration round, outside the router's spans.  A simulated-clock
+    plane over the same run records neither, and its trace is the
+    reference's."""
+    from repro.core import ShardConfig as JShardConfig
+    from repro.core import make_sharded_system as jmake_sharded
+    from repro.core import runner as jrunner
+    from repro.obs import Observability as JObservability
+    from test_torch_obs import assert_same_plane
+    scfg = dict(n_shards=4, rebalance_interval_ops=256)
+    wall = Observability(clock="wall")
+    got, _, rounds = kv4_run(make_sharded_system,
+                             runner.default_config("tiny"),
+                             ShardConfig(**scfg), wall)
+    tr = wall.tracer
+    assert tr.validate() == [] and tr.dropped == 0
+    assert rounds > 5 and tr.count("hot_budget/rebalance", "B") == rounds
+    puts = _intervals(tr, "router_put")
+    assert list(puts) == ["w/router"] and len(puts["w/router"]) == 30
+    assert list(_intervals(tr, "hot_budget/rebalance")) == ["w/cluster"]
+    router = sorted(puts["w/router"]
+                    + _intervals(tr, "router_batch")["w/router"])
+    for name in ("put", "wal/append"):
+        inner = [iv for ivs in _intervals(tr, name).values() for iv in ivs]
+        assert len(inner) > 30
+        assert all(any(a <= b0 and e0 <= e for a, e in puts["w/router"])
+                   for b0, e0 in inner)
+    for b0, e0 in _intervals(tr, "hot_budget/rebalance")["w/cluster"]:
+        assert not any(a < e0 and b0 < e for a, e in router)
+    st = tr.self_times()
+    assert st["router_put"]["total_s"] >= st["put"]["total_s"]
+    # the simulated clock: the reference's trace, without the wall spans
+    planes, answers = [], []
+    for make, cfg, sc, plane in (
+            (jmake_sharded, jrunner.default_config("tiny"),
+             JShardConfig(**scfg), JObservability()),
+            (make_sharded_system, runner.default_config("tiny"),
+             ShardConfig(**scfg), Observability())):
+        out, _, _ = kv4_run(make, cfg, sc, plane)
+        planes.append(plane)
+        answers.append(out)
+    assert_same_plane(*planes)
+    assert answers[0] == answers[1] == got
+    sim = planes[1].tracer
+    assert sim.count("router_put") == sim.count("hot_budget/rebalance") == 0
+    assert sim.count("router_batch", "B") == 30
+    assert sim.count("hot_budget_rebalance") > 0
+
+
 def test_attached_wall_plane_is_not_pickled():
     db, _ = loaded("RO")
     Observability(clock="wall").attach(db)
@@ -284,3 +374,24 @@ def test_profile_lsm_splits_the_run_by_span(capsys):
     commit = spans["commit"]
     assert commit["block_events_per_get"] > 0
     assert 0.0 < commit["cache_hit_share"] < 1.0
+
+
+def test_profile_lsm_splits_a_wal_cluster(capsys):
+    """`--shards 4 --wal`: the router's, the WAL's and the arbiter's
+    spans, the router's own time outside the shards' spans, and the
+    cluster's counters."""
+    from repro_torch.launch import profile_lsm
+    profile_lsm.main(["--scale", "tiny", "--ops", "3000", "--mix", "RW",
+                      "--device", "cpu", "--top", "3", "--shards", "4",
+                      "--wal"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    spans = out["spans"]
+    assert {"router_batch", "router_put", "wal/append", "wal/group_commit",
+            "hot_budget/rebalance", "get", "put"} <= set(spans["us_per_op"])
+    cl = spans["cluster"]
+    assert set(cl["router_us_per_op"]) == set(profile_lsm.ROUTER)
+    assert all(v > 0 for v in cl["router_us_per_op"].values())
+    kop = cl["counters_per_kop"]
+    assert set(kop) == set(profile_lsm.CLUSTER_COUNTERS)
+    assert kop["shard_calls"] > kop["router_batches"] > 0
+    assert kop["wal_syncs"] > 0 and kop["hot_budget_rebalances"] > 0
