@@ -1295,59 +1295,71 @@ class TieredLSM:
 
     def _run_checker(self, immpc: ImmutablePromotionCache) -> None:
         """Background Checker (Fig. 5 steps 5-11), against the frozen
-        Superversion pinned at freeze time."""
+        Superversion pinned at freeze time.  Under a wall-clock plane the
+        `checker` span ends with the records' count, the candidates among
+        them and the block-cache accesses their walks made."""
         obs = self._obs
         if not obs.enabled:
-            return self._checker_body(immpc)
-        with obs.tracer.span(self._obs_track, "checker",
-                             {"records": len(immpc.records)}):
-            return self._checker_body(immpc)
+            self._checker_body(immpc)
+            return
+        tr, track = obs.tracer, self._obs_track
+        args = {"records": len(immpc.records)}
+        tr.begin(track, "checker", args)
+        counts = (0, 0)
+        try:
+            counts = self._checker_body(immpc)
+        finally:
+            tr.end(track, "checker",
+                   {**args, "candidates": counts[0],
+                    "block_events": counts[1]} if obs.wall else None)
 
-    def _checker_body(self, immpc: ImmutablePromotionCache) -> None:
-        """The reference's per-record checker loop.  Its pure parts —
-        the RALT bloom probes and the frozen FD levels' bloom + binary
-        search probes — run first on the device, for every record at
-        once; the loop then replays the block-cache accesses and
-        charges per record in the reference's order."""
-        self.stats.checker_runs += 1  # lint: allow-stats (engine)
+    def _checker_body(self, immpc: ImmutablePromotionCache
+                      ) -> tuple[int, int]:
+        """The reference's per-record checker, decided in whole columns:
+        the records' hotness (RALT's probes on the device), the `updated`
+        mask, and for the candidates left (hot, not updated)
+        `_newer_in_snapshot`; the survivors, in record order, go to L0
+        or, under half a table, back into the mPC.  Returns the count of
+        candidates and of the block-cache accesses made."""
+        st = self.stats
+        st.checker_runs += 1  # lint: allow-stats (engine)
         if immpc not in self.immpcs:
             immpc.sv.release()              # no-op if already released
-            return
-        hot: list[tuple[int, int, int]] = []
+            return 0, 0
         try:
-            keys = np.array([k for k, _, _ in immpc.records], dtype=np.int64)
+            rec = np.array(immpc.records, dtype=np.int64).reshape(-1, 3)
+            keys = rec[:, 0]
             check_hot = self.cfg.hotness_check and self.ralt is not None
             is_hot = (self.ralt.is_hot_many(keys) if check_hot
                       else np.ones(len(keys), dtype=bool))
-            cand = is_hot & np.array([k not in immpc.updated
-                                      for k in keys.tolist()], dtype=bool)
-            probes = self._snapshot_probes(keys[cand], immpc)
-            for i, (key, seq, vlen) in enumerate(immpc.records):
-                if not is_hot[i]:
-                    continue
-                if key in immpc.updated:        # Fig. 5 (a)-(c) protocol
-                    # lint: allow-stats (engine-owned Stats)
-                    self.stats.checker_excluded_updated += 1
-                    continue
-                if self._newer_in_snapshot(key, seq, immpc, probes):
-                    # lint: allow-stats (engine-owned Stats)
-                    self.stats.checker_excluded_newer += 1
-                    continue
-                hot.append((key, seq, vlen))
+            upd = np.zeros(len(keys), dtype=bool)
+            if immpc.updated:                # Fig. 5 (a)-(c) protocol
+                upd = np.isin(keys, np.fromiter(immpc.updated, np.int64,
+                                                len(immpc.updated)))
+            cand = np.flatnonzero(is_hot & ~upd)
+            newer, n_events = self._newer_in_snapshot(keys[cand],
+                                                      rec[cand, 1], immpc)
+            # lint: allow-stats (engine-owned Stats)
+            st.checker_excluded_updated += int(np.count_nonzero(is_hot & upd))
+            # lint: allow-stats (engine-owned Stats)
+            st.checker_excluded_newer += int(np.count_nonzero(newer))
+            hot = rec[cand[~newer]]
         finally:
             # unpin the frozen Version on *every* exit
             self.immpcs.remove(immpc)
             immpc.sv.release()
-        if not hot:
-            return
-        hot_bytes = sum(KEY_BYTES + v for _, _, v in hot)
+        counts = (len(cand), n_events)
+        if not len(hot):
+            return counts
+        hot_bytes = KEY_BYTES * len(hot) + int(hot[:, 2].sum())
         if hot_bytes < self.cfg.target_sstable_bytes // 2:
             # too few: back into the mPC instead of polluting L0 (footnote 1)
-            for k, s, v in hot:
+            # lint: allow-loop (under half a table of survivors; each
+            # insert compares with what the mPC holds by then)
+            for k, s, v in hot.tolist():
                 self.mpc.insert(k, s, v, KEY_BYTES)
-            return
-        sst = sstable_from_host(np.array(hot, dtype=np.int64), "FD", 0,
-                                self.now, self.cfg.bits_per_key,
+            return counts
+        sst = sstable_from_host(hot, "FD", 0, self.now, self.cfg.bits_per_key,
                                 self.device)
         self.storage.seq_write("FD", sst.size_bytes, fg=False,
                                component="promotion")
@@ -1365,26 +1377,76 @@ class TieredLSM:
                             self._obs_track)
             self.durability.manifest.commit_edit()
         self._maybe_compact()
+        return counts
 
-    def _snapshot_probes(self, keys: np.ndarray,
-                         immpc: ImmutablePromotionCache) -> dict:
-        """Device probes of the frozen superversion's FD tables for the
-        checker's candidate keys: {sid: {key: (may, found, seq, blk)}},
-        for each table whose key range covers the key."""
-        out: dict = {}
-        if not len(keys):
-            return out
-        version = immpc.sv.version
+    def _newer_in_snapshot(self, keys: np.ndarray, seqs: np.ndarray,
+                           immpc: ImmutablePromotionCache
+                           ) -> tuple[np.ndarray, int]:
+        """Fig. 5 step 8 for every candidate at once: whether a newer
+        version is in the frozen superversion's imm-memtables or FD
+        levels, with the block-cache accesses and charges the reference's
+        per-record walk makes, in its order.  A walk ends at the first
+        newer version: an imm-memtable's (no block read) or the first
+        event (a table, in walk order, whose probe finds the key) with a
+        newer seq; it reads the block of each event up to and including
+        that one.  Returns the newer mask and the count of accesses."""
+        n = len(keys)
+        newer = np.zeros(n, dtype=bool)
+        if immpc.sv.imm_memtables and n:
+            kl, sl = keys.tolist(), seqs.tolist()
+            # lint: allow-loop (the pinned imm-memtables, bounded by the
+            # rotation backlog, not by the records)
+            for m in immpc.sv.imm_memtables:
+                newer |= np.array([h is not None and h[0] > s
+                                   for h, s in zip(map(m.get, kl), sl)],
+                                  dtype=bool)
+        walk = np.flatnonzero(~newer)
+        pos, rank, sid, blk, fseq, sd = self._snapshot_probes(
+            keys[walk], immpc.sv.version)
+        if not len(pos):
+            return newer, 0
+        pos = walk[pos]
+        # each candidate's first newer event, by walk rank
+        never = np.iinfo(np.int64).max
+        first = np.full(n, never, dtype=np.int64)
+        late = fseq > seqs[pos]
+        np.minimum.at(first, pos[late], rank[late])
+        made = np.flatnonzero(rank <= first[pos])
+        made = made[np.lexsort((rank[made], pos[made]))]
+        miss = ~self.block_cache.access_many(sid[made], blk[made])
+        self.storage.rand_read_many(sd[made][miss], BLOCK_BYTES, fg=False,
+                                    component="checker")
+        newer |= first != never
+        return newer, len(made)
+
+    def _snapshot_probes(self, keys: np.ndarray, version: Version
+                         ) -> tuple[np.ndarray, ...]:
+        """Device probes of a frozen Version's FD tables for the
+        checker's keys, as the events of the reference's walk: each
+        (key, covering table) pair whose bloom says maybe and whose
+        search finds the key, in columns: the key's position in `keys`,
+        the table's walk rank, its sid, the record's block and seq, and
+        whether the table is on SD.  The walk takes L0's tables in list
+        order, then the sorted levels, where the fences give each key
+        its one table."""
+        ev: list = []
+        rank = 0
+        # lint: allow-loop (the FD levels: topology, not records)
         for li, sstables in enumerate(version.levels[:self.cfg.n_fd_levels]):
-            if not sstables:
+            if not sstables or not len(keys):
                 continue
             if li == 0:          # overlapping tables: one probe each
+                # lint: allow-loop (L0's tables, each probed once for
+                # every key it covers)
                 for s in sstables:
-                    cover = keys[(s.min_key <= keys) & (keys <= s.max_key)]
-                    if len(cover):
-                        rows = s.probe_many(cover)
-                        out.setdefault(s.sid, {}).update(zip(
-                            cover.tolist(), zip(*rows[[0, 1, 2, 4]].tolist())))
+                    sel = np.flatnonzero((s.min_key <= keys)
+                                         & (keys <= s.max_key))
+                    if len(sel):
+                        ev.append(self._probe_events(
+                            sel, rank, np.full(len(sel), s.sid),
+                            np.full(len(sel), s.tier == "SD"),
+                            s.probe_many(keys[sel])))
+                    rank += 1
                 continue
             # a sorted level: at most one table covers a key
             mins, maxs, sids = version.level_fences(li)
@@ -1392,35 +1454,28 @@ class TieredLSM:
             posc = np.minimum(pos, len(sstables) - 1)
             sel = np.flatnonzero((pos < len(sstables)) & (mins[posc] <= keys))
             if len(sel):
-                rows = self._level_index(version, li).probe(keys[sel],
-                                                            posc[sel])
-                for sid, key, row in zip(sids[posc[sel]].tolist(),
-                                         keys[sel].tolist(),
-                                         zip(*rows[[0, 1, 2, 4]].tolist())):
-                    out.setdefault(sid, {})[key] = row
-        return out
+                on_sd = np.fromiter((s.tier == "SD" for s in sstables), bool,
+                                    len(sstables))
+                ev.append(self._probe_events(
+                    sel, rank, sids[posc[sel]], on_sd[posc[sel]],
+                    self._level_index(version, li).probe(keys[sel],
+                                                         posc[sel])))
+            rank += 1
+        if not ev:
+            return tuple(np.zeros(0, dtype=np.int64) for _ in range(5)) + (
+                np.zeros(0, dtype=bool),)
+        return tuple(np.concatenate(c) for c in zip(*ev))
 
-    def _newer_in_snapshot(self, key: int, seq: int,
-                           immpc: ImmutablePromotionCache,
-                           probes: dict) -> bool:
-        """Fig. 5 step 8: newer version in the frozen superversion's
-        imm-memtables / FD levels (`probes`: `_snapshot_probes`)."""
-        for m in immpc.sv.imm_memtables:
-            hit = m.get(key)
-            if hit is not None and hit[0] > seq:
-                return True
-        for sstables in immpc.sv.version.levels[:self.cfg.n_fd_levels]:
-            for s in sstables:
-                if s.min_key <= key <= s.max_key:
-                    may, found, fseq, blk = probes[s.sid][key]
-                    if may and found:
-                        if not self.block_cache.access((s.sid, blk)):
-                            self.storage.rand_read(s.tier, BLOCK_BYTES,
-                                                   fg=False,
-                                                   component="checker")
-                        if fseq > seq:
-                            return True
-        return False
+    @staticmethod
+    def _probe_events(sel: np.ndarray, rank: int, sid: np.ndarray,
+                      sd: np.ndarray, rows: np.ndarray) -> tuple:
+        """The events of one table's or level's probe rows (a
+        `probe_many` or `LevelIndex.probe` of ``keys[sel]``): the keys
+        its bloom passes and its search finds."""
+        e = (rows[0] != 0) & (rows[1] != 0)
+        return (sel[e], np.full(int(np.count_nonzero(e)), rank,
+                                dtype=np.int64),
+                sid[e], rows[4][e], rows[2][e], sd[e])
 
     # ------------------------------------------------------------------
     # flush & the updated-field protocol (Fig. 5 a-c)

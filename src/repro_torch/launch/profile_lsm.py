@@ -17,6 +17,7 @@ cumulative time); once with a wall-clock observability plane attached
 (`Observability(clock="wall")`: each span's count and total and self
 µs an op, the device indexes built again a thousand ops, and the
 commit's block-cache accesses a get and the share of them that hit,
+the checker's candidates a record and block-cache accesses a candidate,
 `spans`; on a cluster also the router's own µs an op outside the
 shards' root spans and the counters of `ClusterStats` a thousand ops,
 `spans.cluster`);
@@ -147,15 +148,29 @@ def _spans(loaded, args, n_keys: int) -> dict:
     res, wall, db = _run(loaded, args, n_keys, obs)
     tr = obs.tracer
     st = tr.self_times()
-    # the commit's counters, summed over its closed spans
-    commits = [ev.get("args", {}) for ev in tr.events
-               if ev["name"] == "get/commit" and ev["ph"] == "E"]
+    # the commit's and the checker's counters, summed over their closed
+    # spans
+    def ends(name):
+        return [ev.get("args", {}) for ev in tr.events
+                if ev["name"] == name and ev["ph"] == "E"]
+
+    def total(args, key):
+        return sum(a.get(key, 0) for a in args)
+
+    commits, checks = ends("get/commit"), ends("checker")
     gets = res.stats["gets"] - loaded.stats.gets
-    events = sum(a.get("block_events", 0) for a in commits)
-    hits = sum(a.get("cache_hits", 0) for a in commits)
+    events = total(commits, "block_events")
+    hits = total(commits, "cache_hits")
+    records = total(checks, "records")
+    cands = total(checks, "candidates")
+    walks = total(checks, "block_events")
     out = {"run_s": wall, "dropped": tr.dropped,
            "commit": {"block_events_per_get": events / gets if gets else 0.0,
                       "cache_hit_share": hits / events if events else 0.0},
+           "checker": {"candidates_per_record":
+                       cands / records if records else 0.0,
+                       "block_events_per_candidate":
+                       walks / cands if cands else 0.0},
            "us_per_op": {n: {"count": v["count"],
                              "total": v["total_s"] / args.ops * 1e6,
                              "self": v["self_s"] / args.ops * 1e6}

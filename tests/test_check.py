@@ -239,6 +239,36 @@ def test_vectorization_covers_the_batched_storage_primitives():
     assert [f.line for f in out] == [2, 9]
 
 
+def test_vectorization_covers_the_ports_columnar_checker():
+    """The port's Checker functions are hot (an unwaived per-record loop
+    is flagged); the reference's per-record Checker is not."""
+    code = """\
+        def _checker_body(self, immpc):
+            for key, seq, vlen in immpc.records:
+                self.check(key)
+            # lint: allow-loop (under half a table of survivors)
+            for k, s, v in hot:
+                self.mpc.insert(k, s, v)
+
+        def _newer_in_snapshot(self, keys, seqs, immpc):
+            for key in keys:
+                self.walk(key)
+
+        def _snapshot_probes(self, keys, version):
+            # lint: allow-loop (the FD levels)
+            for level in version.levels:
+                for key in keys:
+                    level.probe(key)
+
+        def _probe_events(sel, rank, sid, sd, rows):
+            for row in rows:
+                yield row
+        """
+    out = VectorizationPass().run(_src("src/repro_torch/core/lsm.py", code))
+    assert [f.line for f in out] == [2, 9, 15, 19]
+    assert VectorizationPass().run(_src("src/repro/core/lsm.py", code)) == []
+
+
 # ----------------------------------------------------------------------
 # pallas purity mechanics
 # ----------------------------------------------------------------------

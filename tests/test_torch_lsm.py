@@ -234,6 +234,155 @@ def test_columnar_commit_matches_the_references_per_key_commit(hotrap,
         assert bc.hits == 0
 
 
+# the columnar Checker's cases: a block cache of `blocks` blocks (0 counts
+# every access a miss), `records` hot records frozen (with 20 cold ones),
+# of which `fd` have a newer version flushed to L0 before the freeze (the
+# walk stops at its block), `imm` a newer one in a pinned imm-memtable
+# and `upd` are put and rotated after the freeze (`updated`); `plane`: a
+# wall-clock plane on the port alone.  Under 64 survivors (half a tiny
+# table) go back into the mPC.
+CHECKER_CASES = {
+    "many_candidates": dict(blocks=4, records=300, fd=0, imm=0, upd=0,
+                            plane=False),
+    "newer_in_fd": dict(blocks=4, records=300, fd=60, imm=0, upd=0,
+                        plane=False),
+    "newer_in_imm_memtable": dict(blocks=4, records=300, fd=0, imm=40, upd=0,
+                                  plane=False),
+    "updated_after_freeze": dict(blocks=4, records=300, fd=0, imm=0, upd=40,
+                                 plane=False),
+    "capacity_zero": dict(blocks=0, records=300, fd=60, imm=20, upd=20,
+                          plane=False),
+    "reinserted": dict(blocks=4, records=50, fd=10, imm=0, upd=0,
+                       plane=False),
+    "wall_plane": dict(blocks=4, records=300, fd=60, imm=20, upd=20,
+                       plane=True),
+}
+
+
+def newest_versions(db) -> dict:
+    """{key: (seq, vlen)} of the newest version in the levels (the
+    memtables empty), read without touching the engine."""
+    out: dict = {}
+    for level in levels_of(db):
+        for _, _, keys, seqs, vlens in level:
+            for k, sq, v in zip(keys, seqs, vlens):
+                out.setdefault(k, (sq, v))
+    return out
+
+
+@pytest.mark.parametrize("case", list(CHECKER_CASES))
+def test_columnar_checker_matches_the_references_per_record_checker(
+        hotrap, case):
+    """The port's Checker (hotness, `updated`, the newer-version walk and
+    its block-cache accesses, all in columns) against the reference's
+    per-record loop over one immPC frozen alike in both: the same
+    survivors (in L0's newest table, or back in the mPC), `Stats`,
+    StorageSim counters, clock and components, block-cache counts and
+    LRU order (through the table-by-table sid map, as above)."""
+    from repro.core.promotion import MutablePromotionCache as JMPC
+    from repro_torch.core.promotion import MutablePromotionCache
+    from repro_torch.core.sstable import KEY_BYTES
+    from repro_torch.obs import Observability
+    c = CHECKER_CASES[case]
+    want, got = hotrap.clones()
+    obs = (Observability(clock="wall").attach(got, name="g") if c["plane"]
+           else None)
+    for db in (want, got):
+        db.block_cache.capacity = c["blocks"] * db.block_cache.block_bytes
+    rng = np.random.default_rng(7)
+    keys = rng.permutation(hotrap.n_keys)
+    hot, cold = keys[:400], keys[400:420]
+    # RALT learns the hot keys (and promotions fill L0)
+    for _ in range(4):
+        assert got.multi_get(hot) == want.multi_get(hot.astype(np.uint64))
+    current = newest_versions(got)
+    assert current == newest_versions(want)
+    chosen = np.concatenate([hot[:c["records"]], cold])
+    fd = chosen[:c["fd"]]
+    imm = chosen[c["fd"]:c["fd"] + c["imm"]]
+    upd = chosen[c["fd"] + c["imm"]:c["fd"] + c["imm"] + c["upd"]]
+
+    def both(f):
+        return f(want, JMPC), f(got, MutablePromotionCache)
+
+    def newer_to_l0(db, _):
+        db.put_many(fd, VALUE)
+        db._rotate_memtable()
+        db._flush_imm_memtables()
+
+    def newer_in_imm(db, _):
+        db.put_many(imm, VALUE)
+        db._rotate_memtable()
+
+    def freeze(db, mpc):
+        db.mpc = mpc()
+        for k in sorted(chosen.tolist()):
+            db.mpc.insert(k, *current[k], KEY_BYTES)
+        db._freeze_mpc()
+        immpc = db.immpcs[-1]
+        db._checker_queue = [q for q in db._checker_queue
+                             if q[1] is not immpc]
+        return immpc
+
+    def updated(db, _):
+        db.put_many(upd, VALUE)
+        db._rotate_memtable()
+
+    if len(fd):
+        both(newer_to_l0)
+    if len(imm):
+        both(newer_in_imm)
+    w_immpc, g_immpc = both(freeze)
+    if len(upd):
+        both(updated)
+        assert g_immpc.updated == w_immpc.updated == set(upd.tolist())
+    # the freeze pinned the imm-memtable of `imm` alone
+    assert len(g_immpc.sv.imm_memtables) == (1 if len(imm) else 0)
+    def promoted(db):
+        return db.storage.by_component.get("promotion", {}).get(
+            "write_bytes", 0)
+
+    p0 = promoted(got)
+    st0 = dataclasses.replace(got.stats)
+    acc0 = got.block_cache.hits + got.block_cache.misses
+    want._run_checker(w_immpc)
+    got._run_checker(g_immpc)
+    assert levels_of(got) == levels_of(want)
+    sid = {w.sid: g.sid for wl, gl in zip(want.levels, got.levels)
+           for w, g in zip(wl, gl)}
+    assert dataclasses.asdict(got.stats) == dataclasses.asdict(want.stats)
+    assert got.storage.snapshot() == want.storage.snapshot()
+    assert got.storage.sim_time == want.storage.sim_time
+    bc, wbc = got.block_cache, want.block_cache
+    assert (bc.hits, bc.misses) == (wbc.hits, wbc.misses)
+    assert list(bc._od) == [(sid[s], b) for s, b in wbc._od]
+    assert got.mpc.data == want.mpc.data
+    assert got.immpcs == [] and want.immpcs == []
+    # what the case was to exercise
+    st = got.stats
+    newer = st.checker_excluded_newer - st0.checker_excluded_newer
+    assert newer >= len(fd) + len(imm) and (newer > 0) == bool(
+        len(fd) + len(imm))
+    assert (st.checker_excluded_updated - st0.checker_excluded_updated
+            == len(upd))
+    events = bc.hits + bc.misses - acc0
+    assert events > 0
+    assert "checker" in got.storage.by_component
+    # under half a table back into the mPC, else one L0 table written
+    # (which compaction may have merged down since)
+    if c["records"] < 64:
+        assert promoted(got) == p0 and len(got.mpc.data) > 0
+    else:
+        assert promoted(got) > p0 and not got.mpc.data
+    if obs is not None:
+        ends = [ev["args"] for ev in obs.tracer.events
+                if ev["name"] == "checker" and ev["ph"] == "E"]
+        assert ends[-1] == {"records": len(chosen),
+                            "candidates": (c["records"] - len(upd)),
+                            "block_events": events}
+        assert obs.tracer.validate() == []
+
+
 def test_put_many_matches_scalar_puts_across_rotations():
     """A batch with repeated keys and tombstones crossing several
     memtable rotations: the same seqs, memtables, levels and stats as

@@ -109,18 +109,29 @@ def test_wall_plane_records_engine_spans_and_changes_nothing(mix):
 def test_commit_span_counts_the_block_cache_accesses():
     """The `get/commit` span's end carries the batch's block-cache
     accesses and hits: their sums over a run are what the commit's LRU
-    replays gave (the checker's probes, outside the commit, are not
+    replays gave (the checker's replays, outside the commit, are not
     counted)."""
     db, n = loaded("RO")
     bc = db.block_cache
     replays = []
+    in_checker = [False]
+    checker_body = db._checker_body
 
     def access_many(sids, blks):
         hit = BlockCache.access_many(bc, sids, blks)
-        replays.append((len(hit), int(hit.sum())))
+        if not in_checker[0]:
+            replays.append((len(hit), int(hit.sum())))
         return hit
 
+    def watched(immpc):
+        in_checker[0] = True
+        try:
+            return checker_body(immpc)
+        finally:
+            in_checker[0] = False
+
     bc.access_many = access_many
+    db._checker_body = watched
     obs = Observability(clock="wall").attach(db, name="w")
     drive(db, "RO", n)
     ends = [ev["args"] for ev in obs.tracer.events
@@ -128,6 +139,47 @@ def test_commit_span_counts_the_block_cache_accesses():
     assert len(ends) == len(replays) == obs.tracer.count("get/commit", "B")
     assert [(a["block_events"], a["cache_hits"]) for a in ends] == replays
     assert sum(h for _, h in replays) > 0
+
+
+def test_checker_span_counts_candidates_and_block_events():
+    """The `checker` span's end carries its immPC's records, the
+    candidates among them (hot, not updated) and the block-cache
+    accesses of their walks: what each run's `_newer_in_snapshot` was
+    given and made, the excluded ones summing to `Stats`, and the walks'
+    accesses with the commits' making up every access of the run."""
+    db, n = loaded("RO")
+    st0 = dataclasses.replace(db.stats)
+    bc = db.block_cache
+    acc0 = bc.hits + bc.misses
+    seen = []
+    newer_in_snapshot = db._newer_in_snapshot
+
+    def watched(keys, seqs, immpc):
+        newer, events = newer_in_snapshot(keys, seqs, immpc)
+        seen.append((len(immpc.records), len(keys), events,
+                     int(newer.sum())))
+        return newer, events
+
+    db._newer_in_snapshot = watched
+    obs = Observability(clock="wall").attach(db, name="w")
+    drive(db, "RO", n)
+    tr = obs.tracer
+    ends = [ev["args"] for ev in tr.events
+            if ev["name"] == "checker" and ev["ph"] == "E"]
+    st = db.stats
+    assert len(ends) == len(seen) == st.checker_runs - st0.checker_runs > 0
+    assert [(a["records"], a["candidates"], a["block_events"])
+            for a in ends] == [x[:3] for x in seen]
+    assert sum(x[3] for x in seen) == (st.checker_excluded_newer
+                                       - st0.checker_excluded_newer)
+    updated = st.checker_excluded_updated - st0.checker_excluded_updated
+    assert sum(a["candidates"] for a in ends) + updated <= sum(
+        a["records"] for a in ends)
+    assert sum(a["candidates"] for a in ends) > 0
+    commits = sum(ev["args"]["block_events"] for ev in tr.events
+                  if ev["name"] == "get/commit" and ev["ph"] == "E")
+    walks = sum(a["block_events"] for a in ends)
+    assert walks > 0 and commits + walks == bc.hits + bc.misses - acc0
 
 
 def test_wall_plane_on_a_cluster_detaches_whole():
@@ -374,6 +426,11 @@ def test_profile_lsm_splits_the_run_by_span(capsys):
     commit = spans["commit"]
     assert commit["block_events_per_get"] > 0
     assert 0.0 < commit["cache_hit_share"] < 1.0
+    checker = spans["checker"]
+    assert set(checker) == {"candidates_per_record",
+                            "block_events_per_candidate"}
+    assert all(np.isfinite(v) and v >= 0 for v in checker.values())
+    assert 0.0 < checker["candidates_per_record"] <= 1.0
 
 
 def test_profile_lsm_splits_a_wal_cluster(capsys):

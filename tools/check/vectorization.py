@@ -35,6 +35,11 @@ HOT_FUNCTIONS: dict[str, set[str]] = {
                     "_put_many_fallback", "_batch_probe_group",
                     "_batch_view_get", "_batch_walk_levels",
                     "_batch_probe_sst", "_commit_per_key"},
+    # the port's columnar Checker (the reference's stays per record):
+    # waived loops over the FD levels, L0's tables, the pinned
+    # imm-memtables and the reinsertion of under half a table
+    "repro_torch/core/lsm.py": {"_checker_body", "_newer_in_snapshot",
+                                "_snapshot_probes", "_probe_events"},
     "core/ralt.py": {"record_access_many", "record_range_access"},
     # the columnar multi_get commit: one waived LRU replay loop, the
     # charges in whole columns
