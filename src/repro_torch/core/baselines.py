@@ -75,10 +75,9 @@ class Mutant(TieredLSM):
         self.temps: dict[int, float] = {}
         self._accesses = 0
 
-    def _search_levels(self, key, level_range, fg, touched=None,
-                       version=None):
+    def _search_levels(self, key, level_range, touched=None, version=None):
         # wrap to count per-sstable accesses: piggyback on find path
-        res = super()._search_levels(key, level_range, fg, touched, version)
+        res = super()._search_levels(key, level_range, touched, version)
         if res is not None:
             sid = res[2]
             self.temps[sid] = self.temps.get(sid, 0.0) + 1.0
@@ -158,7 +157,7 @@ class SASCache(TieredLSM):
         self.secondary = BlockCache(int(secondary_frac * cfg.fd_size),
                                     BLOCK_BYTES)
 
-    def _block_read_via_secondary(self, sst, blk, *, rand: bool, fg: bool,
+    def _block_read_via_secondary(self, sst, blk, *, rand: bool,
                                   component: str) -> None:
         """Shared block-read ladder: secondary-cache hit turns an SD
         block read into an FD one; a miss reads SD and admits the block
@@ -166,16 +165,15 @@ class SASCache(TieredLSM):
         read = self.storage.rand_read if rand else self.storage.seq_read
         if sst.tier == "SD":
             if self.secondary.access((sst.sid, blk)):
-                read("FD", BLOCK_BYTES, fg=fg, component=component)
+                read("FD", BLOCK_BYTES, fg=True, component=component)
             else:
-                read("SD", BLOCK_BYTES, fg=fg, component=component)
+                read("SD", BLOCK_BYTES, fg=True, component=component)
                 self.storage.seq_write("FD", BLOCK_BYTES, fg=False,
                                        component="secondary")
         else:
-            read("FD", BLOCK_BYTES, fg=fg, component=component)
+            read("FD", BLOCK_BYTES, fg=True, component=component)
 
-    def _search_levels(self, key, level_range, fg, touched=None,
-                       version=None):
+    def _search_levels(self, key, level_range, touched=None, version=None):
         levels = (version or self.version).levels
         for li in level_range:
             sstables = levels[li]
@@ -196,7 +194,7 @@ class SASCache(TieredLSM):
                 # insertion point falls in
                 blk = found[2] if found else s.miss_block(key)
                 if not self.block_cache.access((s.sid, blk)):
-                    self._block_read_via_secondary(s, blk, rand=True, fg=fg,
+                    self._block_read_via_secondary(s, blk, rand=True,
                                                    component="get")
                 if found:
                     return found[0], found[1], s.sid
@@ -205,7 +203,7 @@ class SASCache(TieredLSM):
     def _scan_charge_block(self, sst, blk):
         if self.block_cache.access((sst.sid, blk)):
             return
-        self._block_read_via_secondary(sst, blk, rand=False, fg=True,
+        self._block_read_via_secondary(sst, blk, rand=False,
                                        component="scan")
 
 

@@ -259,7 +259,6 @@ class TieredLSM:
         # secondary cache hook _search_levels; a view hit would skip
         # them).  The cfg flags are re-read per get so ablations that
         # flip remix_views on a live store behave consistently.
-        self.point_counters = MergeCounters()
         self._point_view_ok = (
             type(self)._search_levels is TieredLSM._search_levels)
         # test hook: when set, PC insertions are deferred by this many ops
@@ -477,7 +476,29 @@ class TieredLSM:
             tr.begin(track, "get/mem")
         v = self.version
         kl = ks.tolist()
+        res_seq = np.zeros(n, dtype=np.int64)
+        res_vlen = np.zeros(n, dtype=np.int64)
+        has = np.zeros(n, dtype=bool)
+        tier_c = np.full(n, 4, dtype=np.int8)   # 0..4 = mem/FD/PC/SD/miss
+        viewhit = np.zeros(n, dtype=bool)
+        ev: list = []        # pending charges: (pos, sid, blk, is_sd) arrays
+        pend = np.arange(n)
+
+        def serve(mask, seqs, vlens, code):
+            """Serve the pending positions `mask` picks (the seqs and
+            vlens of those alone) from tier `code`; the rest stay
+            pending.  Returns the served positions."""
+            nonlocal pend
+            w = pend[mask]
+            res_seq[w] = seqs
+            res_vlen[w] = vlens
+            has[w] = True
+            tier_c[w] = code
+            pend = pend[~mask]
+            return w
+
         # -- resolve 1: memtables, newest table wins -------------------
+        mem_get = self.memtable.get
         if self.imm_memtables:
             folded: dict = {}
             # lint: allow-loop (imm-memtable fold — bounded by the
@@ -485,73 +506,43 @@ class TieredLSM:
             for t in reversed(self.imm_memtables):
                 folded.update(t)
             folded.update(self.memtable)
-            mem_hits = list(map(folded.get, kl))
-        else:
-            mem_hits = list(map(self.memtable.get, kl))
-        res_seq = np.zeros(n, dtype=np.int64)
-        res_vlen = np.zeros(n, dtype=np.int64)
-        has = np.zeros(n, dtype=bool)
-        tier_c = np.full(n, 4, dtype=np.int8)   # 0..4 = mem/FD/PC/SD/miss
-        viewhit = np.zeros(n, dtype=bool)
-        mem_mask = np.array([h is not None for h in mem_hits], dtype=bool)
-        if mem_mask.any():
-            sel = np.flatnonzero(mem_mask)
-            res_seq[sel] = [mem_hits[i][0] for i in sel]
-            res_vlen[sel] = [mem_hits[i][1] for i in sel]
-            has[sel] = True
-            tier_c[sel] = 0
-        st.served_mem += int(mem_mask.sum())
-        ev: list = []        # pending charges: (pos, sid, blk, is_sd) arrays
-        pend = np.flatnonzero(~mem_mask)
+            mem_get = folded.get
+        st.served_mem += len(serve(*self._dict_resolve(mem_get, kl), 0))
         if wall:
             tr.end(track, "get/mem")
         # -- resolve 2: FD group ---------------------------------------
         if len(pend):
             if wall:
                 tr.begin(track, "get/fd")
-            f_seq, f_vlen, f_found, f_view = self._batch_probe_group(
-                ks, pend, "FD", v, ev, None)
-            viewhit[pend] |= f_view
-            w = pend[f_found]
-            res_seq[w] = f_seq[f_found]
-            res_vlen[w] = f_vlen[f_found]
-            has[w] = True
-            tier_c[w] = 1
-            st.served_fd += len(w)
-            pend = pend[~f_found]
+            found, seqs, vlens, _, via_view = self._batch_probe_group(
+                ks, pend, "FD", v, ev)
+            viewhit[pend] |= via_view
+            st.served_fd += len(serve(found, seqs, vlens, 1))
             if wall:
                 tr.end(track, "get/fd")
         # -- resolve 3: mutable promotion cache ------------------------
         if len(pend):
             if wall:
                 tr.begin(track, "get/pc")
-            pc_hits = list(map(self.mpc.get, ks[pend].tolist()))
-            pcm = np.array([h is not None for h in pc_hits], dtype=bool)
-            if pcm.any():
-                sel = np.flatnonzero(pcm)
-                w = pend[sel]
-                res_seq[w] = [pc_hits[i][0] for i in sel]
-                res_vlen[w] = [pc_hits[i][1] for i in sel]
-                has[w] = True
-                tier_c[w] = 2
-                st.served_pc += len(w)
-            pend = pend[~pcm]
+            st.served_pc += len(serve(
+                *self._dict_resolve(self.mpc.get, ks[pend].tolist()), 2))
             if wall:
                 tr.end(track, "get/pc")
-        # -- resolve 4: SD group (collect §3.3 touched lists) ----------
+        # -- resolve 4: SD group, and the §3.3 touched lists of the live
+        # SD hits (no other key is inserted into the promotion cache)
         sd_touch: dict[int, list[int]] = {}
         if len(pend):
             if wall:
                 tr.begin(track, "get/sd")
-            s_seq, s_vlen, s_found, s_view = self._batch_probe_group(
-                ks, pend, "SD", v, ev, sd_touch)
-            viewhit[pend] |= s_view
-            w = pend[s_found]
-            res_seq[w] = s_seq[s_found]
-            res_vlen[w] = s_vlen[s_found]
-            has[w] = True
-            tier_c[w] = 3
+            found, seqs, vlens, sids, via_view = self._batch_probe_group(
+                ks, pend, "SD", v, ev)
+            viewhit[pend] |= via_view
+            w = serve(found, seqs, vlens, 3)
             st.served_sd += len(w)
+            if self.cfg.hotrap:
+                live = vlens != TOMBSTONE_VLEN
+                sd_touch = dict(zip(w[live].tolist(), v.sd_touched_many(
+                    ks[w[live]], sids[live], self.cfg.n_fd_levels)))
             if wall:
                 tr.end(track, "get/sd")
         if wall:
@@ -599,7 +590,7 @@ class TieredLSM:
                 # SD hits alone: each may freeze the mPC the next sees)
                 for i, seq, vlen in zip(sel.tolist(), res_seq[sel].tolist(),
                                         res_vlen[sel].tolist()):
-                    self._insert_pc(kl[i], seq, vlen, sd_touch.get(i, []))
+                    self._insert_pc(kl[i], seq, vlen, sd_touch[i])
         if wall:
             tr.end(track, "get/commit", {"block_events": len(e_pos),
                                          "cache_hits": bc.hits - hits0})
@@ -667,7 +658,7 @@ class TieredLSM:
                         obs.tracer.instant(self._obs_track, "promo/get",
                                            promo_args[i])
                     self._insert_pc(key, int(res_seq[i]), vlen,
-                                    sd_touch.get(i, []))
+                                    sd_touch[i])
             if lat_out is not None:
                 lat_out[i, 0] = dev_fd.fg_time - f0
                 lat_out[i, 1] = dev_sd.fg_time - s0
@@ -929,6 +920,16 @@ class TieredLSM:
     def _vbytes(vlen: int) -> int:
         return 0 if vlen == TOMBSTONE_VLEN else vlen
 
+    @staticmethod
+    def _dict_resolve(get, keys: list) -> tuple[np.ndarray, ...]:
+        """Look `keys` up through `get` (a memtable's or the mPC's): the
+        hit mask, and the hits' seqs and vlens in key order."""
+        hits = list(map(get, keys))     # (seq, vlen) tuples or None
+        mask = np.fromiter(map(bool, hits), dtype=bool, count=len(hits))
+        rows = np.array(list(filter(None, hits)),
+                        dtype=np.int64).reshape(-1, 2)
+        return mask, rows[:, 0], rows[:, 1]
+
     def _probe_group(self, key: int, group: str, version: Version,
                      touched: list[int] | None = None):
         """Search one level group ("FD" or "SD") for `key`: one binary
@@ -943,7 +944,7 @@ class TieredLSM:
         n_fd = self.cfg.n_fd_levels
         rng = (range(0, n_fd) if group == "FD"
                else range(n_fd, len(version.levels)))
-        return self._search_levels(key, rng, fg=True, touched=touched,
+        return self._search_levels(key, rng, touched=touched,
                                    version=version)
 
     def _view_point_get(self, key: int, group: str, version: Version,
@@ -959,9 +960,6 @@ class TieredLSM:
             return _VIEW_MISS
         found = view.point_find(key)
         saved = view.probes_replaced(key, found[2] if found else None)
-        c = self.point_counters
-        c.view_gets += 1
-        c.probes_saved += saved
         self.stats.get_view_hits += 1  # lint: allow-stats (engine)
         self.stats.get_probes_saved += saved  # lint: allow-stats (engine)
         if found is None:
@@ -992,7 +990,7 @@ class TieredLSM:
             self.ralt.record_access(key, vlen)
         return seq, vlen
 
-    def _search_levels(self, key: int, level_range, fg: bool,
+    def _search_levels(self, key: int, level_range,
                        touched: list[int] | None = None,
                        version: Version | None = None):
         levels = (version or self.version).levels
@@ -1015,9 +1013,8 @@ class TieredLSM:
                 # bloom said maybe: charge the data-block read even on FP
                 blk = found[2] if found else s.miss_block(key)
                 if not self.block_cache.access((s.sid, blk)):
-                    self.storage.rand_read(
-                        s.tier, BLOCK_BYTES, fg=fg,
-                        component="get" if fg else "checker")
+                    self.storage.rand_read(s.tier, BLOCK_BYTES, fg=True,
+                                           component="get")
                 if found:
                     return found[0], found[1], s.sid
         return None
@@ -1040,38 +1037,58 @@ class TieredLSM:
     # batched read path (vectorized batch execution)
     # ------------------------------------------------------------------
     def _batch_probe_group(self, ks: np.ndarray, idx: np.ndarray,
-                           group: str, version: Version,
-                           ev: list, touch: dict | None):
+                           group: str, version: Version, ev: list):
         """Columnar `_probe_group`: resolve one level group for the
-        batch positions `idx`.  Returns (seqs, vlens, found_mask,
-        via_view) host arrays aligned with `idx`.  Pure resolution — no
-        I/O or cache state mutates here; pending charges are appended to
-        `ev` as (pos, sid, blk, is_sd) array tuples in scalar probe
-        order and the caller replays them per key in input order.  For
-        the SD group, `touch` collects each position's §3.3 touched-sid
-        list."""
+        batch positions `idx`.  Returns (found_mask, seqs, vlens, sids,
+        via_view): the mask aligned with `idx`, the seqs, vlens and
+        winning sids of the found positions alone, and whether a view
+        served the group.  Pure resolution — no I/O or cache state
+        mutates here; pending charges are appended to `ev` as (pos, sid,
+        blk, is_sd) array tuples in scalar probe order and the caller
+        replays them per key in input order."""
         nk = len(idx)
         sub = ks[idx]
         f_seq = np.zeros(nk, dtype=np.int64)
         f_vlen = np.zeros(nk, dtype=np.int64)
+        f_sid = np.zeros(nk, dtype=np.int64)
         f_found = np.zeros(nk, dtype=bool)
+        n_fd = self.cfg.n_fd_levels
         if (self._point_view_ok and self.cfg.remix_views
                 and self.cfg.point_view_gets):
-            sig = ((group,)
-                   + version.group_signature(group, self.cfg.n_fd_levels))
-            view = self._view_cache.peek(sig)
+            view = self._view_cache.peek(
+                (group,) + version.group_signature(group, n_fd))
             if view is not None:
-                self._batch_view_get(view, version, group, sub, idx, ev,
-                                     touch, f_seq, f_vlen, f_found)
-                return f_seq, f_vlen, f_found, np.ones(nk, dtype=bool)
-        self._batch_walk_levels(sub, idx, group, version, ev, touch,
-                                f_seq, f_vlen, f_found)
-        return f_seq, f_vlen, f_found, np.zeros(nk, dtype=bool)
+                self._batch_view_get(view, group, sub, idx, ev,
+                                     f_seq, f_vlen, f_sid, f_found)
+                return (f_found, f_seq[f_found], f_vlen[f_found],
+                        f_sid[f_found], True)
+        levels = (range(0, n_fd) if group == "FD"
+                  else range(n_fd, len(version.levels)))
+        active = np.ones(nk, dtype=bool)
+        # lint: allow-loop (the walk's steps: L0's tables and the group's
+        # levels, bounded by tree topology, not batch size)
+        for sel, sids, on_sd, rows in self._batch_walk_levels(
+                sub, levels, version, active):
+            # one pending charge per bloom-positive key: false positives
+            # charge the block they would have read, like the scalar walk
+            may = rows[0] != 0
+            if not may.any():
+                continue
+            psel, psid, prow = sel[may], sids[may], rows[:, may]
+            ev.append((idx[psel].astype(np.int64), psid, prow[4],
+                       on_sd[may]))
+            found = prow[1] != 0
+            w = psel[found]
+            f_seq[w] = prow[2][found]
+            f_vlen[w] = prow[3][found]
+            f_sid[w] = psid[found]
+            f_found[w] = True
+            active[w] = False
+        return f_found, f_seq[f_found], f_vlen[f_found], f_sid[f_found], False
 
-    def _batch_view_get(self, view: GroupView, version: Version,
-                        group: str, sub: np.ndarray, idx: np.ndarray,
-                        ev: list, touch: dict | None,
-                        f_seq: np.ndarray, f_vlen: np.ndarray,
+    def _batch_view_get(self, view: GroupView, group: str, sub: np.ndarray,
+                        idx: np.ndarray, ev: list, f_seq: np.ndarray,
+                        f_vlen: np.ndarray, f_sid: np.ndarray,
                         f_found: np.ndarray) -> None:
         """`_view_point_get`, batched: one binary search on the device
         over an already-materialized GroupView for the whole sub-batch,
@@ -1105,9 +1122,6 @@ class TieredLSM:
                      view.blks[posc]]
         cols = torch.stack(cols).cpu().numpy()
         hit, saved = cols[0].astype(bool), cols[1]
-        c = self.point_counters
-        c.view_gets += len(sub)
-        c.probes_saved += int(saved.sum())
         self.stats.get_view_hits += len(sub)  # lint: allow-stats (engine)
         # lint: allow-stats (engine-owned Stats)
         self.stats.get_probes_saved += int(saved.sum())
@@ -1116,38 +1130,29 @@ class TieredLSM:
         w = np.flatnonzero(hit)
         f_seq[w] = cols[2][w]
         f_vlen[w] = cols[3][w]
+        f_sid[w] = np.asarray(view.sids, dtype=np.int64)[cols[4][w]]
         f_found[w] = True
-        sids = np.asarray(view.sids, dtype=np.int64)
-        win_sids = sids[cols[4][w]]
-        ev.append((idx[w].astype(np.int64), win_sids, cols[5][w],
+        ev.append((idx[w].astype(np.int64), f_sid[w], cols[5][w],
                    np.full(len(w), group == "SD", dtype=bool)))
-        if touch is not None and group == "SD":
-            touched = version.sd_touched_many(sub[w], win_sids,
-                                              self.cfg.n_fd_levels)
-            touch.update(zip(idx[w].tolist(), touched))
 
-    def _batch_walk_levels(self, sub: np.ndarray, idx: np.ndarray,
-                           group: str, version: Version, ev: list,
-                           touch: dict | None, f_seq: np.ndarray,
-                           f_vlen: np.ndarray,
-                           f_found: np.ndarray) -> None:
-        """Columnar `_search_levels`: walk the group's levels top-down,
-        resolving every still-unresolved key per level with one
-        fence-pointer `searchsorted` on the host; each touched SSTable
-        is probed once on the device for its whole candidate
-        sub-batch."""
-        n_fd = self.cfg.n_fd_levels
-        levels = version.levels
-        rng = (range(0, n_fd) if group == "FD"
-               else range(n_fd, len(levels)))
-        active = np.ones(len(sub), dtype=bool)
+    def _batch_walk_levels(self, keys: np.ndarray, levels: range,
+                           version: Version, active: np.ndarray):
+        """Columnar `_search_levels`, the engine's one walk over a
+        Version's levels: yields each probe step in walk order, L0's
+        tables in list order (newest first, one `SSTable.probe_many`
+        each), then one step per sorted level (a fence-pointer
+        `searchsorted` on the host, one `LevelIndex.probe` on the
+        device).  A step is (sel, sids, on_sd, rows): the positions in
+        `keys` still `active` that the table or level covers, each
+        one's table sid and whether that table is on SD, and the (5, m)
+        probe rows (bloom says maybe, found, seq, vlen, block).
+        `active` is read at every step, so the caller may clear
+        positions between steps; the walk stops once none is left."""
         # lint: allow-loop (per-level walk — bounded by tree topology,
         # not batch size; the per-key work inside each level is
         # vectorized)
-        for li in rng:
-            if not active.any():
-                return
-            sstables = levels[li]
+        for li in levels:
+            sstables = version.levels[li]
             if not sstables:
                 continue
             if li == 0:
@@ -1155,45 +1160,30 @@ class TieredLSM:
                 # lint: allow-loop (L0 run list — bounded by the
                 # compaction trigger, not by batch size)
                 for s in sstables:
-                    cand = np.flatnonzero(
-                        active & (s.min_key <= sub) & (sub <= s.max_key))
-                    if len(cand):
-                        self._batch_probe_sst(
-                            s, sub, cand, idx, ev, touch, group,
-                            f_seq, f_vlen, f_found, active)
+                    if not active.any():
+                        return
+                    sel = np.flatnonzero(
+                        active & (s.min_key <= keys) & (keys <= s.max_key))
+                    if len(sel):
+                        yield (sel, np.full(len(sel), s.sid, dtype=np.int64),
+                               np.full(len(sel), s.tier == "SD"),
+                               s.probe_many(keys[sel]))
                 continue
+            if not active.any():
+                return
+            # a sorted level: at most one table covers a key
             mins, maxs, sids = version.level_fences(li)
-            pos = np.searchsorted(maxs, sub, "left")
+            pos = np.searchsorted(maxs, keys, "left")
             posc = np.minimum(pos, len(sstables) - 1)
-            cand = active & (pos < len(sstables)) & (mins[posc] <= sub)
-            csel = np.flatnonzero(cand)
-            if not len(csel):
+            sel = np.flatnonzero(
+                active & (pos < len(sstables)) & (mins[posc] <= keys))
+            if not len(sel):
                 continue
-            tables = posc[csel]
-            if touch is not None:
-                # §3.3 touched list: every *candidate* table, pre-bloom
-                # lint: allow-loop (per-candidate list append — plain
-                # bookkeeping on the few keys that reached SD, no I/O)
-                for p, sid in zip(idx[csel].tolist(), sids[tables].tolist()):
-                    touch.setdefault(p, []).append(sid)
-            # every candidate of the level probed at once; one pending
-            # charge per bloom-positive key (each key has one table
-            # here, so the per-key replay order is the per-table walk's)
-            may, found, seqs, vlens, blks = self._level_index(
-                version, li).probe(sub[csel], tables)
-            may = may.astype(bool)
-            if not may.any():
-                continue
-            psel = csel[may]
-            ev.append((idx[psel].astype(np.int64), sids[tables[may]],
-                       blks[may], np.full(len(psel), group == "SD",
-                                          dtype=bool)))
-            found = found[may].astype(bool)
-            w = psel[found]
-            f_seq[w] = seqs[may][found]
-            f_vlen[w] = vlens[may][found]
-            f_found[w] = True
-            active[w] = False
+            tables = posc[sel]
+            on_sd = np.fromiter((s.tier == "SD" for s in sstables), bool,
+                                len(sstables))
+            yield (sel, sids[tables], on_sd[tables],
+                   self._level_index(version, li).probe(keys[sel], tables))
 
     def _level_index(self, version: Version, li: int) -> LevelIndex:
         """The LevelIndex of a sorted level, cached by the level's sids
@@ -1208,40 +1198,6 @@ class TieredLSM:
                 self._level_cache.pop(next(iter(self._level_cache)))
         self._level_cache[sig] = index
         return index
-
-    @staticmethod
-    def _batch_probe_sst(s: SSTable, sub: np.ndarray, sel: np.ndarray,
-                         idx: np.ndarray, ev: list, touch: dict | None,
-                         group: str, f_seq: np.ndarray,
-                         f_vlen: np.ndarray, f_found: np.ndarray,
-                         active: np.ndarray) -> None:
-        """Probe one SSTable for the candidate positions `sel`: bloom
-        gate and binary search on the device (`SSTable.probe_many`);
-        every bloom-positive key queues a data-block charge (false
-        positives charge the block they would have read, exactly like
-        the scalar walk)."""
-        keys = sub[sel]
-        if touch is not None:
-            # §3.3 touched list: every *candidate* table, pre-bloom
-            # lint: allow-loop (per-candidate list append — plain
-            # bookkeeping on the few keys that reached SD, no I/O)
-            for p in idx[sel].tolist():
-                touch.setdefault(p, []).append(s.sid)
-        may, found, seqs, vlens, blks = s.probe_many(keys)
-        may = may.astype(bool)
-        if not may.any():
-            return
-        psel = sel[may]
-        found = found[may].astype(bool)
-        ev.append((idx[psel].astype(np.int64),
-                   np.full(len(psel), s.sid, dtype=np.int64), blks[may],
-                   np.full(len(psel), group == "SD", dtype=bool)))
-        if found.any():
-            w = psel[found]
-            f_seq[w] = seqs[may][found]
-            f_vlen[w] = vlens[may][found]
-            f_found[w] = True
-            active[w] = False
 
     # ------------------------------------------------------------------
     # promotion cache (§3.3)
@@ -1425,57 +1381,25 @@ class TieredLSM:
         checker's keys, as the events of the reference's walk: each
         (key, covering table) pair whose bloom says maybe and whose
         search finds the key, in columns: the key's position in `keys`,
-        the table's walk rank, its sid, the record's block and seq, and
-        whether the table is on SD.  The walk takes L0's tables in list
-        order, then the sorted levels, where the fences give each key
-        its one table."""
+        the step's rank in `_batch_walk_levels`, the table's sid, the
+        record's block and seq, and whether the table is on SD.  Every
+        key walks every FD level: a walk ends at a newer version, which
+        `_newer_in_snapshot` finds from the ranks."""
         ev: list = []
-        rank = 0
-        # lint: allow-loop (the FD levels: topology, not records)
-        for li, sstables in enumerate(version.levels[:self.cfg.n_fd_levels]):
-            if not sstables or not len(keys):
-                continue
-            if li == 0:          # overlapping tables: one probe each
-                # lint: allow-loop (L0's tables, each probed once for
-                # every key it covers)
-                for s in sstables:
-                    sel = np.flatnonzero((s.min_key <= keys)
-                                         & (keys <= s.max_key))
-                    if len(sel):
-                        ev.append(self._probe_events(
-                            sel, rank, np.full(len(sel), s.sid),
-                            np.full(len(sel), s.tier == "SD"),
-                            s.probe_many(keys[sel])))
-                    rank += 1
-                continue
-            # a sorted level: at most one table covers a key
-            mins, maxs, sids = version.level_fences(li)
-            pos = np.searchsorted(maxs, keys, "left")
-            posc = np.minimum(pos, len(sstables) - 1)
-            sel = np.flatnonzero((pos < len(sstables)) & (mins[posc] <= keys))
-            if len(sel):
-                on_sd = np.fromiter((s.tier == "SD" for s in sstables), bool,
-                                    len(sstables))
-                ev.append(self._probe_events(
-                    sel, rank, sids[posc[sel]], on_sd[posc[sel]],
-                    self._level_index(version, li).probe(keys[sel],
-                                                         posc[sel])))
-            rank += 1
+        steps = self._batch_walk_levels(
+            keys, range(min(self.cfg.n_fd_levels, len(version.levels))),
+            version, np.ones(len(keys), dtype=bool))
+        # lint: allow-loop (the walk's steps: L0's tables and the FD
+        # levels, topology, not records)
+        for rank, (sel, sids, on_sd, rows) in enumerate(steps):
+            e = (rows[0] != 0) & (rows[1] != 0)
+            ev.append((sel[e], np.full(int(np.count_nonzero(e)), rank,
+                                       dtype=np.int64),
+                       sids[e], rows[4][e], rows[2][e], on_sd[e]))
         if not ev:
             return tuple(np.zeros(0, dtype=np.int64) for _ in range(5)) + (
                 np.zeros(0, dtype=bool),)
         return tuple(np.concatenate(c) for c in zip(*ev))
-
-    @staticmethod
-    def _probe_events(sel: np.ndarray, rank: int, sid: np.ndarray,
-                      sd: np.ndarray, rows: np.ndarray) -> tuple:
-        """The events of one table's or level's probe rows (a
-        `probe_many` or `LevelIndex.probe` of ``keys[sel]``): the keys
-        its bloom passes and its search finds."""
-        e = (rows[0] != 0) & (rows[1] != 0)
-        return (sel[e], np.full(int(np.count_nonzero(e)), rank,
-                                dtype=np.int64),
-                sid[e], rows[4][e], rows[2][e], sd[e])
 
     # ------------------------------------------------------------------
     # flush & the updated-field protocol (Fig. 5 a-c)

@@ -98,27 +98,38 @@ class Version:
         """Vectorized §3.3 touched-SSTable lists for a batch of SD-served
         keys: for each key, every SD table ``get`` would have probed
         top-down before (and including) the winner's table.  One
-        ``searchsorted`` per SD level over the host fences.
+        ``searchsorted`` per SD level above the last over the host
+        fences, each level a column of sids (-1 where the key probes no
+        table there).
         """
         nk = len(keys)
-        touched: list[list[int]] = [[] for _ in range(nk)]
         if nk == 0:
-            return touched
+            return []
         keys = np.ascontiguousarray(keys, dtype=np.int64)
+        winner_sids = np.asarray(winner_sids, dtype=np.int64)
+        levels = [li for li in range(n_fd, len(self.levels))
+                  if self.levels[li]]
+        if not levels:
+            return [[] for _ in range(nk)]
         done = np.zeros(nk, dtype=bool)
-        for li in range(n_fd, len(self.levels)):
-            lst = self.levels[li]
-            if not lst:
-                continue
+        cols = []
+        for li in levels[:-1]:
             mins, maxs, sids = self.level_fences(li)
             idx = np.searchsorted(maxs, keys, "left")
-            idxc = np.minimum(idx, len(lst) - 1)
-            hit = ~done & (idx < len(lst)) & (mins[idxc] <= keys)
-            for j in np.flatnonzero(hit):
-                sid = int(sids[idxc[j]])
-                touched[j].append(sid)
-                if sid == int(winner_sids[j]):
-                    done[j] = True
+            idxc = np.minimum(idx, len(sids) - 1)
+            sid = sids[idxc]
+            hit = ~done & (idx < len(sids)) & (mins[idxc] <= keys)
+            cols.append(np.where(hit, sid, -1))
+            done |= hit & (sid == winner_sids)
+        # a key not yet done has its winner in the last level, and the
+        # winner's table is the one table there that covers it
+        cols.append(np.where(done, -1, winner_sids))
+        mat = np.stack(cols, axis=1)
+        touched = mat.tolist()
+        # only the keys that skip a level (a gap in its fences, or a
+        # winner above the last level) need their -1s taken out
+        for j in np.flatnonzero((mat < 0).any(axis=1)).tolist():
+            touched[j] = [s for s in touched[j] if s >= 0]
         return touched
 
     # ------------------------------------------------------------------

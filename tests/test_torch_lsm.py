@@ -151,6 +151,14 @@ def test_point_gets_off_views_and_scalar_api(hotrap):
     assert dataclasses.asdict(got.stats) == dataclasses.asdict(want.stats)
     assert got.stats.get_view_hits > 0
     assert got.storage.snapshot() == want.storage.snapshot()
+    # the batch's §3.3 touched lists, views' and walks' alike, through
+    # the table-by-table sid map of the two engines' equal levels
+    assert levels_of(got) == levels_of(want)
+    sid = {w.sid: g.sid for wl, gl in zip(want.levels, got.levels)
+           for w, g in zip(wl, gl)}
+    assert got._deferred_pc == [(t, k, sq, v, [sid[x] for x in touched])
+                                for t, k, sq, v, touched in want._deferred_pc]
+    assert any(touched for *_, touched in got._deferred_pc)
 
 
 # the columnar commit's cases: a block cache of `blocks` blocks (evicting
